@@ -6,7 +6,8 @@
 Phases, in order; any mismatch raises and the run exits non-zero:
 
 1. the card's name and power limit, and the build of every CUDA kernel
-   from the sources in this checkout (``kernels/_build.py``);
+   from the sources in this checkout (``kernels/_build.py``, one ``nvcc``
+   per source, all in parallel);
 2. kernel phase: the packed dequant-matmul kernel against its plain
    PyTorch twin for int4/int3/int2 payloads at the serving path's shapes
    (m ∈ {1, 8}; (k, n) ∈ {(2304, 2304), (2304, 5760), (5760, 2304)}), plus
@@ -18,28 +19,61 @@ Phases, in order; any mismatch raises and the run exits non-zero:
    bf16 and f32 x·s splits into three bf16 terms, 3 products at 989
    TFLOP/s; the f32 CUDA-core time of the same count, at 67 TFLOP/s, is
    ``f32_cuda_core_ms`` in the detail file);
-3. serve phase: minicpm-2b at full width and depth, packed int4,
+3. the ZSIC block kernel against its twin, bit for bit, at bn = 128 and the
+   PTQ path's row counts (230, 576, 2304, 5760), with its bound (bytes of
+   y, codes, residual and the L block against the a·bn·(bn+1)/2 unfused
+   multiply-subtracts, 2 f32 instructions each, and the a·bn divisions and
+   roundings on the CUDA cores; no library call computes ZSIC); then one
+   full ``zsic_quantize`` at (2304, 2304), which launches the kernel on
+   strided column slices as the PTQ path does, against the same run through
+   the twin (bit for bit) and against ``zsic_numpy`` in float64 (≥ 99.9 %
+   of the codes equal, Lemma 3.2);
+4. the flash attention kernel against its twin at minicpm-2b's heads
+   (B·H = 4·36, d = 64), S ∈ {128, 256, 200}, window ∈ {0, 64}, causal,
+   with ``F.scaled_dot_product_attention`` timed as the library call (never
+   called by the port);
+5. serve phase: minicpm-2b at full width and depth, packed int4,
    ``ContinuousEngine`` with 8 slots serving 8 requests (prompt 32, 16 new
    tokens, max_len 64, prefill chunk 16).  First-step logits through the
    kernel are held against the dequantized-weight model, and the kernel
    must have been launched 7 × 40 times per decode step; then a few
    decode steps at that batch are timed on the host clock and traced with
    ``torch.profiler`` for the device's busy and idle share of the step;
-4. ladder phase: the same at full width and 4 layers for int3 and int2.
+6. ladder phase: the same at full width and 4 layers for int3 and int2;
+7. PTQ phase: minicpm-2b at full width cut to 2 layers, weights from the
+   port's ``init_params`` (seed 0), calibration 2 batches of 4 × 128 and
+   evaluation 1 batch of 4 × 257 numpy tokens.  ``quantize_model`` runs
+   ``watersic`` (the LMMSE column loop) and ``hptq`` (the ZSIC kernel) at
+   3 bits; each prints its realized rate (within 0.05 of 3), seconds per
+   matrix, ZSIC-kernel launches (> 0 for hptq) and, from the same run, the
+   synchronized host time of its main spans; ``model_ppl`` of the
+   float, watersic and hptq models runs through the flash kernel (2 layers
+   × 1 batch launches per call) and through the twin;
+8. serve-after-PTQ phase: the watersic codes installed as packed int4
+   leaves (``from_watersic``, escapes included) serve 4 requests (prompt
+   16, 8 new tokens); first-step logits against the model with
+   ``QuantizedLinear.dequant()`` weights.
 
-The second-to-last line is the kernel summary JSON, the last line
-``{"ok": true, "device": {...}}``.  Per-case numbers also go to
+The second-to-last line is the kernel summary JSON (five entries), the
+last line ``{"ok": true, "device": {...}}``.  Per-case numbers also go to
 ``chiprun_out/chip_smoke_detail.json``.  Tolerances:
 
-* kernel vs twin: |Δ| ≤ 1e-4 + 1e-4·|twin| (inputs scaled so outputs are
-  O(1); f32 sums over k ≤ 5760 in another order differ by ≈ eps·√k);
-* logits vs the dequantized-weight model: max|Δ| ≤ 1e-3 · max|logits|
-  (40 layers of f32 sums in another order).
+* dequant kernel vs twin: |Δ| ≤ 1e-4 + 1e-4·|twin| (inputs scaled so
+  outputs are O(1); f32 sums over k ≤ 5760 in another order differ by
+  ≈ eps·√k);
+* ZSIC kernel vs twin: equal bit for bit (the same divisions, roundings
+  and unfused products and subtractions);
+* flash kernel vs twin: |Δ| ≤ 2e-5 + 2e-5·|twin| (f32 sums of the same
+  terms in another order: online against materialized softmax);
+* ``model_ppl`` through the kernel vs through the twin: 1e-5 relative;
+* logits vs the float-weight model: max|Δ| ≤ 1e-3 · max|logits|
+  (f32 sums in another order over 40 layers).
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -54,8 +88,19 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import (CODE_RANGE, chol_lower,  # noqa: E402
+                              random_covariance, zsic_numpy)
 from repro_torch.core.packing import pack_codes  # noqa: E402
-from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import _build, flash  # noqa: E402
+from repro_torch.kernels.flash import (attention_ref,  # noqa: E402
+                                       flash_attention_cuda)
+from repro_torch.kernels.flash import \
+    reset_launches as reset_flash_launches  # noqa: E402
+from repro_torch.kernels.zsic import ops as zsic_ops  # noqa: E402
+from repro_torch.kernels.zsic import (zsic_block_cuda,  # noqa: E402
+                                      zsic_block_ref, zsic_quantize)
+from repro_torch.kernels.zsic import \
+    reset_launches as reset_zsic_launches  # noqa: E402
 from repro_torch.kernels.dequant import (LAUNCHES, PLANE_GROUPS,  # noqa: E402
                                          dequant_matmul,
                                          dequant_matmul_packed_cuda,
@@ -67,12 +112,15 @@ from repro_torch.models import decode_chunk, decode_step  # noqa: E402
 from repro_torch.models import (init_cache, init_params,  # noqa: E402
                                 split_layers)
 from repro_torch.models.layers import unembed  # noqa: E402
-from repro_torch.quant import is_qweight  # noqa: E402
+from repro_torch.quant import from_watersic, is_qweight  # noqa: E402
+from repro_torch.quant.pipeline import (PTQConfig, model_ppl,  # noqa: E402
+                                        quantize_model)
 from repro_torch.serve import (ContinuousEngine, EngineConfig,  # noqa: E402
                                Request)
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOP_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
+F32_INSTR_PER_S = F32_FLOP_PER_S / 2  # f32 instructions/s (an FMA is 2 flops)
 BF16_FLOP_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
 #: bf16 tensor-core products per f32 product done exactly (x·s in 3 terms)
 BF16_TERMS = 3
@@ -82,9 +130,22 @@ PATH_SHAPES = [(2304, 2304), (2304, 5760), (5760, 2304)]
 PER_LAYER = {(2304, 2304): 4, (2304, 5760): 2, (5760, 2304): 1}
 KERNEL_TOL = 1e-4
 LOGIT_TOL = 1e-3
+#: flash kernel vs twin: f32 sums of the same terms in another order
+#: (online softmax against the materialized one) on O(1) outputs
+FLASH_TOL = 2e-5
+#: model_ppl through the kernel vs through the twin, relative
+PPL_TOL = 1e-5
+#: rows of the ZSIC block launches on the PTQ path at minicpm-2b's widths:
+#: the secant search's 10 % subsamples of 2304 and 5760 rows, and the
+#: full matrices
+ZSIC_ROWS = (230, 576, 2304, 5760)
 _HI = {4: 8, 3: 4, 2: 2}
 SOURCE = "src/repro_torch/kernels/dequant/csrc/dequant_packed.cu"
 REPLACES = "src/repro/kernels/dequant/dequant_matmul.py:179"
+ZSIC_SOURCE = "src/repro_torch/kernels/zsic/csrc/zsic_block.cu"
+ZSIC_REPLACES = "src/repro/kernels/zsic/zsic_block.py:111"
+FLASH_SOURCE = "src/repro_torch/kernels/flash/csrc/flash_attention.cu"
+FLASH_REPLACES = "src/repro/kernels/flash/flash_attention.py:99"
 
 
 def device_ms(fn, dev, *, reps=25, flush=None):
@@ -218,20 +279,30 @@ def dequantized_model(params):
     return params
 
 
-def serve_path(cfg, wbits, dev, *, n_req, prompt_len, new_tokens, max_len,
-               slots, chunk):
-    """Quantize, check first-step logits, serve; returns a record."""
+def serve_path(cfg, wbits, dev, **kw):
+    """Tree-quantized random weights at ``wbits``, served by serve_tree
+    against the dequantized-weight model; returns (record, params)."""
     params = quantize_for_wbits(init_params(cfg, 0, device=dev), wbits)
     torch.cuda.synchronize(dev)
+    return serve_tree(cfg, params, dequantized_model, wbits, dev, **kw), \
+        params
+
+
+def serve_tree(cfg, params, oracle_of, wbits, dev, *, n_req, prompt_len,
+               new_tokens, max_len, slots, chunk):
+    """First-step logits of the packed tree against ``oracle_of(params)``
+    (the same model with float weights), then ``ContinuousEngine`` serves
+    ``n_req`` requests; the packed kernel must run 7 × n_layers times per
+    decode step.  Returns a record."""
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab, prompt_len).astype(np.int32)
                for _ in range(n_req)]
-    # first-step logits: kernel-served model vs the dequantized-weight model
+    # first-step logits: kernel-served model vs the float-weight model
     tok = torch.as_tensor(np.stack([p[:1] for p in prompts]),
                           dtype=torch.long, device=dev)
     got, _ = decode_step(cfg, params, init_cache(
         cfg, n_req, max_len, torch.float32, device=dev), tok)
-    oracle = dequantized_model(params)
+    oracle = oracle_of(params)
     want, _ = decode_step(cfg, oracle, init_cache(
         cfg, n_req, max_len, torch.float32, device=dev), tok)
     del oracle
@@ -291,7 +362,7 @@ def serve_path(cfg, wbits, dev, *, n_req, prompt_len, new_tokens, max_len,
           f" {launches[wbits]} kernel launches, weight bytes "
           f"{eng.weight_bytes} (bf16 {eng.weight_bytes_bf16}), first-step "
           f"logits rel err {logit_err:.3e}", flush=True)
-    return rec, params
+    return rec
 
 
 def _device_busy_ms(prof):
@@ -366,6 +437,348 @@ def step_breakdown(cfg, params, dev, slots, max_len, cases):
     return rec
 
 
+
+# ---------------------------------------------------------------------------
+# the quantizer's kernels: ZSIC block recursion and flash attention
+# ---------------------------------------------------------------------------
+
+
+def zsic_operands(a, bn, dev, seed):
+    """(y (a, bn), lower-triangular L (bn, bn), WaterSIC spacings) f32 on
+    the card, from a numpy seed; also the float64 numpy originals."""
+    rng = np.random.default_rng(seed)
+    sigma, _ = random_covariance(bn, condition=20.0, seed=seed + 1)
+    l = chol_lower(sigma)
+    y = rng.standard_normal((a, bn)) @ l
+    ldiag = np.abs(np.diag(l))
+    alphas = 0.05 * np.exp(np.mean(np.log(ldiag))) / ldiag
+    f32 = [torch.as_tensor(v.astype(np.float32), device=dev)
+           for v in (y, l, alphas)]
+    return f32, (y, l, alphas)
+
+
+def zsic_case(a, bn, dev, flush):
+    """Kernel vs twin on one block, bit for bit, with times and bound."""
+    (y, l, alphas), _ = zsic_operands(a, bn, dev, seed=a + bn)
+    z, r = zsic_block_cuda(y, l, alphas)
+    zt, rt = zsic_block_ref(y, l, alphas)
+    torch.cuda.synchronize(dev)
+    mismatches = int((z != zt).sum())
+    err = float((r - rt).abs().max())
+    if mismatches or not torch.equal(r, rt):
+        raise AssertionError(f"zsic_block a={a} bn={bn}: {mismatches} code "
+                             f"mismatches, max |Δ resid| {err:.3e}")
+    # bytes: y in, codes and residual out, the L block and α once;
+    # operations: a·bn·(bn+1)/2 multiply-subtracts, each an unfused f32
+    # multiply and subtract (2 instructions), plus a·bn divisions and a·bn
+    # roundings, on the CUDA cores (the recursion is exact f32: no tensor
+    # cores)
+    nbytes = 4 * (3 * a * bn + bn * bn + bn)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (a * bn * (bn + 1) + 2 * a * bn) / F32_INSTR_PER_S * 1e3
+    return {"a": a, "bn": bn, "code_mismatches": mismatches,
+            "max_abs_err": err,
+            "ms": device_ms(lambda: zsic_block_cuda(y, l, alphas), dev,
+                            flush=flush),
+            "plain_ms": device_ms(lambda: zsic_block_ref(y, l, alphas), dev,
+                                  flush=flush, reps=5),
+            "bound_ms": max(t_bytes, t_ops), "bytes_ms": t_bytes,
+            "operations_ms": t_ops,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def zsic_phase(dev, flush):
+    """The block kernel at the PTQ path's row counts (full rows of the
+    (2304, ·) and (5760, ·) matrices, and the secant search's 10 % row
+    subsamples), then one full zsic_quantize against float64 numpy."""
+    cases = {}
+    for a in ZSIC_ROWS:
+        c = cases[a] = zsic_case(a, 128, dev, flush)
+        print(f"zsic_block a={a} bn=128: ms={c['ms']:.5f} plain_ms="
+              f"{c['plain_ms']:.5f} bound_ms={c['bound_ms']:.5f} "
+              f"({c['bound_by']}) code_mismatches={c['code_mismatches']} "
+              f"max_abs_err={c['max_abs_err']:.3e}", flush=True)
+    (y, l, alphas), (y64, l64, a64) = zsic_operands(2304, 2304, dev, seed=7)
+    z, r = zsic_quantize(y, l, alphas)
+    # the same blocked run with the twin in place of the kernel: the PTQ
+    # path's strided column slices of y and L, held bit for bit
+    kernel_fn = zsic_ops.zsic_block
+    zsic_ops.zsic_block = zsic_block_ref
+    try:
+        zt, rt = zsic_quantize(y, l, alphas)
+    finally:
+        zsic_ops.zsic_block = kernel_fn
+    torch.cuda.synchronize(dev)
+    strided_mismatches = int((z != zt).sum())
+    if strided_mismatches or not torch.equal(r, rt):
+        raise AssertionError(
+            f"zsic_quantize (2304, 2304): {strided_mismatches} code "
+            f"mismatches against the twin, max |Δ resid| "
+            f"{float((r - rt).abs().max()):.3e}")
+    print("zsic_quantize (2304, 2304) through the kernel equals the same run "
+          "through the twin bit for bit", flush=True)
+    t0 = time.perf_counter()
+    z_ref, _ = zsic_numpy(y64, l64, a64)
+    agree = float((z.cpu().numpy() == z_ref).mean())
+    bound = 0.5 * a64 * np.abs(np.diag(l64))
+    lemma = bool(np.all(np.abs(r.cpu().numpy())
+                        <= bound[None, :] * (1 + 1e-4) + 1e-6))
+    print(f"zsic_quantize (2304, 2304) vs zsic_numpy float64: code agreement "
+          f"{agree:.6f}, Lemma 3.2 {'holds' if lemma else 'FAILS'} "
+          f"(oracle {time.perf_counter() - t0:.1f}s)", flush=True)
+    if agree < 0.999 or not lemma:
+        raise AssertionError("full ZSIC disagrees with the float64 oracle")
+    return {"cases": cases, "full_agreement": agree, "full_lemma": lemma,
+            "full_twin_code_mismatches": strided_mismatches}
+
+
+def flash_twin(q, k, v, *, causal=True, window=0):
+    """The flash kernel's plain twin on (B, S, H, d) CUDA tensors."""
+    b, s, h, d = q.shape
+    fold = [x.transpose(1, 2).reshape(b * h, s, d) for x in (q, k, v)]
+    out = attention_ref(*fold, causal=causal, window=window)
+    return out.reshape(b, h, s, d).transpose(1, 2)
+
+
+def _kept_pairs(s, causal, window):
+    i = np.arange(s)[:, None]
+    j = np.arange(s)[None, :]
+    keep = np.ones((s, s), bool)
+    if causal:
+        keep &= j <= i
+    if window:
+        keep &= i - j < window
+    return int(keep.sum())
+
+
+def flash_case(s, window, dev, gen, flush):
+    """Kernel vs twin at minicpm-2b's heads (B·H = 4·36, d = 64)."""
+    b, h, d = 4, 36, 64
+    q, k, v = [torch.randn((b, s, h, d), generator=gen, device=dev)
+               for _ in range(3)]
+    got = flash_attention_cuda(q, k, v, causal=True, window=window)
+    want = flash_twin(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize(dev)
+    err = check(got, want, f"flash S={s} window={window}", atol=FLASH_TOL,
+                rtol=FLASH_TOL)
+    mask = None
+    if window:
+        i = torch.arange(s, device=dev)[:, None]
+        j = torch.arange(s, device=dev)[None, :]
+        mask = (j <= i) & (i - j < window)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    def library():
+        if mask is None:
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+    lib_err = float((library().transpose(1, 2) - want).abs().max())
+    # bytes: q, k, v read and o written once; operations: 2·d for q·k and
+    # 2·d for p·v per kept (query, key) pair, on the bf16 tensor cores with
+    # an f32-accurate 3-term split (the f32 CUDA-core time is printed too)
+    flops = 4 * d * _kept_pairs(s, True, window) * b * h
+    t_bytes = 4 * 4 * b * s * h * d / HBM_BYTES_PER_S * 1e3
+    t_ops = BF16_TERMS * flops / BF16_FLOP_PER_S * 1e3
+    return {"bh": b * h, "s": s, "d": d, "window": window,
+            "max_abs_err": err, "library_max_abs_err": lib_err,
+            "ms": device_ms(lambda: flash_attention_cuda(
+                q, k, v, causal=True, window=window), dev, flush=flush),
+            "plain_ms": device_ms(lambda: flash_twin(
+                q, k, v, causal=True, window=window), dev, flush=flush),
+            "library_ms": device_ms(library, dev, flush=flush),
+            "bound_ms": max(t_bytes, t_ops), "bytes_ms": t_bytes,
+            "operations_ms": t_ops,
+            "f32_cuda_core_ms": flops / F32_FLOP_PER_S * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def flash_phase(dev, gen, flush):
+    cases = []
+    for s in (128, 256, 200):
+        for window in (0, 64):
+            c = flash_case(s, window, dev, gen, flush)
+            cases.append(c)
+            print(f"flash B*H=144 S={s} d=64 window={window}: ms="
+                  f"{c['ms']:.5f} plain_ms={c['plain_ms']:.5f} library_ms="
+                  f"{c['library_ms']:.5f} bound_ms={c['bound_ms']:.5f} "
+                  f"({c['bound_by']}; f32 CUDA cores "
+                  f"{c['f32_cuda_core_ms']:.5f}) max_abs_err="
+                  f"{c['max_abs_err']:.3e}", flush=True)
+    return cases
+
+
+# ---------------------------------------------------------------------------
+# post-training quantization of minicpm-2b, then serving its codes
+# ---------------------------------------------------------------------------
+
+
+def ppl_pair(cfg, params, evalb, what):
+    """model_ppl through the flash kernel (its launches counted) and
+    through the plain twin; they must agree within PPL_TOL relative."""
+    reset_flash_launches()
+    ppl = model_ppl(cfg, params, evalb)
+    launches = flash_attention_cuda.launches
+    if launches != cfg.n_layers * len(evalb):
+        raise AssertionError(f"{what}: {launches} flash launches, expected "
+                             f"{cfg.n_layers} layers x {len(evalb)} batches")
+    kernel_fn = flash.flash_attention
+    flash.flash_attention = flash_twin
+    try:
+        ppl_twin = model_ppl(cfg, params, evalb)
+    finally:
+        flash.flash_attention = kernel_fn
+    rel = abs(ppl - ppl_twin) / ppl_twin
+    if not math.isfinite(ppl) or rel > PPL_TOL:
+        raise AssertionError(f"{what}: model_ppl {ppl} (kernel) vs "
+                             f"{ppl_twin} (twin)")
+    print(f"model_ppl {what}: {ppl:.4f} through the flash kernel "
+          f"({launches} launches), {ppl_twin:.4f} through the twin "
+          f"(rel diff {rel:.2e})", flush=True)
+    return {"ppl": ppl, "ppl_twin": ppl_twin, "rel_diff": rel,
+            "flash_launches": launches}
+
+
+#: (module, function) pairs whose host-clock time (synchronized on both
+#: sides) the PTQ phase adds up, for where its time goes
+PTQ_SPANS = (("repro_torch.quant.pipeline", "forward_with_taps"),
+             ("repro_torch.quant.pipeline", "accumulate_stats"),
+             ("repro_torch.core.watersic", "zsic_lmmse"),
+             ("repro_torch.core.watersic", "zsic_quantize"),
+             ("repro_torch.core.watersic", "find_optimal_rescalers"),
+             ("repro_torch.core.entropy", "empirical_entropy"))
+
+
+def timed_spans(dev, spans):
+    """Wrap each (module, function) so its calls add their synchronized
+    host-clock seconds to the returned dict, and count the calls and the
+    columns of their first argument (``<name>_calls``, ``<name>_cols``)
+    into a second; returns (seconds, counts, restore)."""
+    import importlib
+    took, counts, saved = {}, {}, []
+    for modname, name in spans:
+        mod = importlib.import_module(modname)
+        fn = getattr(mod, name)
+        saved.append((mod, name, fn))
+
+        def wrapper(*a, _fn=fn, _name=name, **kw):
+            counts[f"{_name}_calls"] = counts.get(f"{_name}_calls", 0) + 1
+            if isinstance(a[0], torch.Tensor) and a[0].ndim == 2:
+                counts[f"{_name}_cols"] = counts.get(f"{_name}_cols", 0) \
+                    + a[0].shape[1]
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            try:
+                return _fn(*a, **kw)
+            finally:
+                torch.cuda.synchronize(dev)
+                took[_name] = took.get(_name, 0.0) + time.perf_counter() - t0
+        setattr(mod, name, wrapper)
+
+    def restore():
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    return took, counts, restore
+
+
+def ptq_phase(cfg, dev):
+    """quantize_model (watersic: the LMMSE column loop; hptq: the ZSIC
+    kernel) at 3 bits, and model_ppl of the float and quantized models.
+    One run per method gives its wall time, its ZSIC launches and, with
+    the spans of PTQ_SPANS timed, where the time goes."""
+    params = init_params(cfg, 0, device=dev)
+    rng = np.random.default_rng(1)
+    calib = [rng.integers(0, cfg.vocab, (4, 128)).astype(np.int32)
+             for _ in range(2)]
+    evalb = [rng.integers(0, cfg.vocab, (4, 257)).astype(np.int32)]
+    rec = {"calib": "2 x (4, 128)", "eval": "1 x (4, 257)",
+           "ppl": {"float": ppl_pair(cfg, params, evalb, "float")}}
+    results = {}
+    for method in ("watersic", "hptq"):
+        shapes = []
+        record = zsic_ops.zsic_block_cuda
+
+        def recorder(y, *a, **kw):
+            shapes.append(int(y.shape[0]))
+            return record(y, *a, **kw)
+        zsic_ops.zsic_block_cuda = recorder
+        took, counts, restore = timed_spans(dev, PTQ_SPANS)
+        reset_zsic_launches()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        try:
+            qp, qlin, budget, rows = quantize_model(
+                cfg, params, calib, PTQConfig(target_bits=3.0, method=method))
+            torch.cuda.synchronize(dev)
+        finally:
+            restore()
+            zsic_ops.zsic_block_cuda = record
+        wall = time.perf_counter() - t0
+        launches = zsic_block_cuda.launches
+        rate = budget.realized_rate
+        if abs(rate - 3.0) > 0.05:
+            raise AssertionError(f"{method}: realized rate {rate}")
+        if method == "hptq" and launches == 0:
+            raise AssertionError("hptq ran no ZSIC kernel launch")
+        mix = {a: shapes.count(a) for a in sorted(set(shapes))}
+        took["rest"] = wall - sum(took.values())
+        print(f"ptq {method} where the time goes (s): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in took.items())
+              + "; " + ", ".join(f"{k} {v}" for k, v in counts.items()),
+              flush=True)
+        rec[method] = {"realized_rate": rate, "wall_s": wall,
+                       "breakdown_s": took, "span_counts": counts,
+                       "s_per_matrix": wall / len(qlin),
+                       "matrices": len(qlin), "zsic_launches": launches,
+                       "zsic_launch_rows": mix,
+                       "rate_eff_mean": float(np.mean([r["rate"]
+                                                       for r in rows]))}
+        print(f"ptq {cfg.name} L={cfg.n_layers} {method}: realized rate "
+              f"{rate:.4f} bits, {wall:.2f}s for {len(qlin)} matrices = "
+              f"{wall / len(qlin):.3f} s/matrix, {launches} ZSIC kernel "
+              f"launches (rows per launch: {mix})", flush=True)
+        rec["ppl"][method] = ppl_pair(cfg, qp, evalb, method)
+        results[method] = (qp, qlin)
+    return rec, results
+
+
+def install_codes(qparams, qlinears, n_layers, nbits=4):
+    """Swap the dequantized float weights for stacked packed leaves
+    (``from_watersic``); a path's escape capacity is its largest escape
+    count over the layers.  Returns (tree, escapes installed)."""
+    lo, hi = CODE_RANGE[nbits]
+    groups = {}
+    for name, q in qlinears.items():
+        groups.setdefault(tuple(name.split("/")[1:]), {})[
+            int(name.split("/")[0][1:])] = q
+    p = {**qparams, "layers": {k: dict(v) for k, v in
+                               qparams["layers"].items()}}
+    escapes = 0
+    for path, per_layer in groups.items():
+        counts = [int(((q.codes < lo) | (q.codes > hi)).sum())
+                  for q in per_layer.values()]
+        escapes += sum(counts)
+        leaves = [from_watersic(per_layer[l], nbits=nbits,
+                                escape_capacity=max(counts))
+                  for l in range(n_layers)]
+        p["layers"][path[0]][path[1]] = {
+            "w": {k: torch.stack([lf[k] for lf in leaves])
+                  for k in leaves[0]}}
+    return p, escapes
+
+
+def serve_after_ptq(cfg, qp, qlin, dev):
+    tree, escapes = install_codes(qp, qlin, cfg.n_layers)
+    if escapes == 0:
+        raise AssertionError("the installed WaterSIC codes carry no escapes")
+    print(f"serve-after-ptq: watersic codes installed as packed int4 with "
+          f"{escapes} escapes", flush=True)
+    rec = serve_tree(cfg, tree, lambda _: qp, 4, dev, n_req=4,
+                     prompt_len=16, new_tokens=8, max_len=32, slots=4,
+                     chunk=16)
+    rec["escapes"] = escapes
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available", file=sys.stderr)
@@ -381,9 +794,10 @@ def main() -> int:
     took = _build.build_all()
     print(f"build: {json.dumps(took)} ({time.perf_counter() - t0:.2f}s)",
           flush=True)
-    for line in _build.build_log("dequant_packed").splitlines():
-        if "registers" in line:
-            print("ptxas:", line.strip())
+    for stem in _build.sources():
+        for line in _build.build_log(stem).splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"ptxas {stem}:", line.strip())
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     # half a second of matmuls so the first timed case finds the clocks up
@@ -395,6 +809,10 @@ def main() -> int:
     del a
 
     cases = kernel_phase(dev, gen)
+    flush = torch.ones(16 << 20, dtype=torch.float32, device=dev)  # 64 MB
+    zsic = zsic_phase(dev, flush)
+    flash_cases = flash_phase(dev, gen, flush)
+    del flush
 
     cfg = get_config("minicpm-2b")
     serve, params = serve_path(cfg, 4, dev, n_req=8, prompt_len=32,
@@ -426,6 +844,15 @@ def main() -> int:
         del p
         torch.cuda.empty_cache()
 
+    t0 = time.perf_counter()
+    ptq_cfg = dataclasses.replace(cfg, n_layers=2)
+    ptq, results = ptq_phase(ptq_cfg, dev)
+    ptq["serve"] = serve_after_ptq(ptq_cfg, *results["watersic"], dev)
+    del results
+    torch.cuda.empty_cache()
+    print(f"ptq + serve-after-ptq phases: {time.perf_counter() - t0:.1f}s",
+          flush=True)
+
     kernels, detail_mix = [], {}
     for nbits in (4, 3, 2):
         mix = {(c["k"], c["n"]): c for c in cases
@@ -449,9 +876,38 @@ def main() -> int:
             >= per_launch["operations_ms"] else "operations",
             "library_ms": per_launch["library_ms"]})
         detail_mix[nbits] = per_launch
+    mix = ptq["hptq"]["zsic_launch_rows"]
+    zmix = {key: sum(n * zsic["cases"][a][key] for a, n in mix.items())
+            / sum(mix.values())
+            for key in ("ms", "plain_ms", "bound_ms", "bytes_ms",
+                        "operations_ms")}
+    kernels.append({
+        "name": "zsic_block", "route": "cuda", "source": ZSIC_SOURCE,
+        "replaces": ZSIC_REPLACES,
+        "launches": ptq["hptq"]["zsic_launches"],
+        "max_abs_err": max(c["max_abs_err"] for c in zsic["cases"].values()),
+        "code_mismatches": sum(c["code_mismatches"]
+                               for c in zsic["cases"].values())
+        + zsic["full_twin_code_mismatches"],
+        "ms": zmix["ms"], "plain_ms": zmix["plain_ms"],
+        "bound_ms": zmix["bound_ms"],
+        "bound_by": "bytes" if zmix["bytes_ms"] >= zmix["operations_ms"]
+        else "operations",
+        "library_ms": None})
+    path = next(c for c in flash_cases if c["s"] == 256 and not c["window"])
+    kernels.append({
+        "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
+        "replaces": FLASH_REPLACES,
+        "launches": sum(p["flash_launches"] for p in ptq["ppl"].values()),
+        "max_abs_err": max(c["max_abs_err"] for c in flash_cases),
+        "ms": path["ms"], "plain_ms": path["plain_ms"],
+        "bound_ms": path["bound_ms"], "bound_by": path["bound_by"],
+        "library_ms": path["library_ms"]})
     detail = {"device": smi.stdout.strip(), "cases": cases, "serve": serve,
               "ladder": ladder, "kernels": kernels,
-              "m8_decode_mix_per_launch": detail_mix}
+              "m8_decode_mix_per_launch": detail_mix, "zsic": zsic,
+              "zsic_ptq_mix_per_launch": zmix, "flash": flash_cases,
+              "ptq": ptq}
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke_detail.json").write_text(json.dumps(detail, indent=1))

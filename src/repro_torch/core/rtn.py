@@ -1,0 +1,50 @@
+"""RTN baselines (round-to-nearest; paper Table 2 rows RTN / Huffman-RTN;
+port of ``repro/core/rtn.py``, float64 numpy).
+
+``rtn_absmax``  — classic b-bit RTN with per-row absmax scaling
+                  (log-cardinality rate = b bits/weight).
+``huffman_rtn`` — fixed uniform grid (no clipping) + entropy-coded rate,
+                  i.e. RTN in the entropy-coded convention of the paper.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+
+from . import entropy as ent
+
+__all__ = ["rtn_absmax", "huffman_rtn"]
+
+
+def rtn_absmax(w: np.ndarray, bits: int, *, per_row: bool = True) -> Dict:
+    """b-bit symmetric absmax RTN.  Rate = ``bits`` (log-cardinality)."""
+    w = np.asarray(w, dtype=np.float64)
+    qmax = 2 ** (bits - 1) - 1
+    if per_row:
+        scale = np.abs(w).max(axis=1, keepdims=True) / qmax
+    else:
+        scale = np.abs(w).max() / qmax
+    scale = np.maximum(scale, 1e-30)
+    z = np.clip(np.rint(w / scale), -qmax - 1, qmax).astype(np.int64)
+    w_hat = z * scale
+    return {"codes": z, "w_hat": w_hat, "rate": float(bits),
+            "scale": scale}
+
+
+def huffman_rtn(w: np.ndarray, alpha: float) -> Dict:
+    """Uniform-grid RTN with entropy-coded (unbounded) codes."""
+    w = np.asarray(w, dtype=np.float64)
+    z = np.rint(w / alpha).astype(np.int64)
+    w_hat = z * alpha
+    return {"codes": z, "w_hat": w_hat, "entropy": ent.empirical_entropy(z),
+            "rate": ent.empirical_entropy(z)}
+
+
+def distortion(w, w_hat, sigma_x) -> float:
+    """D = (1/na)·tr((W−Ŵ)Σ_X(W−Ŵ)ᵀ)."""
+    w = np.asarray(w, dtype=np.float64)
+    err = w - np.asarray(w_hat, dtype=np.float64)
+    a, n = err.shape
+    return float(np.einsum("ij,jk,ik->", err,
+                           np.asarray(sigma_x, np.float64), err) / (a * n))

@@ -14,8 +14,10 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import flash
+
 __all__ = ["rmsnorm", "layernorm", "dense", "rope", "KVCache",
-           "attention_decode", "mlp", "embed", "unembed"]
+           "attention_train", "attention_decode", "mlp", "embed", "unembed"]
 
 
 # ---------------------------------------------------------------------------
@@ -89,7 +91,7 @@ def rope(x, positions, theta: float = 10000.0):
 
 
 # ---------------------------------------------------------------------------
-# Attention (decode)
+# Attention (full sequence, decode)
 # ---------------------------------------------------------------------------
 
 
@@ -121,6 +123,44 @@ def _attn_out(scores, v):
     b, nkv, g, s, t = scores.shape
     out = torch.einsum("bngst,btnh->bsngh", scores.to(dt), v.to(dt))
     return out.reshape(b, s, nkv * g * v.shape[-1])
+
+
+def attention_train(p, x, *, n_q, n_kv, head_dim, rope_theta=10000.0,
+                    causal=True, window: Optional[int] = None):
+    """Full-sequence self-attention (train / evaluation forward).
+
+    Rope at positions 0..S-1.  Where the reference's flash conditions hold
+    (causal, ``n_q == n_kv``, head_dim ∈ {64, 128, 256}) it takes
+    ``kernels/flash``: the hand-written kernel for CUDA tensors, its
+    materialized twin for CPU tensors.  Other shapes take the plain masked
+    softmax over the (S, S) scores.  Cross attention, explicit positions
+    and prefix-LM masks belong to the other families (ROADMAP queue A
+    item 12).
+    """
+    b, s, d = x.shape
+    q = _split_heads(dense(p["wq"], x), n_q, head_dim)
+    k = _split_heads(dense(p["wk"], x), n_kv, head_dim)
+    v = _split_heads(dense(p["wv"], x), n_kv, head_dim)
+    positions = torch.arange(s, device=x.device)[None, :]
+    q = rope(q, positions, rope_theta)
+    k = rope(k, positions, rope_theta)
+    if causal and n_q == n_kv and head_dim in flash.HEAD_DIMS:
+        out = flash.flash_attention(q, k, v, causal=True, window=window or 0)
+        out = out.reshape(b, s, n_q * head_dim)
+    else:
+        scores = _attn_scores(q, k, 1.0 / math.sqrt(head_dim))
+        i = torch.arange(s, device=x.device)[:, None]
+        j = torch.arange(s, device=x.device)[None, :]
+        mask = torch.ones((s, s), dtype=torch.bool, device=x.device)
+        if causal:
+            mask = j <= i
+        if window is not None:
+            mask = mask & (i - j < window)
+        scores = torch.where(mask[None, None, None], scores,
+                             torch.full_like(scores, -1e30))
+        probs = torch.softmax(scores.to(torch.float32), dim=-1)
+        out = _attn_out(probs.to(x.dtype), v)
+    return dense(p["wo"], out)
 
 
 def attention_decode(p, x_t, cache: KVCache, pos, *, n_q, n_kv, head_dim,

@@ -1,8 +1,10 @@
-"""Dense decoder: init, slot KV cache and decode (port of the dense family
-of ``repro/models/transformer.py``).
+"""Dense decoder: init, full-sequence forward, slot KV cache and decode
+(port of the dense family of ``repro/models/transformer.py``).
 
 API (plain functions of (cfg, params, ...)):
   init_params(cfg, seed, device)             -> param tree (reference keys)
+  forward_train(cfg, params, batch)          -> full-sequence logits
+  loss_fn(cfg, params, batch)                -> mean next-token NLL
   init_cache(cfg, batch, max_len, dtype)     -> DecodeCache
   decode_step(cfg, params, cache, token)     -> (logits, cache)
   decode_chunk(cfg, params, cache, tokens)   -> (last logits, cache)
@@ -24,12 +26,12 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
-from .layers import (KVCache, attention_decode, embed, layernorm, mlp,
-                     rmsnorm, unembed)
+from .layers import (KVCache, attention_decode, attention_train, embed,
+                     layernorm, mlp, rmsnorm, unembed)
 
-__all__ = ["init_params", "init_cache", "decode_step", "decode_chunk",
-           "cache_write_slot", "cache_reset_slot", "split_layers",
-           "DecodeCache"]
+__all__ = ["init_params", "forward_train", "loss_fn", "init_cache",
+           "decode_step", "decode_chunk", "cache_write_slot",
+           "cache_reset_slot", "split_layers", "DecodeCache"]
 
 
 def _check_family(cfg: ArchConfig):
@@ -95,6 +97,47 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device=None,
             "layers": {"ln_attn": norm(), "attn": attn, "ln_mlp": norm(),
                        "mlp": mlp_p},
             "ln_f": ln_f}
+
+
+# ---------------------------------------------------------------------------
+# full-sequence forward
+# ---------------------------------------------------------------------------
+
+
+def _attn_kwargs(cfg):
+    return dict(n_q=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.resolved_head_dim,
+                rope_theta=cfg.rope_theta)
+
+
+def _embed_tokens(cfg, params, tokens):
+    x = embed(params["embed"], tokens)
+    if cfg.embed_scale:
+        x = x * cfg.d_model ** 0.5
+    return x
+
+
+def forward_train(cfg: ArchConfig, params, batch) -> torch.Tensor:
+    """Full-sequence logits (B, S, vocab) of ``batch["tokens"]`` (B, S),
+    causal, every layer's attention through ``attention_train``."""
+    _check_family(cfg)
+    x = _embed_tokens(cfg, params, batch["tokens"])
+    for lp in split_layers(params)["layers"]:
+        x = x + attention_train(lp["attn"], _norm(cfg, lp["ln_attn"], x),
+                                causal=True,
+                                window=cfg.local_window or None,
+                                **_attn_kwargs(cfg))
+        x = x + mlp(lp["mlp"], _norm(cfg, lp["ln_mlp"], x),
+                    activation=cfg.activation)
+    x = _norm(cfg, params["ln_f"], x)
+    return unembed(params["embed"], x, cfg.vocab)
+
+
+def loss_fn(cfg: ArchConfig, params, batch) -> torch.Tensor:
+    """Mean next-token negative log-likelihood of ``batch["targets"]``."""
+    logits = forward_train(cfg, params, batch).to(torch.float32)
+    logp = torch.log_softmax(logits, dim=-1)
+    ll = torch.gather(logp, -1, batch["targets"][..., None].long())[..., 0]
+    return -ll.mean()
 
 
 # ---------------------------------------------------------------------------
@@ -198,11 +241,8 @@ def decode_step(cfg: ArchConfig, params, cache: DecodeCache, token):
     """One decode step: token (B, 1) int → (logits (B, vocab), cache)."""
     _check_family(cfg)
     pos = cache.pos
-    x = embed(params["embed"], token)
-    if cfg.embed_scale:
-        x = x * cfg.d_model ** 0.5
-    ak = dict(n_q=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.resolved_head_dim,
-              rope_theta=cfg.rope_theta, window=cfg.local_window or None)
+    x = _embed_tokens(cfg, params, token)
+    ak = dict(_attn_kwargs(cfg), window=cfg.local_window or None)
     layers = split_layers(params)["layers"]
     if len(layers) != cfg.n_layers:
         raise ValueError(f"params hold {len(layers)} layers, "

@@ -1,8 +1,9 @@
-from .qlinear import (is_packed2_qweight, is_packed3_qweight,
+from .qlinear import (from_watersic, is_packed2_qweight, is_packed3_qweight,
                       is_packed_qweight, is_qweight, leaf_format,
                       leaf_format_histogram, leaf_inventory,
                       quantize_params_tree, qweight_bytes)
 
-__all__ = ["is_packed2_qweight", "is_packed3_qweight", "is_packed_qweight",
-           "is_qweight", "leaf_format", "leaf_format_histogram",
-           "leaf_inventory", "quantize_params_tree", "qweight_bytes"]
+__all__ = ["from_watersic", "is_packed2_qweight", "is_packed3_qweight",
+           "is_packed_qweight", "is_qweight", "leaf_format",
+           "leaf_format_histogram", "leaf_inventory", "quantize_params_tree",
+           "qweight_bytes"]

@@ -14,20 +14,23 @@ orientation plus an escape COO (DESIGN.md §8/§10):
      "s": (…, in), "t": (…, out),
      "esc_row"/"esc_col": int32 (…, cap), "esc_dval": f32 (…, cap)}
 
-The codes are symmetric absmax codes (escape-free, cap = 0), the same
-bytes the reference produces from the same weights.  ``from_watersic``
-(real WaterSIC codes) needs the quantizer, which is the port's next slice.
+``quantize_params_tree`` makes symmetric absmax codes (escape-free,
+cap = 0), the same bytes the reference produces from the same weights.
+``from_watersic`` turns a quantizer result (``core.QuantizedLinear``, real
+WaterSIC codes, which do escape the narrow ranges) into one leaf.
 """
 from __future__ import annotations
 
 from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
-from repro_torch.core.packing import (pack_int2_planar, pack_int3_planar,
-                                      pack_int4_planar)
+from repro_torch.core.packing import (pack_codes, pack_int2_planar,
+                                      pack_int3_planar, pack_int4_planar)
 
-__all__ = ["quantize_params_tree", "is_qweight", "is_packed_qweight",
+__all__ = ["quantize_params_tree", "from_watersic", "is_qweight",
+           "is_packed_qweight",
            "is_packed3_qweight", "is_packed2_qweight", "qweight_bytes",
            "leaf_format", "leaf_format_histogram", "leaf_inventory"]
 
@@ -177,6 +180,44 @@ def quantize_params_tree(params, *, min_dim: int = 64,
         return node
 
     return walk(params, ())
+
+
+def from_watersic(q, *, nbits: int = 8,
+                  escape_capacity: Optional[int] = None
+                  ) -> Dict[str, torch.Tensor]:
+    """``core.QuantizedLinear`` → serving leaf, on the device of its codes.
+
+    ``nbits=8``: codes (in, out) = Zᵀ as int8 (codes beyond ±127 clipped,
+    as in the reference), s = α⊙γ over the in-features, t (out,).
+
+    ``nbits`` 4 / 3 / 2: the planar payload in kernel orientation
+    (``pack_codes``) plus the exact escape COO of the codes outside the
+    layout's range; ``escape_capacity`` fixes the COO length (stackable
+    across layers).  Dead input features get code 0 and scale 0.
+    """
+    codes = q.codes.to(torch.int32)
+    dev = codes.device
+    s = q.column_scale.to(torch.float32)
+    if q.dead_mask.any():
+        live = torch.as_tensor(np.nonzero(~q.dead_mask)[0], device=dev)
+        full = torch.zeros((q.out_features, q.in_features),
+                           dtype=codes.dtype, device=dev)
+        full[:, live] = codes
+        codes = full
+        s_full = torch.zeros(q.in_features, dtype=torch.float32, device=dev)
+        s_full[live] = s
+        s = s_full
+    t = q.t.to(torch.float32)
+    if nbits in (2, 3, 4):
+        payload, er, ec, ev = pack_codes(codes, nbits=nbits,
+                                         escape_capacity=escape_capacity)
+        return {"codes": payload, "s": s, "t": t,
+                "esc_row": er, "esc_col": ec, "esc_dval": ev}
+    if nbits != 8:
+        raise ValueError(f"nbits must be 2, 3, 4 or 8, got {nbits}")
+    # clip escapes (negligible mass; the exact path uses packing escapes)
+    return {"codes": codes.clamp(-127, 127).T.to(torch.int8).contiguous(),
+            "s": s, "t": t}
 
 
 def _nbytes(a: torch.Tensor) -> int:

@@ -89,3 +89,19 @@ def test_model_builders_default_to_cuda(monkeypatch):
         == "cpu"
     assert from_jax_params({"w": np.ones(3)}, "cpu")["w"].device.type \
         == "cpu"
+
+
+def test_every_module_imports_first():
+    """Each module imports on its own, before any other of the package,
+    so no import cycle hides behind the order the package is used in."""
+    code = ("import importlib, sys\n"
+            f"for m in {_modules()!r}:\n"
+            "    for k in [k for k in sys.modules\n"
+            "              if k.split('.')[0] == 'repro_torch']:\n"
+            "        del sys.modules[k]\n"
+            "    importlib.import_module(m)\n"
+            "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
