@@ -19,6 +19,16 @@ Phases, in order; any mismatch raises and the run exits non-zero:
    bf16 and f32 x·s splits into three bf16 terms, 3 products at 989
    TFLOP/s; the f32 CUDA-core time of the same count, at 67 TFLOP/s, is
    ``f32_cuda_core_ms`` in the detail file);
+2b. int8 kernel phase: the int8 dequant-matmul kernel against its twin
+   (``ref.dequant_matmul_ref``) at (k, n) ∈ the three shapes above and
+   m ∈ {1, 8, 128}, with the codes stored (k, n) as a serving leaf stores
+   them and read in place through their transposed view, and in an (n,
+   k)-contiguous matrix (copied by the wrapper into that layout), plus the
+   ragged (2300, 5757); each run twice (equal bits).  The
+   serving layout is timed with L2 cold: the kernel, the twin, ``F.linear``
+   against the pre-dequantized weight and the plain product the serving
+   path ran before the kernel (``before_ms``), with the bound (bytes
+   against 2·m·n·k f32 multiply-adds on the CUDA cores);
 3. the ZSIC block kernel against its twin, bit for bit, at bn = 128 and the
    PTQ path's row counts (230, 576, 2304, 5760), with its bound (bytes of
    y, codes, residual and the L block against the a·bn·(bn+1)/2 unfused
@@ -52,15 +62,34 @@ Phases, in order; any mismatch raises and the run exits non-zero:
 8. serve-after-PTQ phase: the watersic codes installed as packed int4
    leaves (``from_watersic``, escapes included) serve 4 requests (prompt
    16, 8 new tokens); first-step logits against the model with
-   ``QuantizedLinear.dequant()`` weights.
+   ``QuantizedLinear.dequant()`` weights;
+9. plan phase: ``python -m repro_torch.launch.plan build`` in process
+   (minicpm-2b at full width cut to 2 layers, numpy weights and tokens
+   from seed 0, 2 calibration batches of 32 × 128, ``output`` weighting,
+   5.0 bits per parameter): the snapped plan must hold int8 and sub-byte
+   payloads, reload equal and ``inspect``; ``plan_inputs_for_model`` +
+   ``execute_plan(quantize_kwargs={"lmmse": False})`` (WaterSIC spacing,
+   ZSIC through its kernel) runs the snapped plan on 1 and on 4 worker
+   threads (codes, α, γ and t equal tensor for tensor), then the
+   continuous waterfilled optimum and ``even_plan`` at the same budget:
+   realized bits within 0.05 of planned each, and the waterfilled
+   weighted output distortion below the even spread's;
+10. mixed serve phase: ``serving_formats_from_plan`` of that plan on
+   minicpm-2b at full width and depth (40 layers): the int8 types through
+   the int8 kernel, the others through the packed one (each kernel once
+   per layer of each of its leaves per decode step), first-step logits
+   against the dequantized-weight model, the serve phase's 8 requests;
+   then a 2-layer copy's greedy streams from ``ServeEngine`` and
+   ``ContinuousEngine`` must be identical.
 
-The second-to-last line is the kernel summary JSON (five entries), the
-last line ``{"ok": true, "device": {...}}``.  Per-case numbers also go to
+The second-to-last line is the kernel summary JSON (six entries: the
+packed kernel per payload, the int8 kernel, ZSIC and flash), the last
+line ``{"ok": true, "device": {...}}``.  Per-case numbers also go to
 ``chiprun_out/chip_smoke_detail.json``.  Tolerances:
 
-* dequant kernel vs twin: |Δ| ≤ 1e-4 + 1e-4·|twin| (inputs scaled so
-  outputs are O(1); f32 sums over k ≤ 5760 in another order differ by
-  ≈ eps·√k);
+* dequant kernels (packed and int8) vs twin: |Δ| ≤ 1e-4 + 1e-4·|twin|
+  (inputs scaled so outputs are O(1); f32 sums over k ≤ 5760 in another
+  order differ by ≈ eps·√k);
 * ZSIC kernel vs twin: equal bit for bit (the same divisions, roundings
   and unfused products and subtractions);
 * flash kernel vs twin: |Δ| ≤ 2e-5 + 2e-5·|twin| (f32 sums of the same
@@ -103,20 +132,29 @@ from repro_torch.kernels.zsic import \
     reset_launches as reset_zsic_launches  # noqa: E402
 from repro_torch.kernels.dequant import (LAUNCHES, PLANE_GROUPS,  # noqa: E402
                                          dequant_matmul,
+                                         dequant_matmul_int8_cuda,
                                          dequant_matmul_packed_cuda,
                                          dequant_matmul_packed_ref,
-                                         dequantize_leaf_ref, reset_launches,
+                                         dequant_matmul_ref,
+                                         dequantize_leaf_ref, dequantize_ref,
+                                         payload_nbits, reset_launches,
                                          unpack_payload_ref)
+from repro_torch.launch import plan as launch_plan  # noqa: E402
 from repro_torch.launch.serve import quantize_for_wbits  # noqa: E402
 from repro_torch.models import decode_chunk, decode_step  # noqa: E402
 from repro_torch.models import (init_cache, init_params,  # noqa: E402
                                 split_layers)
 from repro_torch.models.layers import unembed  # noqa: E402
-from repro_torch.quant import from_watersic, is_qweight  # noqa: E402
+from repro_torch.plan import (QuantPlan, build_plan, even_plan,  # noqa: E402
+                              execute_plan, model_sensitivities,
+                              plan_inputs_for_model)
+from repro_torch.quant import (from_watersic, is_qweight,  # noqa: E402
+                               leaf_format_histogram, quantize_params_tree,
+                               qweight_bytes, serving_formats_from_plan)
 from repro_torch.quant.pipeline import (PTQConfig, model_ppl,  # noqa: E402
                                         quantize_model)
 from repro_torch.serve import (ContinuousEngine, EngineConfig,  # noqa: E402
-                               Request)
+                               Request, ServeEngine)
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOP_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
@@ -146,6 +184,28 @@ ZSIC_SOURCE = "src/repro_torch/kernels/zsic/csrc/zsic_block.cu"
 ZSIC_REPLACES = "src/repro/kernels/zsic/zsic_block.py:111"
 FLASH_SOURCE = "src/repro_torch/kernels/flash/csrc/flash_attention.cu"
 FLASH_REPLACES = "src/repro/kernels/flash/flash_attention.py:99"
+INT8_SOURCE = "src/repro_torch/kernels/dequant/csrc/dequant_int8.cu"
+INT8_REPLACES = "src/repro/kernels/dequant/dequant_matmul.py:79"
+#: the int8 kernel's rows: decode at 1 and 8 slots, a 16-token prefill
+#: chunk of 8 slots
+INT8_M = (1, 8, 128)
+#: the ragged int8 case (k, n): neither a multiple of the kernel's tiles
+INT8_RAGGED = (2300, 5757)
+#: the plan phase's global budget, bits per parameter: between the grid's
+#: int4 and int8 rungs, so the snapped plan must mix sub-byte and int8
+PLAN_BITS = 5.0
+#: rows of each of the plan phase's 2 calibration batches of 128 tokens:
+#: 8192 tokens, so every Σ_X (up to 5760 wide) can have full rank.  With
+#: fewer tokens than in-features the planner's curves promise near-zero
+#: distortion in Σ_X's null space, which the damped quantizer does not
+#: deliver (at 2 × 4 × 128 tokens the waterfilled allocation realized
+#: 1.85× the even spread's weighted distortion on the card)
+PLAN_CALIB_ROWS = 32
+#: (k, n) of each matrix type of a minicpm-2b layer, by (block, name)
+TYPE_SHAPES = {("attn", "wq"): (2304, 2304), ("attn", "wk"): (2304, 2304),
+               ("attn", "wv"): (2304, 2304), ("attn", "wo"): (2304, 2304),
+               ("mlp", "w_gate"): (2304, 5760), ("mlp", "w_up"): (2304, 5760),
+               ("mlp", "w_out"): (5760, 2304)}
 
 
 def device_ms(fn, dev, *, reps=25, flush=None):
@@ -267,6 +327,89 @@ def kernel_phase(dev, gen):
     return cases
 
 
+def int8_case(m, k, n, layout, dev, gen, flush, *, timed):
+    """The int8 kernel against its twin at one shape: codes stored (k, n)
+    as a serving leaf stores them and read in place through their (n, k)
+    view ("kn", the serving path), or an (n, k)-contiguous matrix ("nk",
+    which the wrapper copies into the leaf's layout first).  With
+    ``timed``: the kernel, the twin, one library call (``F.linear``
+    against the pre-dequantized f32 weight) and the plain product the
+    serving path ran before the kernel existed, with the bound."""
+    x = torch.randn((m, k), generator=gen, device=dev)
+    codes = torch.randint(-127, 128, (k, n), generator=gen, device=dev,
+                          dtype=torch.int32).to(torch.int8)
+    s = (torch.rand(k, generator=gen, device=dev) * 0.2 + 0.01) / k ** 0.5 \
+        / 30
+    t = torch.rand(n, generator=gen, device=dev) + 0.5
+    z = codes.T if layout == "kn" else codes.T.contiguous()
+    got = dequant_matmul_int8_cuda(x, z, s, t)
+    want = dequant_matmul_ref(x, z, s, t)
+    torch.cuda.synchronize(dev)
+    what = f"int8 {layout} m={m} k={k} n={n}"
+    err = check(got, want, what, atol=KERNEL_TOL, rtol=KERNEL_TOL)
+    if not torch.equal(got, dequant_matmul_int8_cuda(x, z, s, t)):
+        raise AssertionError(f"{what}: two runs differ")
+    rec = {"layout": layout, "m": m, "k": k, "n": n, "max_abs_err": err}
+    if not timed:
+        return rec
+    w_hat = dequantize_ref(z, s, t)                          # (n, k) f32
+    check(F.linear(x, w_hat), want, f"library {what}", atol=KERNEL_TOL,
+          rtol=KERNEL_TOL)
+
+    def before():
+        return ((x * s) @ codes.to(torch.float32)) * t
+    check(before(), want, f"plain product {what}", atol=KERNEL_TOL,
+          rtol=KERNEL_TOL)
+    # bytes: the codes once, x, s, t in and out once; operations: 2·m·n·k
+    # f32 multiply-adds on the CUDA cores (the tensor-core time of a 3-term
+    # bf16 split is tensor_core_ms)
+    t_bytes = (n * k + 4 * (m * k + k + n + m * n)) / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * m * n * k / F32_FLOP_PER_S * 1e3
+    rec.update({
+        "ms": device_ms(lambda: dequant_matmul_int8_cuda(x, z, s, t), dev,
+                        flush=flush),
+        "plain_ms": device_ms(lambda: dequant_matmul_ref(x, z, s, t), dev,
+                              flush=flush, reps=10),
+        "library_ms": device_ms(lambda: F.linear(x, w_hat), dev,
+                                flush=flush),
+        "before_ms": device_ms(before, dev, flush=flush, reps=10),
+        "bound_ms": max(t_bytes, t_ops), "bytes_ms": t_bytes,
+        "operations_ms": t_ops,
+        "tensor_core_ms": BF16_TERMS * 2 * m * n * k / BF16_FLOP_PER_S * 1e3,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+    return rec
+
+
+def int8_phase(dev, gen, flush):
+    """The int8 kernel at the serving path's shapes in both layouts (the
+    serving layout timed) and the ragged case."""
+    cases = []
+    for m in INT8_M:
+        for k, n in PATH_SHAPES:
+            for layout in ("kn", "nk"):
+                c = int8_case(m, k, n, layout, dev, gen, flush,
+                              timed=layout == "kn")
+                cases.append(c)
+                if "ms" in c:
+                    print(f"kernel int8 kn m={m} k={k} n={n}: "
+                          f"ms={c['ms']:.5f} plain_ms={c['plain_ms']:.5f} "
+                          f"library_ms={c['library_ms']:.5f} before_ms="
+                          f"{c['before_ms']:.5f} bound_ms={c['bound_ms']:.5f}"
+                          f" ({c['bound_by']}) max_abs_err="
+                          f"{c['max_abs_err']:.3e}", flush=True)
+    for layout in ("kn", "nk"):
+        c = int8_case(8, *INT8_RAGGED, layout, dev, gen, flush,
+                      timed=layout == "kn")
+        cases.append(c)
+        print(f"kernel int8 {layout} m=8 k={INT8_RAGGED[0]} "
+              f"n={INT8_RAGGED[1]} (ragged): max_abs_err="
+              f"{c['max_abs_err']:.3e}"
+              + (f" ms={c['ms']:.5f}" if "ms" in c else ""), flush=True)
+    print(f"int8 kernel vs twin: {len(cases)} cases in both layouts, max "
+          f"|Δ| {max(c['max_abs_err'] for c in cases):.3e}", flush=True)
+    return cases
+
+
 def dequantized_model(params):
     """The same model with every quantized leaf replaced by its effective
     f32 weight (ref.dequantize_leaf_ref), served by plain matmuls."""
@@ -284,16 +427,34 @@ def serve_path(cfg, wbits, dev, **kw):
     against the dequantized-weight model; returns (record, params)."""
     params = quantize_for_wbits(init_params(cfg, 0, device=dev), wbits)
     torch.cuda.synchronize(dev)
-    return serve_tree(cfg, params, dequantized_model, wbits, dev, **kw), \
-        params
+    return serve_tree(cfg, params, dequantized_model, f"int{wbits}", dev,
+                      **kw), params
 
 
-def serve_tree(cfg, params, oracle_of, wbits, dev, *, n_req, prompt_len,
+def launches_per_step(params, n_layers):
+    """Dequant-kernel launches one decode step makes, by nbits (8: the int8
+    kernel): one per layer of every quantized layer-stacked leaf."""
+    want = {}
+
+    def walk(node):
+        if is_qweight(node):
+            c = node["codes"]
+            nb = 8 if c.dtype == torch.int8 else payload_nbits(c)
+            want[nb] = want.get(nb, 0) + n_layers
+        elif isinstance(node, dict):
+            for v in node.values():
+                walk(v)
+    walk(params["layers"])
+    return want
+
+
+def serve_tree(cfg, params, oracle_of, label, dev, *, n_req, prompt_len,
                new_tokens, max_len, slots, chunk):
-    """First-step logits of the packed tree against ``oracle_of(params)``
-    (the same model with float weights), then ``ContinuousEngine`` serves
-    ``n_req`` requests; the packed kernel must run 7 × n_layers times per
-    decode step.  Returns a record."""
+    """First-step logits of the quantized tree against
+    ``oracle_of(params)`` (the same model with float weights), then
+    ``ContinuousEngine`` serves ``n_req`` requests; each dequant kernel
+    must run once per layer of each of its leaves per decode step (7 ×
+    n_layers in all for a tree of one format).  Returns a record."""
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab, prompt_len).astype(np.int32)
                for _ in range(n_req)]
@@ -310,7 +471,7 @@ def serve_tree(cfg, params, oracle_of, wbits, dev, *, n_req, prompt_len,
     if got.shape != (n_req, cfg.vocab):
         raise AssertionError(f"logits shape {tuple(got.shape)}")
     scale = float(want.abs().max())
-    logit_err = check(got, want, f"{cfg.name} int{wbits} first-step logits",
+    logit_err = check(got, want, f"{cfg.name} {label} first-step logits",
                       atol=LOGIT_TOL * scale, rtol=0.0) / scale
 
     steps = {"n": 0}
@@ -334,32 +495,34 @@ def serve_tree(cfg, params, oracle_of, wbits, dev, *, n_req, prompt_len,
     done = eng.run_until_done()
     torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t0
-    launches = dict(LAUNCHES)
-    want_launches = 7 * cfg.n_layers * steps["n"]
-    if launches[wbits] != want_launches or \
-            sum(launches.values()) != want_launches:
-        raise AssertionError(f"packed launches {launches}, expected "
-                             f"{want_launches} int{wbits} = 7 x "
-                             f"{cfg.n_layers} x {steps['n']} decode steps")
+    launches = {nb: c for nb, c in LAUNCHES.items() if c}
+    per_step = launches_per_step(params, cfg.n_layers)
+    want_launches = {nb: c * steps["n"] for nb, c in per_step.items()}
+    if launches != want_launches or sum(per_step.values()) != \
+            7 * cfg.n_layers:
+        raise AssertionError(f"dequant launches by nbits {launches}, "
+                             f"expected {want_launches} = {per_step} per "
+                             f"step x {steps['n']} decode steps")
     if sorted(r.rid for r in done) != list(range(n_req)) or any(
             len(r.out_tokens) != new_tokens
             or not all(0 <= x < cfg.vocab for x in r.out_tokens)
             for r in done):
         raise AssertionError("served streams have the wrong shape")
     tokens = sum(len(r.out_tokens) for r in done)
-    rec = {"arch": cfg.name, "n_layers": cfg.n_layers, "wbits": wbits,
+    rec = {"arch": cfg.name, "n_layers": cfg.n_layers, "format": label,
            "requests": n_req, "tokens": tokens, "wall_s": wall,
            "tokens_per_s": tokens / wall, "decode_steps": steps["n"],
            "engine_decode_calls": eng.decode_calls,
            "decode_step_ms": 1e3 * eng.decode_s / max(eng.decode_calls, 1),
-           "prefill_s": eng.prefill_s, "launches": launches[wbits],
+           "prefill_s": eng.prefill_s, "launches": launches,
+           "launches_per_step": per_step,
            "weight_bytes": eng.weight_bytes,
            "weight_bytes_bf16": eng.weight_bytes_bf16,
            "first_step_logit_rel_err": logit_err}
-    print(f"serve {cfg.name} L={cfg.n_layers} int{wbits}: {tokens} tokens in "
+    print(f"serve {cfg.name} L={cfg.n_layers} {label}: {tokens} tokens in "
           f"{wall:.3f}s = {rec['tokens_per_s']:.2f} tok/s, decode step "
           f"{rec['decode_step_ms']:.3f} ms (wall), {steps['n']} decode steps,"
-          f" {launches[wbits]} kernel launches, weight bytes "
+          f" kernel launches by nbits {launches}, weight bytes "
           f"{eng.weight_bytes} (bf16 {eng.weight_bytes_bf16}), first-step "
           f"logits rel err {logit_err:.3e}", flush=True)
     return rec
@@ -772,10 +935,168 @@ def serve_after_ptq(cfg, qp, qlin, dev):
         raise AssertionError("the installed WaterSIC codes carry no escapes")
     print(f"serve-after-ptq: watersic codes installed as packed int4 with "
           f"{escapes} escapes", flush=True)
-    rec = serve_tree(cfg, tree, lambda _: qp, 4, dev, n_req=4,
+    rec = serve_tree(cfg, tree, lambda _: qp, "int4", dev, n_req=4,
                      prompt_len=16, new_tokens=8, max_len=32, slots=4,
                      chunk=16)
     rec["escapes"] = escapes
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# the global planner: build → inspect → execute, then the mixed-rate serve
+# ---------------------------------------------------------------------------
+
+
+def weighted_distortion(plan):
+    """Σ w_l·N_l·D_l over the realized distortions (the planner's
+    objective, as ``launch/plan.py`` reports it)."""
+    return sum(e.weight * e.n_params * e.realized_distortion for e in plan)
+
+
+def execute(plan, weights, stats, dev, workers):
+    """One execution of ``plan`` through the ZSIC kernel (WaterSIC spacing
+    without LMMSE), with its wall time and kernel launches."""
+    reset_zsic_launches()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    q, report = execute_plan(plan, weights, stats, n_workers=workers,
+                             quantize_kwargs={"lmmse": False},
+                             compute_distortion=True)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    if report.retries:
+        raise AssertionError(f"{workers}-worker execution retried "
+                             f"{report.retries} task(s)")
+    realized, planned = plan.realized_bits_per_param, \
+        plan.planned_bits_per_param
+    if abs(realized - planned) > 0.05:
+        raise AssertionError(f"{plan.weighting} plan: realized {realized} "
+                             f"bits against {planned} planned")
+    return q, {"workers": workers, "wall_s": wall,
+               "serial_s": report.serial_s,
+               "zsic_launches": zsic_block_cuda.launches,
+               "planned_bits": planned, "realized_bits": realized,
+               "weighted_distortion": weighted_distortion(plan)}
+
+
+def plan_phase(dev, out):
+    """``launch.plan build`` (minicpm-2b at full width, 2 layers, numpy
+    weights and tokens from seed 0, 2 × PLAN_CALIB_ROWS × 128 calibration
+    tokens, output weighting, PLAN_BITS), the
+    artifact reloaded and ``inspect``-ed, then the snapped plan executed on
+    1 and 4 workers (identical results), and the continuous waterfilled
+    optimum against the even spread at the same budget."""
+    path = str(out / "plan.json")
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    plan = launch_plan.main([
+        "build", "--arch", "minicpm-2b", "--n-layers", "2", "--seed", "0",
+        "--target-bits", str(PLAN_BITS), "--weighting", "output",
+        "--calib-batches", "2", "--seq-len", "128", "--global-batch",
+        str(PLAN_CALIB_ROWS),
+        "--out", path])
+    torch.cuda.synchronize(dev)
+    rec = {"build_s": time.perf_counter() - t0,
+           "payloads": plan.payload_histogram()}
+    if 8 not in rec["payloads"] or not set(rec["payloads"]) & {2, 3, 4}:
+        raise AssertionError(f"the snapped plan at {PLAN_BITS} bits holds "
+                             f"payloads {rec['payloads']}: it must mix int8 "
+                             "and sub-byte")
+    if QuantPlan.load(path) != plan:
+        raise AssertionError("the plan artifact does not round-trip")
+    launch_plan.main(["inspect", "--plan", path])
+    cfg, params, calib = launch_plan.model_from_provenance(plan.provenance,
+                                                           dev)
+    weights, stats = plan_inputs_for_model(cfg, params, calib)
+    q1, rec["snapped"] = execute(plan, weights, stats, dev, 1)
+    if rec["snapped"]["zsic_launches"] == 0:
+        raise AssertionError("plan execution ran no ZSIC kernel launch")
+    q4, rec["snapped_4_workers"] = execute(QuantPlan.load(path), weights,
+                                           stats, dev, 4)
+    for name, a in q1.items():
+        for f in ("codes", "alphas", "gamma", "t"):
+            if not torch.equal(getattr(a, f), getattr(q4[name], f)):
+                raise AssertionError(f"{name}.{f}: 4 workers differ from 1")
+    print(f"plan execute: 4 workers equal 1 worker on all {len(q1)} "
+          "matrices (codes, alphas, gamma, t)", flush=True)
+    del q1, q4
+    t0 = time.perf_counter()
+    sens = model_sensitivities(cfg, params, calib, weighting="output")
+    rec["sensitivities_s"] = time.perf_counter() - t0
+    if build_plan(sens, PLAN_BITS, weighting="output").diff(plan):
+        raise AssertionError("the library's snapped plan differs from the "
+                             "artifact of launch.plan build")
+    cont = build_plan(sens, PLAN_BITS, snap=False, weighting="output")
+    even = even_plan(sens, PLAN_BITS)
+    _, rec["waterfilled"] = execute(cont, weights, stats, dev, 1)
+    _, rec["even"] = execute(even, weights, stats, dev, 1)
+    d_wf = rec["waterfilled"]["weighted_distortion"]
+    d_ev = rec["even"]["weighted_distortion"]
+    if not d_wf < d_ev:
+        raise AssertionError(f"waterfilled weighted distortion {d_wf} is not "
+                             f"below the even spread's {d_ev}")
+    for key in ("snapped", "snapped_4_workers", "waterfilled", "even"):
+        r = rec[key]
+        print(f"plan execute {key}: {r['wall_s']:.2f}s wall, "
+              f"{r['zsic_launches']} ZSIC launches, realized "
+              f"{r['realized_bits']:.4f} of {r['planned_bits']:.4f} bits, "
+              f"weighted distortion {r['weighted_distortion']:.5e}",
+              flush=True)
+    print(f"plan: waterfilled/even weighted distortion "
+          f"{d_wf / d_ev:.4f} at {PLAN_BITS} bits; snapped (planned "
+          f"{plan.planned_bits_per_param:.4f}) "
+          f"{rec['snapped']['weighted_distortion'] / d_ev:.4f} of even",
+          flush=True)
+    return plan, rec
+
+
+def mixed_serve_phase(cfg, plan, dev):
+    """The plan's per-type formats on full-width, full-depth minicpm-2b:
+    int8 types through the int8 kernel, the rest through the packed one,
+    held against the dequantized-weight model; then a 2-layer copy's
+    greedy streams from the static and the continuous engine."""
+    fmt = serving_formats_from_plan(plan)
+    int8_types = [f"{b}/{k}" for b, k in TYPE_SHAPES
+                  if fmt(("layers", b, k, "w")) == 8]
+    mixed = quantize_params_tree(init_params(cfg, 0, device=dev),
+                                 nbits_by_path=fmt)
+    torch.cuda.synchronize(dev)
+    hist = leaf_format_histogram(mixed)
+    qb, fb = qweight_bytes(mixed)
+    print(f"mixed serve formats {hist}, int8 types {int8_types}, param bytes "
+          f"{qb} (bf16 {fb})", flush=True)
+    rec = serve_tree(cfg, mixed, dequantized_model, "mixed", dev, n_req=8,
+                     prompt_len=32, new_tokens=16, max_len=64, slots=8,
+                     chunk=16)
+    if rec["launches_per_step"].get(8) != len(int8_types) * cfg.n_layers:
+        raise AssertionError(f"int8 launches per step "
+                             f"{rec['launches_per_step']}, expected "
+                             f"{len(int8_types)} x {cfg.n_layers}")
+    del mixed
+    torch.cuda.empty_cache()
+    rec.update({"formats": hist, "int8_types": int8_types,
+                "qweight_bytes": qb, "bf16_bytes": fb})
+    short = dataclasses.replace(cfg, n_layers=2)
+    tree = quantize_params_tree(init_params(short, 0, device=dev),
+                                nbits_by_path=fmt)
+    rng = np.random.default_rng(5)
+    work = [(rng.integers(0, cfg.vocab, int(rng.integers(3, 12)))
+             .astype(np.int32), int(rng.integers(2, 9))) for _ in range(6)]
+    streams = []
+    for cls in (ServeEngine, ContinuousEngine):
+        eng = cls(short, tree, config=EngineConfig(
+            n_slots=4, max_len=24, cache_dtype=torch.float32,
+            prefill_chunk=4))
+        for i, (p, b) in enumerate(work):
+            eng.submit(Request(rid=i, prompt=p.copy(), max_new_tokens=b))
+        streams.append({r.rid: list(r.out_tokens)
+                        for r in eng.run_until_done()})
+    if streams[0] != streams[1] or sorted(streams[0]) != list(range(6)):
+        raise AssertionError(f"2-layer mixed streams differ: static "
+                             f"{streams[0]}, continuous {streams[1]}")
+    print(f"mixed serve 2 layers: static and continuous streams identical "
+          f"({sum(len(v) for v in streams[0].values())} tokens)", flush=True)
+    rec["two_layer_streams_equal"] = True
     return rec
 
 
@@ -810,6 +1131,7 @@ def main() -> int:
 
     cases = kernel_phase(dev, gen)
     flush = torch.ones(16 << 20, dtype=torch.float32, device=dev)  # 64 MB
+    int8_cases = int8_phase(dev, gen, flush)
     zsic = zsic_phase(dev, flush)
     flash_cases = flash_phase(dev, gen, flush)
     del flush
@@ -853,6 +1175,16 @@ def main() -> int:
     print(f"ptq + serve-after-ptq phases: {time.perf_counter() - t0:.1f}s",
           flush=True)
 
+    t0 = time.perf_counter()
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    plan, planned = plan_phase(dev, out)
+    torch.cuda.empty_cache()
+    planned["serve"] = mixed_serve_phase(cfg, plan, dev)
+    planned["phases_s"] = time.perf_counter() - t0
+    print(f"plan + mixed-serve phases: {planned['phases_s']:.1f}s",
+          flush=True)
+
     kernels, detail_mix = [], {}
     for nbits in (4, 3, 2):
         mix = {(c["k"], c["n"]): c for c in cases
@@ -866,8 +1198,8 @@ def main() -> int:
         kernels.append({
             "name": f"dequant_matmul_packed_int{nbits}", "route": "cuda",
             "source": SOURCE, "replaces": REPLACES,
-            "launches": serve["launches"] if nbits == 4
-            else ladder[nbits]["launches"],
+            "launches": serve["launches"][4] if nbits == 4
+            else ladder[nbits]["launches"][nbits],
             "max_abs_err": max(c["max_abs_err"] for c in cases
                                if c["nbits"] == nbits),
             "ms": per_launch["ms"], "plain_ms": per_launch["plain_ms"],
@@ -876,6 +1208,24 @@ def main() -> int:
             >= per_launch["operations_ms"] else "operations",
             "library_ms": per_launch["library_ms"]})
         detail_mix[nbits] = per_launch
+    # one int8 launch at the mixed serve's mix: its int8 types at m = 8
+    shapes = [TYPE_SHAPES[tuple(k.split("/"))]
+              for k in planned["serve"]["int8_types"]]
+    by_shape = {(c["k"], c["n"]): c for c in int8_cases
+                if c["m"] == 8 and "ms" in c}
+    int8_mix = {key: sum(by_shape[sh][key] for sh in shapes) / len(shapes)
+                for key in ("ms", "plain_ms", "library_ms", "before_ms",
+                            "bound_ms", "bytes_ms", "operations_ms")}
+    kernels.append({
+        "name": "dequant_matmul_int8", "route": "cuda",
+        "source": INT8_SOURCE, "replaces": INT8_REPLACES,
+        "launches": planned["serve"]["launches"][8],
+        "max_abs_err": max(c["max_abs_err"] for c in int8_cases),
+        "ms": int8_mix["ms"], "plain_ms": int8_mix["plain_ms"],
+        "bound_ms": int8_mix["bound_ms"],
+        "bound_by": "bytes" if int8_mix["bytes_ms"]
+        >= int8_mix["operations_ms"] else "operations",
+        "library_ms": int8_mix["library_ms"]})
     mix = ptq["hptq"]["zsic_launch_rows"]
     zmix = {key: sum(n * zsic["cases"][a][key] for a, n in mix.items())
             / sum(mix.values())
@@ -907,9 +1257,8 @@ def main() -> int:
               "ladder": ladder, "kernels": kernels,
               "m8_decode_mix_per_launch": detail_mix, "zsic": zsic,
               "zsic_ptq_mix_per_launch": zmix, "flash": flash_cases,
-              "ptq": ptq}
-    out = ROOT / "chiprun_out"
-    out.mkdir(exist_ok=True)
+              "ptq": ptq, "int8": int8_cases,
+              "int8_mixed_serve_mix_per_launch": int8_mix, "plan": planned}
     (out / "chip_smoke_detail.json").write_text(json.dumps(detail, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

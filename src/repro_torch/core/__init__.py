@@ -11,7 +11,7 @@ Public API (the reference's names):
   Theory (§3):         waterfilling_rate, high_rate_bound, gptq_gap_bits,
                        watersic_gap_bits, GAP_CUBE_BITS, random_covariance
   Rescalers (Alg. 4):  find_optimal_rescalers
-  Budget (App. D):     RateBudget (PlanBudget waits for the planner)
+  Budget (App. D):     RateBudget, PlanBudget (a repro_torch.plan plan)
   Packing:             pack_codes and the planar packers/unpackers
 """
 from .entropy import (HuffmanCode, codec_bits_lzma, codec_bits_zlib,

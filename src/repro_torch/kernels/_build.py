@@ -15,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict
@@ -28,6 +29,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+# one build and load at a time: the plan executor's threads reach the
+# first launch of a kernel together
+_load_lock = threading.Lock()
 
 
 def sources() -> Dict[str, Path]:
@@ -96,10 +100,11 @@ def build_all() -> Dict[str, float]:
 
 def load(stem: str) -> ctypes.CDLL:
     """The loaded library of kernel source ``stem``, built if needed."""
-    lib = _loaded.get(stem)
-    if lib is None:
-        target = _target(sources()[stem])
-        if not target.exists():
-            build_all()
-        lib = _loaded[stem] = ctypes.CDLL(str(target))
-    return lib
+    with _load_lock:
+        lib = _loaded.get(stem)
+        if lib is None:
+            target = _target(sources()[stem])
+            if not target.exists():
+                build_all()
+            lib = _loaded[stem] = ctypes.CDLL(str(target))
+        return lib

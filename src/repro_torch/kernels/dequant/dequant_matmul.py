@@ -1,14 +1,15 @@
-"""Launcher of the hand-written packed dequant-matmul CUDA kernel.
+"""Launchers of the hand-written dequant-matmul CUDA kernels.
 
-Port of ``repro/kernels/dequant/dequant_matmul.py::
-dequant_matmul_packed_pallas``: the kernel itself is
-``csrc/dequant_packed.cu`` (its header note says what bounds it and how it
-is designed).  This module checks the operands, allocates the output and
-the split-K scratch, launches on the current stream, raises on a launch
-error, and counts the launches (``LAUNCHES[nbits]``, one per call that
+Ports of ``repro/kernels/dequant/dequant_matmul.py``:
+``dequant_matmul_packed_pallas`` is ``csrc/dequant_packed.cu`` and
+``dequant_matmul_pallas`` (int8 codes) is ``csrc/dequant_int8.cu`` (their
+header notes say what bounds them and how they are designed).  This module
+checks the operands, allocates the output and the split-K scratch,
+launches on the current stream, raises on a launch error, and counts the
+launches (``LAUNCHES[nbits]``, 8 for the int8 kernel; one per call that
 launches, bumped nowhere else; a split call also runs the kernel's
 fixed-order reduction) so a run can show that its main path went through
-the kernel.
+the kernels.
 """
 from __future__ import annotations
 
@@ -17,19 +18,21 @@ import ctypes
 import torch
 
 __all__ = ["PLANE_GROUPS", "LAUNCHES", "reset_launches",
-           "dequant_matmul_packed_cuda"]
+           "dequant_matmul_packed_cuda", "dequant_matmul_int8_cuda"]
 
 #: column groups per payload byte-column, by payload nbits
 PLANE_GROUPS = {2: 4, 3: 8, 4: 2}
 #: payload planes per row, by payload nbits
 _PLANES = {2: 1, 3: 3, 4: 1}
 
-#: kernel launches per payload nbits since the last :func:`reset_launches`
-LAUNCHES = {2: 0, 3: 0, 4: 0}
+#: kernel launches per payload nbits (8: the int8 kernel) since the last
+#: :func:`reset_launches`
+LAUNCHES = {2: 0, 3: 0, 4: 0, 8: 0}
 
 _lib = None
-#: k splits of a launch, by (device index, m, n, kg): the library picks
-#: them, this module sizes the workspace from them
+_lib8 = None
+#: k splits of a launch, by (kernel, device index, m, n, k): the library
+#: picks them, this module sizes the workspace from them
 _SPLITS: dict = {}
 
 
@@ -95,7 +98,7 @@ def dequant_matmul_packed_cuda(x_groups: torch.Tensor, payload: torch.Tensor,
     if m == 0 or n == 0:
         return out
     launch, splits_fn = _kernel()
-    key = (dev.index, m, n, kg)
+    key = ("packed", dev.index, m, n, kg)
     splits = _SPLITS.get(key)
     if splits is None:
         splits = _SPLITS[key] = splits_fn(m, n, kg)
@@ -111,4 +114,79 @@ def dequant_matmul_packed_cuda(x_groups: torch.Tensor, payload: torch.Tensor,
         raise RuntimeError(f"dequant_packed kernel launch failed: "
                            f"cudaError_t {err}")
     LAUNCHES[nbits] += 1
+    return out
+
+
+def _kernel8():
+    """(launch, splits) C functions of the built int8 library."""
+    global _lib8
+    if _lib8 is None:
+        from repro_torch.kernels._build import load
+        lib = load("dequant_int8")
+        launch = lib.dequant_matmul_int8_f32
+        launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 \
+            + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+        launch.restype = ctypes.c_int
+        splits = lib.dequant_matmul_int8_splits
+        splits.argtypes = [ctypes.c_int] * 3
+        splits.restype = ctypes.c_int
+        _lib8 = (launch, splits)
+    return _lib8
+
+
+def dequant_matmul_int8_cuda(x: torch.Tensor, z: torch.Tensor,
+                             col_scale: torch.Tensor,
+                             row_scale: torch.Tensor) -> torch.Tensor:
+    """x (m, k) f32 · int8 codes z (n, k) → (m, n) f32 on the card:
+    ``out = t ⊙ ((x ⊙ s) @ zᵀ)``.
+
+    The kernel reads the codes as a serving leaf stores them, (k, n) with
+    the n index at stride 1, so ``z`` as that leaf's transposed view is
+    read in place; any other layout (an (n, k)-contiguous matrix) is first
+    copied into it, which the serving path never does.  ``x``,
+    ``col_scale`` (k,) and ``row_scale`` (n,) must be contiguous f32;
+    every operand a CUDA tensor on one device.
+    """
+    ops = {"x": x, "z": z, "col_scale": col_scale, "row_scale": row_scale}
+    dev = z.device
+    for name, a in ops.items():
+        if a.device.type != "cuda" or a.device != dev:
+            raise ValueError(f"{name} must be a CUDA tensor on {dev}, "
+                             f"got {a.device}")
+        want = torch.int8 if name == "z" else torch.float32
+        if a.dtype != want:
+            raise TypeError(f"{name} must be {want}, got {a.dtype}")
+        if name != "z" and not a.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    m, k = x.shape
+    n = z.shape[0]
+    if z.ndim != 2 or z.shape[1] != k or tuple(col_scale.shape) != (k,) \
+            or tuple(row_scale.shape) != (n,):
+        raise ValueError(
+            f"shape mismatch: x {tuple(x.shape)}, z {tuple(z.shape)}, "
+            f"col_scale {tuple(col_scale.shape)}, row_scale "
+            f"{tuple(row_scale.shape)}")
+    if n > 1 and z.stride(0) != 1:
+        z = z.T.contiguous().T
+    out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    if m == 0 or n == 0:
+        return out
+    if k == 0:
+        return out.zero_()
+    launch, splits_fn = _kernel8()
+    key = ("int8", dev.index, m, n, k)
+    splits = _SPLITS.get(key)
+    if splits is None:
+        splits = _SPLITS[key] = splits_fn(m, n, k)
+    partial = torch.empty((splits, m, n), dtype=torch.float32, device=dev) \
+        if splits > 1 else None
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = launch(x.data_ptr(), z.data_ptr(), col_scale.data_ptr(),
+                 row_scale.data_ptr(), out.data_ptr(),
+                 None if partial is None else partial.data_ptr(),
+                 m, n, k, z.stride(1) if k > 1 else n, splits, stream)
+    if err != 0:
+        raise RuntimeError(f"dequant_int8 kernel launch failed: "
+                           f"cudaError_t {err}")
+    LAUNCHES[8] += 1
     return out

@@ -14,8 +14,10 @@ code), takes the (m, G, kg) group view, and routes by the tensor's device:
 a CPU tensor goes to the plain twin (``ref.py``), a CUDA tensor to the
 hand-written kernel (``dequant_matmul.py``) — there is no fallback between
 the two.  Out-of-range codes are applied after the matmul as a sparse COO
-delta (``_apply_escapes``).  int8 code matrices take the plain product on
-the CPU; their CUDA kernel is still to be ported (ROADMAP queue B item 2).
+delta (``_apply_escapes``).  An int8 code matrix z (n, k) goes to the
+int8 kernel on CUDA (``dequant_matmul_int8_cuda``, which reads the
+transposed view of a (k, n) serving leaf in place) and to its plain twin
+``ref.dequant_matmul_ref`` on the CPU.
 """
 from __future__ import annotations
 
@@ -25,8 +27,9 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
-from .dequant_matmul import PLANE_GROUPS, dequant_matmul_packed_cuda
-from .ref import dequant_matmul_packed_ref, payload_nbits
+from .dequant_matmul import (PLANE_GROUPS, dequant_matmul_int8_cuda,
+                             dequant_matmul_packed_cuda)
+from .ref import dequant_matmul_packed_ref, dequant_matmul_ref, payload_nbits
 
 __all__ = ["dequant_matmul", "dequant_matmul_packed", "payload_nbits",
            "payload_checksums", "verify_payloads"]
@@ -62,12 +65,12 @@ def dequant_matmul(x, z, col_scale, row_scale, *, escapes=None):
         return dequant_matmul_packed(x, z, col_scale, row_scale,
                                      nbits=payload_nbits(z), escapes=escapes)
     if z.is_cuda:
-        raise NotImplementedError(
-            "the int8 dequant-matmul CUDA kernel is not ported yet "
-            "(ROADMAP queue B item 2: dequant_matmul_pallas); int8 serving "
-            "leaves take the plain product in models.layers.dense")
-    xs = x.to(torch.float32) * col_scale.to(torch.float32)[None, :]
-    out = (xs @ z.to(torch.float32).T) * row_scale.to(torch.float32)[None, :]
+        out = dequant_matmul_int8_cuda(
+            x.to(torch.float32).contiguous(), z,
+            col_scale.to(torch.float32).contiguous(),
+            row_scale.to(torch.float32).contiguous())
+    else:
+        out = dequant_matmul_ref(x, z, col_scale, row_scale)
     if escapes is not None:
         out = _apply_escapes(out, x, col_scale, row_scale, escapes)
     return out

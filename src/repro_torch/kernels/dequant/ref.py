@@ -2,7 +2,8 @@
 ``repro/kernels/dequant/ref.py``).
 
 ``dequant_matmul_ref`` materializes the f32 weight — the ground-truth
-oracle.  ``unpack_payload_ref`` / ``dequant_matmul_packed_ref`` are the
+oracle and the twin of the hand-written int8 kernel
+(``csrc/dequant_int8.cu``).  ``unpack_payload_ref`` / ``dequant_matmul_packed_ref`` are the
 twins of the hand-written packed kernel (``csrc/dequant_packed.cu``): they
 unpack a planar int4/int3/int2 payload and run the scale-the-activations
 formulation.  The CPU path of ``ops`` runs them; ``chip_smoke.py`` holds

@@ -5,12 +5,14 @@ itself is ``csrc/zsic_block.cu`` (its header note says what bounds it and
 how it is designed).  This module checks the operands, allocates the
 outputs, launches on the current stream, raises on a launch error, and
 counts the launches (``zsic_block_cuda.launches``, bumped once per call
-that launches and nowhere else) so a run can show that its main path went
+that launches and nowhere else, under a lock: the plan executor launches
+it from several threads) so a run can show that its main path went
 through the kernel.
 """
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -20,6 +22,7 @@ __all__ = ["zsic_block_cuda", "reset_launches", "MAX_BLOCK"]
 MAX_BLOCK = 128
 
 _launch = None
+_count_lock = threading.Lock()
 
 
 def reset_launches() -> None:
@@ -79,7 +82,8 @@ def zsic_block_cuda(y: torch.Tensor, l_block: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"zsic_block kernel launch failed: cudaError_t "
                            f"{err}")
-    zsic_block_cuda.launches += 1
+    with _count_lock:
+        zsic_block_cuda.launches += 1
     return z, resid
 
 

@@ -46,24 +46,26 @@ def layernorm(p, x, eps=1e-5):
 
 def dense(p, x):
     """y = x @ W (+ b) for a raw (in, out) weight, an int8 code leaf, or a
-    packed uint8 leaf (the fused dequant-matmul: the hand-written kernel on
-    CUDA, its plain twin on the CPU)."""
+    packed uint8 leaf (the fused dequant-matmuls: the hand-written kernels
+    on CUDA, their plain twins on the CPU)."""
     w = p["w"]
     if isinstance(w, dict) and "kshard" in w:
         raise NotImplementedError("k-sharded serving leaves belong to the "
                                   "multi-device slice (ROADMAP item 11)")
     if isinstance(w, dict) and "codes" in w:
+        from repro_torch.kernels.dequant import dequant_matmul
+        lead = x.shape[:-1]
+        x2d = x.reshape(-1, x.shape[-1])
         if w["codes"].dtype == torch.uint8:
-            from repro_torch.kernels.dequant import dequant_matmul
-            lead = x.shape[:-1]
             y = dequant_matmul(
-                x.reshape(-1, x.shape[-1]), w["codes"], w["s"], w["t"],
+                x2d, w["codes"], w["s"], w["t"],
                 escapes=(w["esc_row"], w["esc_col"], w["esc_dval"]))
-            y = y.reshape(lead + (y.shape[-1],)).to(x.dtype)
         else:
-            # int8 codes: y = ((x·s) @ codes)·t as a plain product
-            y = ((x * w["s"].to(x.dtype)) @ w["codes"].to(x.dtype)) \
-                * w["t"].to(x.dtype)
+            # int8 codes stored (in, out): the kernel reads their (out, in)
+            # view in place, y = ((x·s) @ codes)·t with the weight kept int8
+            y = dequant_matmul(x2d, w["codes"].transpose(-1, -2), w["s"],
+                               w["t"])
+        y = y.reshape(lead + (y.shape[-1],)).to(x.dtype)
     else:
         y = x @ w.to(x.dtype)
     if "b" in p:

@@ -18,9 +18,11 @@ Methods: "watersic" (full), "watersic-plain" (no LMMSE/rescalers/drift),
 Without LMMSE ("watersic-plain", "hptq") the ZSIC runs in its blocked form
 through the in-block kernel on the card.
 
-Rate allocation is the even-spread ``RateBudget``; the planner's ``plan=``
-waits for ``plan/`` (ROADMAP queue A item 8) and MoE models for their
-family (item 12).  Everything runs on the device of ``params``.
+Rate allocation is the even-spread ``RateBudget``, or with ``plan=`` the
+per-matrix targets of a ``repro_torch.plan.QuantPlan`` (``PlanBudget``,
+achieved bits written back into the plan).  MoE models wait for their
+family (ROADMAP queue A item 12).  Everything runs on the device of
+``params``.
 
 Returns (quantized params, per-matrix QuantizedLinear dict, budget
 controller, report rows); ``from_watersic`` turns entries into serving
@@ -36,8 +38,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core import (CalibStats, QuantizedLinear, RateBudget,
-                              quantize_at_rate, rtn_absmax)
+from repro_torch.core import (CalibStats, PlanBudget, QuantizedLinear,
+                              RateBudget, quantize_at_rate, rtn_absmax)
 from repro_torch.models.transformer import (_attn_kwargs, _check_family,
                                             loss_fn)
 from .calibrate import (StatsAccumulator, _attention_with_probs,
@@ -152,11 +154,12 @@ def quantize_model(cfg: ArchConfig, params, calib_batches: List[np.ndarray],
                    ptq: PTQConfig, plan=None):
     """Sequential PTQ of a dense-family model on the device of ``params``.
     calib_batches: token arrays (B, S).  Returns (qparams, qlinears,
-    budget, rows)."""
-    if plan is not None:
-        raise NotImplementedError(
-            "quantize_model(plan=...) needs the global planner "
-            "(repro_torch.plan), not ported yet (ROADMAP queue A item 8)")
+    budget, rows).
+
+    ``plan``: an optional ``repro_torch.plan.QuantPlan`` — per-matrix
+    targets come from the plan instead of the even spread, and achieved
+    bits are written back into its entries.  It must cover every budget
+    key of this model ("L0/attn/wq", ...)."""
     if cfg.n_experts:
         raise NotImplementedError(
             f"{cfg.name}: MoE PTQ belongs to the MoE family's slice "
@@ -168,7 +171,14 @@ def quantize_model(cfg: ArchConfig, params, calib_batches: List[np.ndarray],
     layer_params = {f"L{l}/{'/'.join(path)}":
                     int(np.prod(_get_w(params, l, path).shape))
                     for l in range(L) for path, _, _ in mats}
-    budget = RateBudget(ptq.target_bits, layer_params)
+    if plan is not None:
+        missing = sorted(set(layer_params) - set(plan.names()))
+        if missing:
+            raise KeyError(f"plan is missing entries for {missing[:5]}"
+                           f"{'...' if len(missing) > 5 else ''}")
+        budget = PlanBudget(plan)
+    else:
+        budget = RateBudget(ptq.target_bits, layer_params)
     qlinears: Dict[str, QuantizedLinear] = {}
     rows = []
 

@@ -32,7 +32,8 @@ from repro_torch.core.packing import (pack_codes, pack_int2_planar,
 __all__ = ["quantize_params_tree", "from_watersic", "is_qweight",
            "is_packed_qweight",
            "is_packed3_qweight", "is_packed2_qweight", "qweight_bytes",
-           "leaf_format", "leaf_format_histogram", "leaf_inventory"]
+           "leaf_format", "leaf_format_histogram", "leaf_inventory",
+           "serving_formats_from_plan"]
 
 #: param-dict keys eligible for weight quantization (the big matmuls; the
 #: reference's raw MoE expert tensors come with the MoE family, item 12)
@@ -329,3 +330,24 @@ def leaf_inventory(tree) -> list:
     walk(tree, ())
     records.append({"path": "<other>", "format": "raw", "bytes": other})
     return records
+
+
+def serving_formats_from_plan(plan, *, default: Optional[int] = None
+                              ) -> Callable[[Tuple[str, ...]], Optional[int]]:
+    """QuantPlan → ``nbits_by_path`` for :func:`quantize_params_tree`.
+
+    Serving leaves stack every layer of one matrix type, so the per-layer
+    payloads of the plan aggregate to per-leaf formats: each group takes
+    the MAX payload bits across its layers (never serve a matrix below its
+    planned format).  A leaf with no matching plan entries gets
+    ``default`` (None = leave full precision).
+    """
+    groups: Dict[str, int] = {}
+    for e in plan:
+        groups[e.matrix] = max(groups.get(e.matrix, 0), int(e.payload_bits))
+
+    def nbits_by_path(path: Tuple[str, ...]) -> Optional[int]:
+        # (…, "attn", "wq", "w") → "attn/wq"
+        return groups.get("/".join(path[-3:-1]), default)
+
+    return nbits_by_path

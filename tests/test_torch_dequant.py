@@ -19,6 +19,7 @@ from _torch_parity import (assert_close, assert_same_ints, require_cuda,
                            to_numpy)
 from repro_torch.core.packing import pack_codes
 from repro_torch.kernels.dequant import (LAUNCHES, dequant_matmul,
+                                         dequant_matmul_int8_cuda,
                                          dequant_matmul_packed_cuda,
                                          dequant_matmul_packed_ref,
                                          dequant_matmul_ref,
@@ -124,16 +125,52 @@ def test_dequantize_leaf_matches_jax(nbits):
         to_numpy(dequantize_leaf_ref(torch.from_numpy(w))), jref(w))
 
 
+@pytest.mark.parametrize("m,k,n", [(1, 64, 24), (3, 200, 40), (5, 37, 53)])
+def test_int8_kn_view_matches_jax(m, k, n):
+    """The serving leaf's layout: int8 codes stored (k, n) and handed over
+    as their (n, k) transposed view, through the port's ops (the plain
+    twin on the CPU) vs repro.kernels.dequant.ops.dequant_matmul(
+    interpret=True) on the (n, k) matrix."""
+    import jax.numpy as jnp
+    from repro.kernels.dequant import ops as jops
+
+    rng = np.random.default_rng(m * k + n)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    codes = rng.integers(-127, 128, (k, n)).astype(np.int8)   # stored (k, n)
+    s = ((rng.random(k) * 0.2 + 0.01) / np.sqrt(k) / 30).astype(np.float32)
+    t = (rng.random(n) + 0.5).astype(np.float32)
+    view = torch.from_numpy(codes).transpose(0, 1)
+    assert not view.is_contiguous() and view.stride() == (1, n)
+    want = jops.dequant_matmul(jnp.asarray(x), jnp.asarray(codes.T),
+                               jnp.asarray(s), jnp.asarray(t),
+                               interpret=True)
+    got = dequant_matmul(torch.from_numpy(x), view, torch.from_numpy(s),
+                         torch.from_numpy(t))
+    assert got.shape == (m, n)
+    assert_close(got, want, tol=CPU_TOL)
+
+
 @pytest.mark.cuda
 def test_int8_codes_on_cuda_name_the_roadmap_item():
-    """An int8 code matrix on CUDA has no kernel yet: it raises, naming
-    the ROADMAP item (no silent plain-PyTorch fallback)."""
+    """An int8 code matrix on CUDA launches the int8 kernel (ROADMAP queue
+    B item 2, ported) once per call, escapes applied after it, and never
+    takes the plain twin."""
     dev = require_cuda()
-    x = torch.zeros((1, 8), device=dev)
-    z = torch.zeros((4, 8), dtype=torch.int8, device=dev)
-    with pytest.raises(NotImplementedError, match="queue B item 2"):
-        dequant_matmul(x, z, torch.ones(8, device=dev),
-                       torch.ones(4, device=dev))
+    x, z, s, t = _case(4, 300, 70, 4, False, seed=9)
+    z8 = torch.from_numpy(z.astype(np.int8))
+    esc = (torch.tensor([0, 5, 5], dtype=torch.int32),
+           torch.tensor([3, 7, 299], dtype=torch.int32),
+           torch.tensor([200.0, -150.0, 3.0]))
+    want = dequant_matmul(torch.from_numpy(x), z8, torch.from_numpy(s),
+                          torch.from_numpy(t), escapes=esc)
+    before = LAUNCHES[8]
+    got = dequant_matmul(torch.from_numpy(x).to(dev), z8.to(dev),
+                         torch.from_numpy(s).to(dev),
+                         torch.from_numpy(t).to(dev),
+                         escapes=tuple(e.to(dev) for e in esc))
+    torch.cuda.synchronize()
+    assert LAUNCHES[8] == before + 1 and got.is_cuda
+    assert_close(got, want, tol=CUDA_TOL)
 
 
 # ---------------------------------------------------------------------------
@@ -197,3 +234,55 @@ def test_kernel_wrapper_rejects_bad_operands():
         dequant_matmul_packed_cuda(xg, payload[:, :16], sg, t)
     with pytest.raises(ValueError):
         dequant_matmul_packed_cuda(xg, payload, sg, t, nbits=2)
+
+
+#: the int8 phase's shapes of chip_smoke.py: (m, k, n) at minicpm-2b's
+#: widths for m ∈ {1, 8, 128}, and the ragged case
+INT8_SHAPES = [(m, k, n) for m in (1, 8, 128)
+               for k, n in ((2304, 2304), (2304, 5760), (5760, 2304))] \
+    + [(8, 2300, 5757), (3, 301, 37)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["kn", "nk"])
+@pytest.mark.parametrize("m,k,n", INT8_SHAPES)
+def test_int8_kernel_matches_twin(m, k, n, layout):
+    """The int8 kernel against its twin (ref.dequant_matmul_ref) on the
+    same CUDA tensors: the serving leaf's (k, n) storage read in place
+    through its transposed view ("kn"), and an (n, k)-contiguous matrix
+    ("nk"), which the wrapper copies into that layout first."""
+    dev = require_cuda()
+    rng = np.random.default_rng(m + k + n)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32))
+    codes = torch.from_numpy(rng.integers(-127, 128, (k, n)).astype(np.int8))
+    s = torch.from_numpy(((rng.random(k) * 0.2 + 0.01) / np.sqrt(k) / 30)
+                         .astype(np.float32))
+    t = torch.from_numpy((rng.random(n) + 0.5).astype(np.float32))
+    x, codes, s, t = (a.to(dev) for a in (x, codes, s, t))
+    z = codes.transpose(0, 1) if layout == "kn" \
+        else codes.transpose(0, 1).contiguous()
+    before = LAUNCHES[8]
+    got = dequant_matmul_int8_cuda(x, z, s, t)
+    torch.cuda.synchronize()
+    assert LAUNCHES[8] == before + 1
+    assert_close(got, dequant_matmul_ref(x, z, s, t), tol=CUDA_TOL)
+    # the same inputs give the same bits on every run (fixed-order sums)
+    assert torch.equal(got, dequant_matmul_int8_cuda(x, z, s, t))
+
+
+@pytest.mark.cuda
+def test_int8_kernel_wrapper_rejects_bad_operands():
+    dev = require_cuda()
+    x = torch.zeros((2, 64), device=dev)
+    z = torch.zeros((16, 64), dtype=torch.int8, device=dev)
+    s, t = torch.ones(64, device=dev), torch.ones(16, device=dev)
+    with pytest.raises(TypeError):
+        dequant_matmul_int8_cuda(x.double(), z, s, t)
+    with pytest.raises(TypeError):
+        dequant_matmul_int8_cuda(x, z.to(torch.uint8), s, t)
+    with pytest.raises(ValueError):
+        dequant_matmul_int8_cuda(x, z.cpu(), s, t)
+    with pytest.raises(ValueError):
+        dequant_matmul_int8_cuda(x, z[:, :32], s, t)
+    with pytest.raises(ValueError):
+        dequant_matmul_int8_cuda(x[:, ::2], z[:, ::2], s[::2], t)

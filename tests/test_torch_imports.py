@@ -28,6 +28,8 @@ def _modules():
 def test_importing_every_module_loads_no_jax():
     mods = _modules()
     assert "repro_torch.kernels.dequant.ops" in mods and len(mods) > 20
+    assert {"repro_torch.plan", "repro_torch.plan.executor",
+            "repro_torch.dist.fault", "repro_torch.launch.plan"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "

@@ -17,11 +17,12 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import assert_close, assert_trees_equal, to_numpy
+from _torch_parity import (assert_close, assert_trees_equal, require_cuda,
+                           to_numpy)
 from repro_torch.configs import get_config as tget_config
 from repro_torch.configs.base import ArchConfig as TArchConfig
 from repro_torch.kernels.dequant import payload_checksums, verify_payloads
-from repro_torch.models.layers import layernorm, rmsnorm, rope
+from repro_torch.models.layers import dense, layernorm, rmsnorm, rope
 from repro_torch.models import (cache_reset_slot, cache_write_slot,
                                 decode_chunk, decode_step, from_jax_params,
                                 init_cache, init_params, split_layers)
@@ -289,6 +290,63 @@ def test_norms_and_rope_match_jax():
         assert_close(rope(torch.from_numpy(q), torch.from_numpy(pos), theta),
                      jl.rope(jnp.asarray(q), jnp.asarray(pos), theta),
                      tol=1e-4)
+
+
+def _int8_leaf(n_in, n_out, stack, seed, bias):
+    """A stacked int8 serving leaf (codes (stack, in, out)) with numpy
+    values, an optional bias, and x (2, 3, in)."""
+    rng = np.random.default_rng(seed)
+    p = {"w": {"codes": rng.integers(-127, 128, (stack, n_in, n_out))
+               .astype(np.int8),
+               "s": ((rng.random((stack, n_in)) + 0.5) / np.sqrt(n_in) / 60)
+               .astype(np.float32),
+               "t": (rng.random((stack, n_out)) + 0.5).astype(np.float32)}}
+    if bias:
+        p["b"] = rng.standard_normal((stack, n_out)).astype(np.float32)
+    x = rng.standard_normal((2, 3, n_in)).astype(np.float32)
+    return p, x
+
+
+def _layer(p, i):
+    return {k: ({kk: vv[i] for kk, vv in v.items()} if isinstance(v, dict)
+                else v[i]) for k, v in p.items()}
+
+
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("n_in,n_out", [(48, 40), (37, 53)])
+def test_dense_int8_leaf_matches_jax(n_in, n_out, bias):
+    """vs repro.models.layers.dense on an int8 serving leaf, one layer of
+    a stacked leaf: the port's branch hands the (out, in) view of the
+    stored (in, out) codes to the fused dequant-matmul (its plain twin on
+    the CPU), the reference runs ((x·s) @ codes)·t."""
+    import jax.numpy as jnp
+    from repro.models import layers as jl
+
+    p, x = _int8_leaf(n_in, n_out, 3, n_in + n_out, bias)
+    tp = from_jax_params(p, "cpu")
+    for i in range(3):
+        want = jl.dense({k: (jnp.asarray(v) if not isinstance(v, dict) else
+                             {kk: jnp.asarray(vv) for kk, vv in v.items()})
+                         for k, v in _layer(p, i).items()}, jnp.asarray(x))
+        got = dense(_layer(tp, i), torch.from_numpy(x))
+        assert got.shape == (2, 3, n_out) and got.dtype == torch.float32
+        assert_close(got, want, tol=1e-5)
+
+
+@pytest.mark.cuda
+def test_dense_int8_leaf_launches_the_int8_kernel_on_cuda():
+    """On CUDA the int8 branch of dense launches the int8 kernel once per
+    call, reads the stored codes in place, and matches the CPU branch."""
+    from repro_torch.kernels.dequant import LAUNCHES
+    dev = require_cuda()
+    p, x = _int8_leaf(2304, 576, 2, 7, True)
+    cpu = from_jax_params(p, "cpu")
+    gpu = from_jax_params(p, dev)
+    before = LAUNCHES[8]
+    got = dense(_layer(gpu, 1), torch.from_numpy(x).to(dev))
+    torch.cuda.synchronize()
+    assert LAUNCHES[8] == before + 1
+    assert_close(got, dense(_layer(cpu, 1), torch.from_numpy(x)), tol=1e-4)
 
 
 def test_convert_keeps_bits_of_every_leaf_dtype():

@@ -175,10 +175,14 @@ def test_adaptive_mixing_matches_reference():
 
 
 def test_quantize_model_raises_on_unported_options():
+    """MoE models wait for their family's slice (the planner's ``plan=``,
+    which this test used to check, is ported: tests/test_torch_plan.py)."""
     base, calib, _ = _setup()
-    with pytest.raises(NotImplementedError, match="item 8"):
-        quantize_model(TArchConfig(**CFG), from_jax_params(base, "cpu"),
-                       calib, PTQConfig(), plan=object())
+    moe = TArchConfig(**{**CFG, "family": "moe", "n_experts": 2,
+                         "top_k": 1})
+    with pytest.raises(NotImplementedError, match="item 12"):
+        quantize_model(moe, from_jax_params(base, "cpu"), calib,
+                       PTQConfig())
 
 
 @pytest.mark.parametrize("nbits", [8, 4, 3, 2])
