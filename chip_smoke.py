@@ -11,7 +11,9 @@ Phases, in order; any mismatch raises and the run exits non-zero:
 2. kernel phase: the packed dequant-matmul kernel against its plain
    PyTorch twin for int4/int3/int2 payloads at the serving path's shapes
    (m ∈ {1, 8}; (k, n) ∈ {(2304, 2304), (2304, 5760), (5760, 2304)}), plus
-   a ragged-k case and an escape case; each case prints the kernel time,
+   a ragged-k case and an escape case, each kernel call run twice (equal
+   bits: the split-K sums are added in a fixed order; the escapes'
+   ``index_add_`` is not); each case prints the kernel time,
    the twin's time, one library call's time (``F.linear`` against the
    pre-dequantized f32 weight) and the least time the card could take
    (``bound_ms``, the larger of the bytes over 3.35 TB/s and the 2·m·n·k
@@ -41,14 +43,16 @@ Phases, in order; any mismatch raises and the run exits non-zero:
 4. the flash attention kernel against its twin at minicpm-2b's heads
    (B·H = 4·36, d = 64), S ∈ {128, 256, 200}, window ∈ {0, 64}, causal,
    with ``F.scaled_dot_product_attention`` timed as the library call (never
-   called by the port);
+   called by the port); untimed, d = 128 and d = 256 (B·H = 4), S = 1, S
+   below one query tile and a ragged S without the causal mask;
 5. serve phase: minicpm-2b at full width and depth, packed int4,
    ``ContinuousEngine`` with 8 slots serving 8 requests (prompt 32, 16 new
    tokens, max_len 64, prefill chunk 16).  First-step logits through the
    kernel are held against the dequantized-weight model, and the kernel
    must have been launched 7 × 40 times per decode step; then a few
    decode steps at that batch are timed on the host clock and traced with
-   ``torch.profiler`` for the device's busy and idle share of the step;
+   ``torch.profiler`` for the device's busy and idle share of the step and
+   the packed kernels' device time (one device kernel per packed dense);
 6. ladder phase: the same at full width and 4 layers for int3 and int2;
 7. PTQ phase: minicpm-2b at full width cut to 2 layers, weights from the
    port's ``init_params`` (seed 0), calibration 2 batches of 4 × 128 and
@@ -266,6 +270,10 @@ def kernel_case(nbits, m, k, n, dev, gen, flush):
     torch.cuda.synchronize(dev)
     err = check(got, want, f"int{nbits} m={m} k={k} n={n}",
                 atol=KERNEL_TOL, rtol=KERNEL_TOL)
+    # split-K sums added across the cluster in rank order: equal bits
+    if not torch.equal(got, dequant_matmul_packed_cuda(xg, payload, sg, t,
+                                                       nbits=nbits)):
+        raise AssertionError(f"int{nbits} m={m} k={k} n={n}: two runs differ")
     w_hat = (t[:, None] * unpack_payload_ref(payload, nbits)[:, :k]
              .to(torch.float32) * s[None, :])            # (n, k)
     lib = F.linear(x, w_hat)
@@ -311,6 +319,13 @@ def kernel_phase(dev, gen):
             x, payload, s, t, escs = operands(m, k, n, nbits, dev, gen,
                                               esc=esc)
             got = dequant_matmul(x, payload, s, t, escapes=escs)
+            # the kernel's part gives equal bits on a rerun; the escapes'
+            # index_add_ adds duplicate rows with atomics, so the escaped
+            # sum is held to the twin only
+            if not torch.equal(dequant_matmul(x, payload, s, t),
+                               dequant_matmul(x, payload, s, t)):
+                raise AssertionError(f"ops int{nbits} m={m} k={k} n={n}: "
+                                     "two runs differ")
             w_hat = dequantize_leaf_ref({"codes": payload, "s": s, "t": t,
                                          "esc_row": escs[0],
                                          "esc_col": escs[1],
@@ -539,15 +554,18 @@ def _device_busy_ms(prof):
         return None
     busy, end = 0.0, float("-inf")
     kinds = {"packed_ms": 0.0, "gemm_ms": 0.0, "other_ms": 0.0}
+    packed = 0
     for a, b, name in sorted(spans):
         busy += max(0.0, b - max(a, end))
         end = max(end, b)
         low = name.lower()
-        kind = ("packed_ms" if "dequant_packed" in low or "reduce_splits"
-                in low else "gemm_ms" if "gemm" in low or "gemv" in low
+        kind = ("packed_ms" if "dequant_packed" in low
+                else "gemm_ms" if "gemm" in low or "gemv" in low
                 else "other_ms")
+        packed += kind == "packed_ms"
         kinds[kind] += (b - a) / 1e3
-    return {"busy_ms": busy / 1e3, "activities": len(spans), **kinds}
+    return {"busy_ms": busy / 1e3, "activities": len(spans),
+            "packed_kernels": packed, **kinds}
 
 
 def step_breakdown(cfg, params, dev, slots, max_len, cases):
@@ -556,7 +574,8 @@ def step_breakdown(cfg, params, dev, slots, max_len, cases):
     and with the stacked tree (split on every step); a ``torch.profiler``
     trace of 3 steps for the device's busy time and idle share; the
     unembed's device time; the packed kernels' device time per step from
-    the kernel phase (m = 8, × n_layers)."""
+    the kernel phase (m = 8, × n_layers).  The trace must hold one packed
+    device kernel per packed dense (7 × n_layers per step)."""
     from torch.profiler import ProfilerActivity, profile
 
     cache = init_cache(cfg, slots, max_len, torch.float32, per_slot=True,
@@ -590,6 +609,12 @@ def step_breakdown(cfg, params, dev, slots, max_len, cases):
         rec["device_activities_per_step"] = busy["activities"] / 3
         for k in ("packed_ms", "gemm_ms", "other_ms"):
             rec[f"traced_{k}_per_step"] = busy[k] / 3
+        # one device kernel per packed dense: 7 per layer and step
+        rec["traced_packed_kernels_per_step"] = busy["packed_kernels"] / 3
+        if busy["packed_kernels"] != 3 * 7 * cfg.n_layers:
+            raise AssertionError(f"{busy['packed_kernels']} packed device "
+                                 f"kernels in 3 traced steps, expected "
+                                 f"3 x 7 x {cfg.n_layers}")
     x = torch.randn((slots, 1, cfg.d_model), device=dev)
     rec["unembed_ms"] = device_ms(
         lambda: unembed(params["embed"], x, cfg.vocab), dev,
@@ -714,16 +739,24 @@ def _kept_pairs(s, causal, window):
     return int(keep.sum())
 
 
-def flash_case(s, window, dev, gen, flush):
-    """Kernel vs twin at minicpm-2b's heads (B·H = 4·36, d = 64)."""
-    b, h, d = 4, 36, 64
+def flash_check(b, s, h, d, causal, window, dev, gen):
+    """Kernel vs twin on one (B, S, H, d) case; returns (q, k, v, twin,
+    max |Δ|)."""
     q, k, v = [torch.randn((b, s, h, d), generator=gen, device=dev)
                for _ in range(3)]
-    got = flash_attention_cuda(q, k, v, causal=True, window=window)
-    want = flash_twin(q, k, v, causal=True, window=window)
+    got = flash_attention_cuda(q, k, v, causal=causal, window=window)
+    want = flash_twin(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize(dev)
-    err = check(got, want, f"flash S={s} window={window}", atol=FLASH_TOL,
-                rtol=FLASH_TOL)
+    err = check(got, want, f"flash B*H={b * h} S={s} d={d} causal={causal} "
+                f"window={window}", atol=FLASH_TOL, rtol=FLASH_TOL)
+    return q, k, v, want, err
+
+
+def flash_case(s, window, dev, gen, flush):
+    """Kernel vs twin at minicpm-2b's heads (B·H = 4·36, d = 64), causal,
+    with times and bound."""
+    b, h, d = 4, 36, 64
+    q, k, v, want, err = flash_check(b, s, h, d, True, window, dev, gen)
     mask = None
     if window:
         i = torch.arange(s, device=dev)[:, None]
@@ -755,8 +788,22 @@ def flash_case(s, window, dev, gen, flush):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+#: untimed flash cases beside the path's heads: (B, S, H, d, causal,
+#: window) for the other head dims, S = 1, an S below one query tile (of
+#: 64 rows), and a ragged S without the causal mask
+FLASH_EDGE_CASES = [(1, 256, 4, 128, True, 0), (1, 200, 4, 256, False, 64),
+                    (4, 1, 36, 64, True, 0), (4, 40, 36, 64, True, 0),
+                    (4, 200, 36, 64, False, 0)]
+
+
 def flash_phase(dev, gen, flush):
     cases = []
+    for b, s, h, d, causal, window in FLASH_EDGE_CASES:
+        err = flash_check(b, s, h, d, causal, window, dev, gen)[-1]
+        cases.append({"bh": b * h, "s": s, "d": d, "causal": causal,
+                      "window": window, "max_abs_err": err})
+        print(f"flash B*H={b * h} S={s} d={d} causal={causal} window="
+              f"{window}: max_abs_err={err:.3e}", flush=True)
     for s in (128, 256, 200):
         for window in (0, 64):
             c = flash_case(s, window, dev, gen, flush)
@@ -1147,8 +1194,10 @@ def main() -> int:
           "wall, device busy "
           + ("not measured (no device activity in the trace)" if busy is None
              else f"{busy:.3f} ms (idle share "
-                  f"{serve['device_idle_share']:.4f}; packed "
-                  f"{serve['traced_packed_ms_per_step']:.3f}, gemm "
+                  f"{serve['device_idle_share']:.4f}; packed kernels "
+                  f"{serve['traced_packed_ms_per_step']:.3f} ms device in "
+                  f"{serve['traced_packed_kernels_per_step']:.0f} launches "
+                  f"per step, gemm "
                   f"{serve['traced_gemm_ms_per_step']:.3f}, other "
                   f"{serve['traced_other_ms_per_step']:.3f} ms; "
                   f"{serve['device_activities_per_step']:.0f} activities)")
@@ -1244,7 +1293,8 @@ def main() -> int:
         "bound_by": "bytes" if zmix["bytes_ms"] >= zmix["operations_ms"]
         else "operations",
         "library_ms": None})
-    path = next(c for c in flash_cases if c["s"] == 256 and not c["window"])
+    path = next(c for c in flash_cases if c["s"] == 256 and c["d"] == 64
+                and not c["window"] and "ms" in c)
     kernels.append({
         "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": FLASH_REPLACES,

@@ -1,10 +1,11 @@
-// Fused packed dequantize-matmul for Hopper (sm_90a), f32 accumulation.
+// Fused packed dequantize-matmul for Hopper (sm_90a), f32 accumulation, one
+// launch per call: split-K across the blocks of a thread-block cluster.
 //
 // Replaces the TPU kernel dequant_matmul_packed_pallas
 // (src/repro/kernels/dequant/dequant_matmul.py, body _packed_kernel and
 // _unpack_planes).  It computes
 //
-//     out[m, n] = t[n] * sum_g sum_j (x[m, g*kg + j] * s[g*kg + j]) * Z_g[n, j]
+//     out[m, n] = t[n] * sum_g sum_j x[m, g*kg + j] * s[g*kg + j] * Z_g[n, j]
 //
 // where Z_g is column group g of a planar payload (src/repro_torch/core/
 // packing.py): int4 = two sign-extended nibbles per byte (G = 2), int2 =
@@ -14,55 +15,78 @@
 //
 // What bounds it: at decode m (the slot count) is 1..16, so each payload
 // byte is used by at most 16 rows of x.  The kernel must stream
-// n * kg * planes payload bytes from device memory once; at m = 1 those
-// bytes are the bound, and from m of about 4 up the f32 multiply-adds on
-// the CUDA cores are (2*m*n*k operations against 67 TFLOP/s).  Both are a
-// few microseconds at the serving shapes, so what decides the time is how
-// many bytes are in flight.  The design:
-//   * each block owns 16 output rows and a contiguous range of k (split-K):
-//     the launcher splits k until the grid has about 8 blocks per SM, so
-//     every block runs only a few stages and all SMs stream at once; the
-//     per-split partial sums go to a workspace and a second small kernel
-//     adds them in a fixed order (deterministic) and applies t;
-//   * in a warp, 8 lanes share a row and each lane loads 16 contiguous
-//     payload bytes per plane (one 16-byte load where the row is 16-byte
-//     aligned), so a warp reads 4 rows x 128 bytes per stage, coalesced;
-//   * the next stage's payload is loaded into registers before the current
-//     stage is staged and computed, so device-memory latency overlaps both;
-//   * x * s for the stage's 128 byte-columns, all G groups and all m rows
-//     of the tile is staged once per block in shared memory (padded every
-//     16 floats, so the 8 lanes of a row read 16-byte vectors without bank
-//     conflicts; the 4 rows of a warp read the same addresses);
-//   * codes are unpacked in registers without int-to-float conversions:
-//     a biased code b in [0, 255] placed in the mantissa of 2^23 is exactly
-//     2^23 + b, so one byte permute and one subtraction give the code;
-//   * the 8 lanes of a row reduce their f32 sums with warp shuffles; t
-//     scales the result in the epilogue (or in the split reduction);
+// n * kg * planes payload bytes from device memory once (0.4 to 2 us at
+// minicpm-2b's shapes), and the 2*m*n*k f32 operations on the CUDA cores
+// take 1.3 to 3.2 us at m = 8.  What costs time beyond those is shared
+// memory (x values read for every multiply-add), dependent round trips,
+// and launches.  The design:
+//   * one launch per call: each block owns 64 output rows (32 for int3)
+//     and a contiguous range of k, and the k ranges of one row tile are
+//     the blocks of one thread-block cluster (at most 8, the portable
+//     limit), so there is no workspace and no second kernel;
+//   * 8 lanes share a row group: each lane loads 16 contiguous payload
+//     bytes per plane, stage (128 byte-columns) and row, for 4 rows 16
+//     apart (2 for int3), so a warp reads 4 x 128 bytes per row set, and
+//     every x value read from shared memory feeds 4 rows (a register tile
+//     over n: the shared-memory reads, not the bytes, bound the previous
+//     one-row design);
+//   * per stage, a block issues its payload loads and the s values it
+//     needs, copies x for the same byte-columns into shared memory with
+//     cp.async (zero-filled past kg and m), and waits once; each thread
+//     scales its own copies by s, so x * s is staged once.  The registers
+//     go to the row tile rather than to more stages in flight (that ran
+//     slower); a block has 1 to 3 stages at the serving shapes;
+//   * codes are unpacked in registers without int-to-float conversions: a
+//     biased code b in [0, 255] placed in the mantissa of 2^23 is exactly
+//     2^23 + b, so one byte permute and one subtraction give the code
+//     (x * s is padded every 16 floats in shared memory, so the 8 lanes of
+//     a row group read 16-byte vectors without bank conflicts);
+//   * the 8 lanes of a row group reduce their sums with warp shuffles, and
+//     each block leaves its (m tile x rows) partial sums in its own shared
+//     memory; after cluster.sync() every block reduces a disjoint
+//     slice of the output tile, loading the partials of every rank of the
+//     cluster through distributed shared memory at once and adding them in
+//     rank order (equal bits on every run), applies t and stores;
 //   * ragged n (rows past n) and ragged kg (byte-columns past kg, or a row
 //     that is not 16-byte aligned) are masked in the kernel.
 //
 // Built by src/repro_torch/kernels/_build.py with plain nvcc (no PyTorch
 // headers) and called through ctypes from kernels/dequant/dequant_matmul.py.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <algorithm>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 constexpr int kThreads = 128;                                // 4 warps
 constexpr int kLanesPerRow = 8;
-constexpr int kRowsPerWarp = 32 / kLanesPerRow;              // 4
-constexpr int kRowsPerBlock = (kThreads / 32) * kRowsPerWarp;  // 16
+constexpr int kRowGroup = kThreads / kLanesPerRow;          // 16 rows side by side
 constexpr int kChunk = kLanesPerRow * 16;                    // byte-columns per stage
 constexpr int kChunkPad = kChunk + kChunk / 4;               // 4 pad floats per 16
-constexpr int kBlocksPerSm = 8;                              // split-K target
+constexpr int kBlocksPerSm = 4;                              // split-K target
+constexpr int kMaxCluster = 8;                               // portable cluster size
 static_assert(kChunk == kThreads, "staging maps one byte-column to each thread");
 
+// G column groups per byte-column, P planes per row, R rows per lane (the
+// register tile over n: 4, and 2 for int3, whose three planes and eight
+// groups per row take the registers), the 2^23 bias of a biased code
 template <int NBITS> struct Layout;
-template <> struct Layout<4> { static constexpr int G = 2, P = 1; static constexpr float kBias = 8388616.0f; };
-template <> struct Layout<3> { static constexpr int G = 8, P = 3; static constexpr float kBias = 8388612.0f; };
-template <> struct Layout<2> { static constexpr int G = 4, P = 1; static constexpr float kBias = 8388610.0f; };
+template <> struct Layout<4> {
+  static constexpr int G = 2, P = 1, R = 4;
+  static constexpr float kBias = 8388616.0f;
+};
+template <> struct Layout<3> {
+  static constexpr int G = 8, P = 3, R = 2;
+  static constexpr float kBias = 8388612.0f;
+};
+template <> struct Layout<2> {
+  static constexpr int G = 4, P = 1, R = 4;
+  static constexpr float kBias = 8388610.0f;
+};
 
 __device__ __forceinline__ int swizzle(int jj) { return jj + (jj >> 4) * 4; }
 
@@ -119,124 +143,152 @@ __device__ __forceinline__ void load_stage(uint4 (&dst)[P], const uint8_t* prow,
   }
 }
 
+// 4 bytes global -> shared, zero-filled when !valid
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem, bool valid) {
+  const uint32_t dst = (uint32_t)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(gmem),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
 template <int NBITS, int MT>
 __global__ void __launch_bounds__(kThreads)
 dequant_packed_kernel(const float* __restrict__ x, const uint8_t* __restrict__ payload,
                       const float* __restrict__ s, const float* __restrict__ t,
-                      float* __restrict__ out, float* __restrict__ partial,
-                      int m, int n, int kg, int stages_per_split, bool vec16) {
+                      float* __restrict__ out, int m, int n, int kg, int stages_per_split,
+                      bool vec16) {
   constexpr int G = Layout<NBITS>::G;
   constexpr int P = Layout<NBITS>::P;
+  constexpr int R = Layout<NBITS>::R;
+  constexpr int kRowsPerBlock = kRowGroup * R;
   extern __shared__ float4 smem4[];
-  float* xs = reinterpret_cast<float*>(smem4);               // [MT][G][kChunkPad]
+  float* xs = reinterpret_cast<float*>(smem4);   // [MT][G][kChunkPad]
+  float* part = xs + MT * G * kChunkPad;         // [MT][kRowsPerBlock]
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int rg = lane / kLanesPerRow;
-  const int cl = lane % kLanesPerRow;
-  const int row = blockIdx.x * kRowsPerBlock + (tid >> 5) * kRowsPerWarp + rg;
-  const int m0 = blockIdx.y * MT;
-  const bool row_ok = row < n;
+  const int cl = tid % kLanesPerRow;
+  const int row0 = blockIdx.y * kRowsPerBlock + tid / kLanesPerRow;  // rows row0 + 16 i
+  const int m0 = blockIdx.z * MT;
   const int kx = G * kg;
-  const uint8_t* prow = payload + (size_t)(row_ok ? row : 0) * P * kg;
+  const float* xb = xs + swizzle(cl * 16);
 
-  float acc[MT];
+  float acc[MT][R];
 #pragma unroll
-  for (int i = 0; i < MT; ++i) acc[i] = 0.0f;
+  for (int mi = 0; mi < MT; ++mi) {
+#pragma unroll
+    for (int i = 0; i < R; ++i) acc[mi][i] = 0.0f;
+  }
 
-  uint4 cur[P], nxt[P];
   const int n_stages = (kg + kChunk - 1) / kChunk;
-  const int c_begin = blockIdx.z * stages_per_split;
+  const int c_begin = blockIdx.x * stages_per_split;
   const int c_end = min(n_stages, c_begin + stages_per_split);
-  load_stage<P>(cur, prow, kg, c_begin * kChunk + cl * 16, row_ok, vec16);
-
   for (int c = c_begin; c < c_end; ++c) {
-    const int j0 = c * kChunk;
-    // the next stage's payload is in flight while x * s is staged
-    if (c + 1 < c_end) load_stage<P>(nxt, prow, kg, j0 + kChunk + cl * 16, row_ok, vec16);
-    {
-      // kChunk == kThreads: thread tid stages byte-column j0 + tid of every
-      // group and every row; s is read once per group, all loads unrolled
-      const int j = j0 + tid;
-      const bool j_ok = j < kg;
+    // the stage's payload (R rows) and s of this thread's byte-column into
+    // registers, x into shared memory: every load issued before the wait
+    uint4 pay[R][P];
 #pragma unroll
-      for (int g = 0; g < G; ++g) {
-        const int col = g * kg + j;
-        const float sv = j_ok ? s[col] : 0.0f;
+    for (int i = 0; i < R; ++i) {
+      const int row = row0 + i * kRowGroup;
+      const bool row_ok = row < n;
+      load_stage<P>(pay[i], payload + (size_t)(row_ok ? row : 0) * P * kg, kg,
+                    c * kChunk + cl * 16, row_ok, vec16);
+    }
+    // thread tid owns byte-column c * kChunk + tid of every group and row
+    // of x (copied asynchronously, zero past kg and m) and scales its own
+    // copies by s once they land
+    const int j = c * kChunk + tid;
+    float sv[G];
 #pragma unroll
-        for (int mi = 0; mi < MT; ++mi) {
-          const float xv = (j_ok && m0 + mi < m) ? x[(size_t)(m0 + mi) * kx + col] : 0.0f;
-          xs[(mi * G + g) * kChunkPad + swizzle(tid)] = xv * sv;
-        }
+    for (int g = 0; g < G; ++g) sv[g] = j < kg ? __ldg(s + g * kg + j) : 0.0f;
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi) {
+        const bool ok = j < kg && m0 + mi < m;
+        cp_async4(xs + (mi * G + g) * kChunkPad + swizzle(tid),
+                  x + (ok ? (size_t)(m0 + mi) * kx + g * kg + j : 0), ok);
       }
+    }
+    asm volatile("cp.async.commit_group;\ncp.async.wait_all;\n" ::: "memory");
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi) xs[(mi * G + g) * kChunkPad + swizzle(tid)] *= sv[g];
     }
     __syncthreads();
 
-    const float* xb = xs + swizzle(cl * 16);
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
-      uint32_t w[P];
-#pragma unroll
-      for (int p = 0; p < P; ++p) w[p] = word(cur[p], q);
 #pragma unroll
       for (int g = 0; g < G; ++g) {
-        const uint32_t u = group_bytes<NBITS>(w, g);
-        const float c0 = biased_float(u, 0) - Layout<NBITS>::kBias;
-        const float c1 = biased_float(u, 1) - Layout<NBITS>::kBias;
-        const float c2 = biased_float(u, 2) - Layout<NBITS>::kBias;
-        const float c3 = biased_float(u, 3) - Layout<NBITS>::kBias;
+        // codes of byte-columns 4q .. 4q+3 of each of the R rows
+        float cd[R][4];
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          uint32_t pw[P];
+#pragma unroll
+          for (int p = 0; p < P; ++p) pw[p] = word(pay[i][p], q);
+          const uint32_t u = group_bytes<NBITS>(pw, g);
+#pragma unroll
+          for (int b = 0; b < 4; ++b) cd[i][b] = biased_float(u, b) - Layout<NBITS>::kBias;
+        }
 #pragma unroll
         for (int mi = 0; mi < MT; ++mi) {
-          const float4 xv = *reinterpret_cast<const float4*>(xb + (mi * G + g) * kChunkPad + 4 * q);
-          float a = acc[mi];
-          a = fmaf(xv.x, c0, a);
-          a = fmaf(xv.y, c1, a);
-          a = fmaf(xv.z, c2, a);
-          a = fmaf(xv.w, c3, a);
-          acc[mi] = a;
+          const float4 xv =
+              *reinterpret_cast<const float4*>(xb + (mi * G + g) * kChunkPad + 4 * q);
+#pragma unroll
+          for (int i = 0; i < R; ++i) {
+            float a = acc[mi][i];
+            a = fmaf(xv.x, cd[i][0], a);
+            a = fmaf(xv.y, cd[i][1], a);
+            a = fmaf(xv.z, cd[i][2], a);
+            a = fmaf(xv.w, cd[i][3], a);
+            acc[mi][i] = a;
+          }
         }
       }
     }
-    __syncthreads();
-#pragma unroll
-    for (int p = 0; p < P; ++p) cur[p] = nxt[p];
+    __syncthreads();                             // the next stage refills x
   }
 
 #pragma unroll
   for (int mi = 0; mi < MT; ++mi) {
-    float v = acc[mi];
-    v += __shfl_xor_sync(0xffffffffu, v, 4);
-    v += __shfl_xor_sync(0xffffffffu, v, 2);
-    v += __shfl_xor_sync(0xffffffffu, v, 1);
-    acc[mi] = v;
-  }
-  if (row_ok && cl == 0) {
-    if (gridDim.z == 1) {
-      const float tr = t[row];
 #pragma unroll
-      for (int mi = 0; mi < MT; ++mi) {
-        if (m0 + mi < m) out[(size_t)(m0 + mi) * n + row] = acc[mi] * tr;
-      }
-    } else {
-      float* dst = partial + (size_t)blockIdx.z * m * n;
-#pragma unroll
-      for (int mi = 0; mi < MT; ++mi) {
-        if (m0 + mi < m) dst[(size_t)(m0 + mi) * n + row] = acc[mi];
-      }
+    for (int i = 0; i < R; ++i) {
+      float v = acc[mi][i];
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      if (cl == 0) part[mi * kRowsPerBlock + i * kRowGroup + tid / kLanesPerRow] = v;
     }
   }
-}
 
-// out[i] = t[i % n] * sum over splits of partial[split][i], in split order.
-__global__ void reduce_splits_kernel(const float* __restrict__ partial,
-                                     const float* __restrict__ t, float* __restrict__ out,
-                                     int m, int n, int splits) {
-  const size_t mn = (size_t)m * n;
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= mn) return;
-  float a = 0.0f;
-  for (int z = 0; z < splits; ++z) a += partial[z * mn + i];
-  out[i] = a * t[i % n];
+  // split-K reduction over the cluster's blocks through distributed shared
+  // memory: rank r sums a disjoint slice of the tile, the ranks' partials
+  // loaded together and added in rank order
+  cg::cluster_group cluster = cg::this_cluster();
+  const int splits = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  cluster.sync();
+  constexpr int kTile = MT * kRowsPerBlock;
+  const int per = (kTile + splits - 1) / splits;
+  const int e_end = min(kTile, (rank + 1) * per);
+  for (int e = rank * per + tid; e < e_end; e += kThreads) {
+    const int mi = e / kRowsPerBlock;
+    const int orow = blockIdx.y * kRowsPerBlock + e % kRowsPerBlock;
+    float v[kMaxCluster];
+#pragma unroll
+    for (int z = 0; z < kMaxCluster; ++z) {
+      v[z] = z < splits ? cluster.map_shared_rank(part, z)[e] : 0.0f;
+    }
+    float a = 0.0f;
+#pragma unroll
+    for (int z = 0; z < kMaxCluster; ++z) {
+      if (z < splits) a += v[z];
+    }
+    if (m0 + mi < m && orow < n) out[(size_t)(m0 + mi) * n + orow] = a * t[orow];
+  }
+  cluster.sync();                                // partials stay until all have read
 }
 
 int pick_mt(int m) { return m <= 1 ? 1 : m <= 2 ? 2 : m <= 4 ? 4 : m <= 8 ? 8 : 16; }
@@ -253,23 +305,23 @@ int sm_count() {
   return count;
 }
 
-// Number of k splits: enough blocks for kBlocksPerSm per SM, whole stages
-// per split, and no split without a stage.
-int splits_for(int m, int n, int kg) {
+// Stages per k split: enough blocks for kBlocksPerSm per SM, at most
+// kMaxCluster splits (one cluster per row tile), whole stages per split.
+int stages_per_split(int m, int n, int kg, int rows) {
   const int mt = pick_mt(m);
-  const long blocks = (long)((n + kRowsPerBlock - 1) / kRowsPerBlock) * ((m + mt - 1) / mt);
+  const long blocks = (long)((n + rows - 1) / rows) * ((m + mt - 1) / mt);
   const int n_stages = (kg + kChunk - 1) / kChunk;
   const long want = ((long)kBlocksPerSm * sm_count() + blocks - 1) / blocks;
-  const int splits = (int)std::min<long>(n_stages, std::max<long>(1, want));
-  const int per = (n_stages + splits - 1) / splits;
-  return (n_stages + per - 1) / per;
+  const int splits = (int)std::min<long>(std::min(n_stages, kMaxCluster),
+                                         std::max<long>(1, want));
+  return (n_stages + splits - 1) / splits;
 }
 
 template <int NBITS, int MT>
 cudaError_t launch(const float* x, const uint8_t* payload, const float* s, const float* t,
-                   float* out, float* partial, int splits, int m, int n, int kg,
-                   cudaStream_t stream) {
-  const size_t smem = sizeof(float) * MT * Layout<NBITS>::G * kChunkPad;
+                   float* out, int m, int n, int kg, cudaStream_t stream) {
+  constexpr int kRowsPerBlock = kRowGroup * Layout<NBITS>::R;
+  constexpr size_t smem = sizeof(float) * (MT * Layout<NBITS>::G * kChunkPad + MT * kRowsPerBlock);
   auto kernel = dequant_packed_kernel<NBITS, MT>;
   if (smem > 48 * 1024) {
     static cudaError_t attr = cudaFuncSetAttribute(
@@ -278,66 +330,57 @@ cudaError_t launch(const float* x, const uint8_t* payload, const float* s, const
   }
   const bool vec16 = (kg % 16 == 0) && (reinterpret_cast<uintptr_t>(payload) % 16 == 0);
   const int n_stages = (kg + kChunk - 1) / kChunk;
-  const int per = (n_stages + splits - 1) / splits;
-  const dim3 grid((n + kRowsPerBlock - 1) / kRowsPerBlock, (m + MT - 1) / MT,
-                  (n_stages + per - 1) / per);
-  kernel<<<grid, kThreads, smem, stream>>>(x, payload, s, t, out, partial, m, n, kg, per,
-                                           vec16);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || grid.z == 1) return err;
-  const size_t mn = (size_t)m * n;
-  reduce_splits_kernel<<<(unsigned)((mn + 255) / 256), 256, 0, stream>>>(partial, t, out, m,
-                                                                        n, (int)grid.z);
-  return cudaGetLastError();
+  const int per = stages_per_split(m, n, kg, kRowsPerBlock);
+  const int splits = (n_stages + per - 1) / per;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = splits;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(splits, (n + kRowsPerBlock - 1) / kRowsPerBlock, (m + MT - 1) / MT);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, x, payload, s, t, out, m, n, kg, per, vec16);
 }
 
 template <int NBITS>
 cudaError_t launch_nbits(const float* x, const uint8_t* payload, const float* s,
-                         const float* t, float* out, float* partial, int splits, int m,
-                         int n, int kg, cudaStream_t stream) {
+                         const float* t, float* out, int m, int n, int kg,
+                         cudaStream_t stream) {
   switch (pick_mt(m)) {
-    case 1: return launch<NBITS, 1>(x, payload, s, t, out, partial, splits, m, n, kg, stream);
-    case 2: return launch<NBITS, 2>(x, payload, s, t, out, partial, splits, m, n, kg, stream);
-    case 4: return launch<NBITS, 4>(x, payload, s, t, out, partial, splits, m, n, kg, stream);
-    case 8: return launch<NBITS, 8>(x, payload, s, t, out, partial, splits, m, n, kg, stream);
-    default: return launch<NBITS, 16>(x, payload, s, t, out, partial, splits, m, n, kg, stream);
+    case 1: return launch<NBITS, 1>(x, payload, s, t, out, m, n, kg, stream);
+    case 2: return launch<NBITS, 2>(x, payload, s, t, out, m, n, kg, stream);
+    case 4: return launch<NBITS, 4>(x, payload, s, t, out, m, n, kg, stream);
+    case 8: return launch<NBITS, 8>(x, payload, s, t, out, m, n, kg, stream);
+    default: return launch<NBITS, 16>(x, payload, s, t, out, m, n, kg, stream);
   }
 }
 
 }  // namespace
 
-// Number of k splits to launch an (m, n, kg) product with; the caller
-// keeps it per shape and provides a workspace of splits * m * n floats
-// when it is above 1.
-extern "C" int dequant_matmul_packed_splits(int m, int n, int kg) {
-  if (m <= 0 || n <= 0 || kg <= 0) return 1;
-  return splits_for(m, n, kg);
-}
-
 // x (m, G*kg) f32, payload uint8 (n, planes, kg), s (G*kg) f32, t (n) f32,
-// out (m, n) f32, partial (splits, m, n) f32 scratch when splits > 1; all
-// contiguous on the current device.  Any splits >= 1 is safe: the launch
-// uses at most that many k ranges.  Returns the cudaError_t of the
-// launches (0 on success); launches nothing when m or n is 0.
+// out (m, n) f32; all contiguous on the current device.  One kernel launch
+// on `stream`, no scratch memory.  Returns the cudaError_t of the launch
+// (0 on success); launches nothing when m or n is 0.
 extern "C" int dequant_matmul_packed_f32(const void* x, const void* payload, const void* s,
-                                         const void* t, void* out, void* partial, int m,
-                                         int n, int kg, int nbits, int splits,
-                                         void* stream) {
+                                         const void* t, void* out, int m, int n, int kg,
+                                         int nbits, void* stream) {
   if (m <= 0 || n <= 0) return 0;
-  if (kg <= 0 || splits < 1 || (splits > 1 && partial == nullptr)) {
-    return (int)cudaErrorInvalidValue;
-  }
+  if (kg <= 0) return (int)cudaErrorInvalidValue;
   const float* xf = static_cast<const float*>(x);
   const uint8_t* pb = static_cast<const uint8_t*>(payload);
   const float* sf = static_cast<const float*>(s);
   const float* tf = static_cast<const float*>(t);
   float* of = static_cast<float*>(out);
-  float* pf = static_cast<float*>(partial);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (nbits) {
-    case 4: return (int)launch_nbits<4>(xf, pb, sf, tf, of, pf, splits, m, n, kg, st);
-    case 3: return (int)launch_nbits<3>(xf, pb, sf, tf, of, pf, splits, m, n, kg, st);
-    case 2: return (int)launch_nbits<2>(xf, pb, sf, tf, of, pf, splits, m, n, kg, st);
+    case 4: return (int)launch_nbits<4>(xf, pb, sf, tf, of, m, n, kg, st);
+    case 3: return (int)launch_nbits<3>(xf, pb, sf, tf, of, m, n, kg, st);
+    case 2: return (int)launch_nbits<2>(xf, pb, sf, tf, of, m, n, kg, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

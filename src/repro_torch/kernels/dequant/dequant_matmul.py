@@ -4,12 +4,14 @@ Ports of ``repro/kernels/dequant/dequant_matmul.py``:
 ``dequant_matmul_packed_pallas`` is ``csrc/dequant_packed.cu`` and
 ``dequant_matmul_pallas`` (int8 codes) is ``csrc/dequant_int8.cu`` (their
 header notes say what bounds them and how they are designed).  This module
-checks the operands, allocates the output and the split-K scratch,
-launches on the current stream, raises on a launch error, and counts the
-launches (``LAUNCHES[nbits]``, 8 for the int8 kernel; one per call that
-launches, bumped nowhere else; a split call also runs the kernel's
-fixed-order reduction) so a run can show that its main path went through
-the kernels.
+checks the operands, allocates the output (and the int8 kernel's split-K
+scratch), launches on the current stream, raises on a launch error, and
+counts the launches (``LAUNCHES[nbits]``, 8 for the int8 kernel; one per
+call that launches, bumped nowhere else) so a run can show that its main
+path went through the kernels.  A packed call is one kernel launch: its
+split-K partial sums are added inside a thread-block cluster.  An int8
+call with more than one k split also runs that kernel's fixed-order
+reduction.
 """
 from __future__ import annotations
 
@@ -31,7 +33,7 @@ LAUNCHES = {2: 0, 3: 0, 4: 0, 8: 0}
 
 _lib = None
 _lib8 = None
-#: k splits of a launch, by (kernel, device index, m, n, k): the library
+#: k splits of an int8 launch, by (device index, m, n, k): the library
 #: picks them, this module sizes the workspace from them
 _SPLITS: dict = {}
 
@@ -42,19 +44,15 @@ def reset_launches() -> None:
 
 
 def _kernel():
-    """(launch, splits) C functions of the built library."""
+    """The launch C function of the built packed library."""
     global _lib
     if _lib is None:
         from repro_torch.kernels._build import load
-        lib = load("dequant_packed")
-        launch = lib.dequant_matmul_packed_f32
-        launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 \
+        launch = load("dequant_packed").dequant_matmul_packed_f32
+        launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 \
             + [ctypes.c_void_p]
         launch.restype = ctypes.c_int
-        splits = lib.dequant_matmul_packed_splits
-        splits.argtypes = [ctypes.c_int] * 3
-        splits.restype = ctypes.c_int
-        _lib = (launch, splits)
+        _lib = launch
     return _lib
 
 
@@ -62,7 +60,8 @@ def dequant_matmul_packed_cuda(x_groups: torch.Tensor, payload: torch.Tensor,
                                s_groups: torch.Tensor,
                                row_scale: torch.Tensor, *,
                                nbits: int = 4) -> torch.Tensor:
-    """x_groups (m, G, kg) f32 · planar payload → (m, n) f32 on the card.
+    """x_groups (m, G, kg) f32 · planar payload → (m, n) f32 on the card,
+    in one kernel launch and no memory beyond the output.
 
     ``payload`` is uint8 (n, kg) for int4, (n, 3, kg) for int3 and
     (n, 1, kg) for int2; ``s_groups`` (G, kg) and ``row_scale`` (n,) are
@@ -97,19 +96,10 @@ def dequant_matmul_packed_cuda(x_groups: torch.Tensor, payload: torch.Tensor,
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
     if m == 0 or n == 0:
         return out
-    launch, splits_fn = _kernel()
-    key = ("packed", dev.index, m, n, kg)
-    splits = _SPLITS.get(key)
-    if splits is None:
-        splits = _SPLITS[key] = splits_fn(m, n, kg)
-    # split-K partial sums, added in a fixed order by the kernel's reduction
-    partial = torch.empty((splits, m, n), dtype=torch.float32, device=dev) \
-        if splits > 1 else None
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = launch(x_groups.data_ptr(), payload.data_ptr(),
-                 s_groups.data_ptr(), row_scale.data_ptr(), out.data_ptr(),
-                 None if partial is None else partial.data_ptr(),
-                 m, n, kg, nbits, splits, stream)
+    err = _kernel()(x_groups.data_ptr(), payload.data_ptr(),
+                    s_groups.data_ptr(), row_scale.data_ptr(), out.data_ptr(),
+                    m, n, kg, nbits, stream)
     if err != 0:
         raise RuntimeError(f"dequant_packed kernel launch failed: "
                            f"cudaError_t {err}")
@@ -174,7 +164,7 @@ def dequant_matmul_int8_cuda(x: torch.Tensor, z: torch.Tensor,
     if k == 0:
         return out.zero_()
     launch, splits_fn = _kernel8()
-    key = ("int8", dev.index, m, n, k)
+    key = (dev.index, m, n, k)
     splits = _SPLITS.get(key)
     if splits is None:
         splits = _SPLITS[key] = splits_fn(m, n, k)

@@ -2,12 +2,14 @@
 
 Port of ``repro/kernels/flash/flash_attention.py::flash_attention_pallas``;
 the kernel itself is ``csrc/flash_attention.cu`` (its header note says
-what bounds it and how it is designed).  It reads q, k, v in the model's
-(B, S, H, d) layout directly, so nothing is folded or padded: the kernel
-masks a ragged S itself.  This module checks the operands, allocates the
-output, launches on the current stream, raises on a launch error, and
-counts the launches (``flash_attention_cuda.launches``, bumped once per
-call that launches and nowhere else).
+what bounds it and how it is designed: TF32 tensor cores with a 3-term
+split, K and V tiles staged with ``cp.async``).  It reads q, k, v in the
+model's (B, S, H, d) layout directly, so nothing is folded or padded: the
+kernel masks a ragged S itself.  This module checks the operands,
+allocates the output, launches the one kernel on the current stream,
+raises on a launch error, and counts the launches
+(``flash_attention_cuda.launches``, bumped once per call that launches and
+nowhere else).
 """
 from __future__ import annotations
 
@@ -44,7 +46,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True,
                          window: int = 0) -> torch.Tensor:
     """q, k, v: (B, S, H, d) contiguous f32 CUDA tensors on one device,
-    d ∈ {64, 128, 256} → (B, S, H, d) f32 attention output."""
+    16-byte aligned (the kernel copies 16-byte chunks), d ∈ {64, 128, 256}
+    → (B, S, H, d) f32 attention output."""
     b, s, h, d = q.shape
     dev = q.device
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -58,6 +61,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"{(b, s, h, d)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
     if d not in HEAD_DIMS:
         raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
     out = torch.empty_like(q)

@@ -19,6 +19,34 @@ def require_cuda() -> torch.device:
     return torch.device("cuda")
 
 
+def graph_kernel_nodes(fn) -> list:
+    """Node types of a CUDA graph that captures one call of ``fn`` (0 is a
+    kernel node): the device work a call enqueues, read through
+    ``cuGraphGetNodes`` (libcuda) rather than from a profiler's trace."""
+    import ctypes
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                   # first-use work off the graph
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    cuda = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    assert cuda.cuGraphGetNodes(handle, None, ctypes.byref(count)) == 0
+    nodes = (ctypes.c_void_p * count.value)()
+    assert cuda.cuGraphGetNodes(handle, nodes, ctypes.byref(count)) == 0
+    types = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        assert cuda.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                       ctypes.byref(kind)) == 0
+        types.append(kind.value)
+    return types
+
+
 def to_numpy(tree):
     """JAX / torch value tree → the same tree of numpy arrays."""
     if isinstance(tree, dict):

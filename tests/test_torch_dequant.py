@@ -15,8 +15,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import (assert_close, assert_same_ints, require_cuda,
-                           to_numpy)
+from _torch_parity import (assert_close, assert_same_ints, graph_kernel_nodes,
+                           require_cuda, to_numpy)
 from repro_torch.core.packing import pack_codes
 from repro_torch.kernels.dequant import (LAUNCHES, dequant_matmul,
                                          dequant_matmul_int8_cuda,
@@ -234,6 +234,54 @@ def test_kernel_wrapper_rejects_bad_operands():
         dequant_matmul_packed_cuda(xg, payload[:, :16], sg, t)
     with pytest.raises(ValueError):
         dequant_matmul_packed_cuda(xg, payload, sg, t, nbits=2)
+
+
+#: minicpm-2b's (k, n) of the packed serving path
+SERVING_SHAPES = [(2304, 2304), (2304, 5760), (5760, 2304)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 8, 16, 21])
+@pytest.mark.parametrize("k,n", SERVING_SHAPES)
+@pytest.mark.parametrize("nbits", [2, 3, 4])
+def test_kernel_reruns_give_equal_bits(nbits, k, n, m):
+    """The split-K sums are added across the cluster in rank order, so the
+    same inputs give the same bits on every run."""
+    dev = require_cuda()
+    x, payload, s, t, _ = _cuda_operands(m, k, n, nbits, False,
+                                         seed=m * k + n, dev=dev)
+    g, kg = PLANE_GROUPS[nbits], payload.shape[-1]
+    xg = torch.nn.functional.pad(x, (0, g * kg - k)).view(m, g, kg)
+    sg = torch.nn.functional.pad(s, (0, g * kg - k)).view(g, kg)
+    first = dequant_matmul_packed_cuda(xg, payload, sg, t, nbits=nbits)
+    for _ in range(3):
+        assert torch.equal(first, dequant_matmul_packed_cuda(
+            xg, payload, sg, t, nbits=nbits))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nbits", [2, 3, 4])
+def test_kernel_is_one_device_kernel_per_call_without_workspace(nbits):
+    """One call: one kernel node in a CUDA graph of the call, one count,
+    and no device memory beyond the output (no split-K workspace)."""
+    dev = require_cuda()
+    m, k, n = 8, 5760, 2304
+    x, payload, s, t, _ = _cuda_operands(m, k, n, nbits, False, 1, dev)
+    g, kg = PLANE_GROUPS[nbits], payload.shape[-1]
+    xg = torch.nn.functional.pad(x, (0, g * kg - k)).view(m, g, kg)
+    sg = torch.nn.functional.pad(s, (0, g * kg - k)).view(g, kg)
+    before = LAUNCHES[nbits]
+    assert graph_kernel_nodes(lambda: dequant_matmul_packed_cuda(
+        xg, payload, sg, t, nbits=nbits)) == [0]
+    assert LAUNCHES[nbits] == before + 2
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = dequant_matmul_packed_cuda(xg, payload, sg, t, nbits=nbits)
+    torch.cuda.synchronize()
+    # the caching allocator rounds a block up to 512 bytes
+    assert torch.cuda.max_memory_allocated() - held \
+        <= -(-out.numel() * 4 // 512) * 512
 
 
 #: the int8 phase's shapes of chip_smoke.py: (m, k, n) at minicpm-2b's

@@ -15,7 +15,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import assert_close, require_cuda, to_numpy
+from _torch_parity import (assert_close, graph_kernel_nodes, require_cuda,
+                           to_numpy)
 from repro_torch.configs.base import ArchConfig as TArchConfig
 from repro_torch.kernels.flash import (attention_ref, flash_attention,
                                        flash_attention_cuda)
@@ -199,7 +200,9 @@ def test_attention_train_routes_by_device(monkeypatch):
 @pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("s,causal,window", [
     (128, True, 0), (256, True, 0), (200, True, 0), (256, True, 64),
-    (200, True, 64), (130, False, 0), (77, False, 16)])
+    (200, True, 64), (130, False, 0), (77, False, 16), (1, True, 0),
+    (1, False, 0), (40, True, 0), (40, False, 64), (256, False, 0),
+    (200, False, 64)])
 def test_kernel_matches_twin(d, s, causal, window):
     dev = require_cuda()
     q, k, v = [torch.as_tensor(x, device=dev)
@@ -228,3 +231,16 @@ def test_kernel_counts_launches_and_rejects_bad_operands():
                              k[..., :48].contiguous(),
                              v[..., :48].contiguous())
     assert flash_attention_cuda.launches == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 256])
+def test_kernel_is_one_device_kernel_per_call(d):
+    """One call is one kernel node in a CUDA graph of the call, and one
+    count."""
+    dev = require_cuda()
+    q, k, v = [torch.as_tensor(x, device=dev) for x in _qkv(2, 200, 3, d)]
+    before = flash_attention_cuda.launches
+    assert graph_kernel_nodes(lambda: flash_attention_cuda(
+        q, k, v, causal=False, window=64)) == [0]
+    assert flash_attention_cuda.launches == before + 2

@@ -2,8 +2,8 @@
 
 A fresh interpreter imports every module of ``repro_torch`` and must end
 with no ``jax`` in ``sys.modules``; a source scan finds no jax or repro
-import in the package or in ``chip_smoke.py``; the entry points refuse to
-run without CUDA unless the CPU was asked for.
+import in the package, ``chip_smoke.py`` or ``kernel_bench.py``; the
+entry points refuse to run without CUDA unless the CPU was asked for.
 """
 import os
 import pathlib
@@ -48,8 +48,9 @@ _BAD = re.compile(r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)[\s.])",
 
 
 def test_sources_do_not_import_jax_or_repro():
-    files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert (ROOT / "chip_smoke.py").exists()
+    scripts = [ROOT / "chip_smoke.py", ROOT / "kernel_bench.py"]
+    files = list(PKG.rglob("*.py")) + scripts
+    assert all(f.exists() for f in scripts)
     hits = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
             for f in files for m in _BAD.finditer(f.read_text())]
     assert not hits, hits
