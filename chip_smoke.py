@@ -35,7 +35,8 @@ Phases, in order; any mismatch raises and the run exits non-zero:
    PTQ path's row counts (230, 576, 2304, 5760), with its bound (bytes of
    y, codes, residual and the L block against the a·bn·(bn+1)/2 unfused
    multiply-subtracts, 2 f32 instructions each, and the a·bn divisions and
-   roundings on the CUDA cores; no library call computes ZSIC); then one
+   roundings on the CUDA cores; no library call computes ZSIC), its event
+   time (L2 cold) beside its device time (``torch.profiler``, warm); then one
    full ``zsic_quantize`` at (2304, 2304), which launches the kernel on
    strided column slices as the PTQ path does, against the same run through
    the twin (bit for bit) and against ``zsic_numpy`` in float64 (≥ 99.9 %
@@ -52,7 +53,10 @@ Phases, in order; any mismatch raises and the run exits non-zero:
    must have been launched 7 × 40 times per decode step; then a few
    decode steps at that batch are timed on the host clock and traced with
    ``torch.profiler`` for the device's busy and idle share of the step and
-   the packed kernels' device time (one device kernel per packed dense);
+   the packed kernels' device time; one decode step captured in a CUDA
+   graph must hold one device kernel per packed dense (its kernel nodes
+   counted by name: the profiler now and then drops the record of a
+   kernel launched as a thread-block cluster);
 6. ladder phase: the same at full width and 4 layers for int3 and int2;
 7. PTQ phase: minicpm-2b at full width cut to 2 layers, weights from the
    port's ``init_params`` (seed 0), calibration 2 batches of 4 × 128 and
@@ -81,8 +85,11 @@ Phases, in order; any mismatch raises and the run exits non-zero:
 10. mixed serve phase: ``serving_formats_from_plan`` of that plan on
    minicpm-2b at full width and depth (40 layers): the int8 types through
    the int8 kernel, the others through the packed one (each kernel once
-   per layer of each of its leaves per decode step), first-step logits
-   against the dequantized-weight model, the serve phase's 8 requests;
+   per layer of each of its leaves per decode step, and a decode step
+   captured in a CUDA graph holding one device kernel per int8 and per
+   packed call),
+   first-step logits against the dequantized-weight model, the serve
+   phase's 8 requests;
    then a 2-layer copy's greedy streams from ``ServeEngine`` and
    ``ContinuousEngine`` must be identical.
 
@@ -233,6 +240,27 @@ def device_ms(fn, dev, *, reps=25, flush=None):
         pairs.append((a, b))
     torch.cuda.synchronize(dev)
     return statistics.median(a.elapsed_time(b) for a, b in pairs)
+
+
+def profile_kernels(fn, dev, calls=10):
+    """Device kernels of ``calls`` warm calls of ``fn`` in a
+    ``torch.profiler`` trace: name → {"per_call": launches per call,
+    "us_per_call": device µs per call}."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize(dev)
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            n, us = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, us + (e.time_range.end
+                                            - e.time_range.start))
+    return {name[:60]: {"per_call": n / calls, "us_per_call": us / calls}
+            for name, (n, us) in by_name.items()}
 
 
 def operands(m, k, n, nbits, dev, gen, *, esc=False):
@@ -543,29 +571,72 @@ def serve_tree(cfg, params, oracle_of, label, dev, *, n_req, prompt_len,
     return rec
 
 
+def graph_kernel_names(fn):
+    """Function names of the kernel nodes of a CUDA graph that captures one
+    call of ``fn``: the device kernels the call launches, read through
+    libcuda (``cuGraphGetNodes``, ``cuGraphKernelNodeGetParams``,
+    ``cuFuncGetName``) rather than from a profiler's trace."""
+    import ctypes
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                   # first-use work off the graph
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    cuda = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    if cuda.cuGraphGetNodes(handle, None, ctypes.byref(count)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * count.value)()
+    if cuda.cuGraphGetNodes(handle, nodes, ctypes.byref(count)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    names = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        cuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind))
+        if kind.value != 0:                    # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        params = (ctypes.c_byte * 256)()       # CUDA_KERNEL_NODE_PARAMS_v2
+        name = ctypes.c_char_p()
+        if cuda.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node),
+                                              params) != 0 \
+                or cuda.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(
+                    ctypes.c_void_p.from_buffer(params, 0).value)) != 0:
+            raise RuntimeError("cannot read a kernel node's function name")
+        names.append(name.value.decode())
+    del graph
+    return names
+
+
 def _device_busy_ms(prof):
     """Union of the traced device activities' intervals (ms) and their
-    time by kind: packed kernel (with its split reduction), matrix
-    products, everything else."""
+    time by kind: packed kernel, int8 kernel, matrix products, everything
+    else; and the count of each dequant kernel."""
     spans = [(e.time_range.start, e.time_range.end, e.name)
              for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA]
     if not spans:
         return None
     busy, end = 0.0, float("-inf")
-    kinds = {"packed_ms": 0.0, "gemm_ms": 0.0, "other_ms": 0.0}
-    packed = 0
+    kinds = {"packed_ms": 0.0, "int8_ms": 0.0, "gemm_ms": 0.0,
+             "other_ms": 0.0}
+    packed = int8 = 0
     for a, b, name in sorted(spans):
         busy += max(0.0, b - max(a, end))
         end = max(end, b)
         low = name.lower()
         kind = ("packed_ms" if "dequant_packed" in low
+                else "int8_ms" if "dequant_int8" in low
                 else "gemm_ms" if "gemm" in low or "gemv" in low
                 else "other_ms")
         packed += kind == "packed_ms"
+        int8 += kind == "int8_ms"
         kinds[kind] += (b - a) / 1e3
     return {"busy_ms": busy / 1e3, "activities": len(spans),
-            "packed_kernels": packed, **kinds}
+            "packed_kernels": packed, "int8_kernels": int8, **kinds}
 
 
 def step_breakdown(cfg, params, dev, slots, max_len, cases):
@@ -574,8 +645,9 @@ def step_breakdown(cfg, params, dev, slots, max_len, cases):
     and with the stacked tree (split on every step); a ``torch.profiler``
     trace of 3 steps for the device's busy time and idle share; the
     unembed's device time; the packed kernels' device time per step from
-    the kernel phase (m = 8, × n_layers).  The trace must hold one packed
-    device kernel per packed dense (7 × n_layers per step)."""
+    the kernel phase (m = 8, × n_layers).  The trace must hold one device
+    kernel per quantized dense: one packed kernel per packed leaf and
+    layer, one int8 kernel per int8 leaf and layer."""
     from torch.profiler import ProfilerActivity, profile
 
     cache = init_cache(cfg, slots, max_len, torch.float32, per_slot=True,
@@ -597,6 +669,22 @@ def step_breakdown(cfg, params, dev, slots, max_len, cases):
     rec = {"decode_step_wall_ms": statistics.median(wall_ms(split, 5)),
            "decode_step_wall_ms_stacked": statistics.median(
                wall_ms(params, 5))}
+    # one device kernel per quantized dense and layer, counted exactly in
+    # a CUDA graph of one step (the profiler now and then drops the record
+    # of a kernel launched as a thread-block cluster, as both dequant
+    # kernels are)
+    per_step = launches_per_step(params, cfg.n_layers)
+    want = {"packed_kernels": sum(c for nb, c in per_step.items() if nb != 8),
+            "int8_kernels": per_step.get(8, 0)}
+    names = graph_kernel_names(lambda: decode_step(cfg, split, cache, tok))
+    got = {"packed_kernels": sum("dequant_packed" in n for n in names),
+           "int8_kernels": sum("dequant_int8" in n for n in names)}
+    rec["graph_kernels_per_step"] = len(names)
+    for key, n in want.items():
+        rec[f"graph_{key}_per_step"] = got[key]
+    if got != want:
+        raise AssertionError(f"device kernels in a CUDA graph of one decode "
+                             f"step {got}, expected {want}")
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         traced = wall_ms(split, 3)
     busy = _device_busy_ms(prof)
@@ -607,14 +695,9 @@ def step_breakdown(cfg, params, dev, slots, max_len, cases):
         rec["device_busy_ms_per_step"] = busy["busy_ms"] / 3
         rec["device_idle_share"] = 1 - busy["busy_ms"] / sum(traced)
         rec["device_activities_per_step"] = busy["activities"] / 3
-        for k in ("packed_ms", "gemm_ms", "other_ms"):
+        for k in ("packed_ms", "int8_ms", "gemm_ms", "other_ms",
+                  "packed_kernels", "int8_kernels"):
             rec[f"traced_{k}_per_step"] = busy[k] / 3
-        # one device kernel per packed dense: 7 per layer and step
-        rec["traced_packed_kernels_per_step"] = busy["packed_kernels"] / 3
-        if busy["packed_kernels"] != 3 * 7 * cfg.n_layers:
-            raise AssertionError(f"{busy['packed_kernels']} packed device "
-                                 f"kernels in 3 traced steps, expected "
-                                 f"3 x 7 x {cfg.n_layers}")
     x = torch.randn((slots, 1, cfg.d_model), device=dev)
     rec["unembed_ms"] = device_ms(
         lambda: unembed(params["embed"], x, cfg.vocab), dev,
@@ -645,6 +728,14 @@ def zsic_operands(a, bn, dev, seed):
     return f32, (y, l, alphas)
 
 
+def twin_block(y, l_block, alphas, *, out):
+    """``kernels/zsic/ops.zsic_block`` with the twin in place of the
+    kernel: the block's codes and residual copied into ``out``."""
+    for dst, src in zip(out, zsic_block_ref(y, l_block, alphas)):
+        dst.copy_(src)
+    return out
+
+
 def zsic_case(a, bn, dev, flush):
     """Kernel vs twin on one block, bit for bit, with times and bound."""
     (y, l, alphas), _ = zsic_operands(a, bn, dev, seed=a + bn)
@@ -664,10 +755,15 @@ def zsic_case(a, bn, dev, flush):
     nbytes = 4 * (3 * a * bn + bn * bn + bn)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = (a * bn * (bn + 1) + 2 * a * bn) / F32_INSTR_PER_S * 1e3
+    kernels = profile_kernels(lambda: zsic_block_cuda(y, l, alphas), dev)
     return {"a": a, "bn": bn, "code_mismatches": mismatches,
             "max_abs_err": err,
             "ms": device_ms(lambda: zsic_block_cuda(y, l, alphas), dev,
                             flush=flush),
+            "device_ms": sum(v["us_per_call"] for v in kernels.values())
+            / 1e3,
+            "device_kernels_per_call": sum(v["per_call"]
+                                           for v in kernels.values()),
             "plain_ms": device_ms(lambda: zsic_block_ref(y, l, alphas), dev,
                                   flush=flush, reps=5),
             "bound_ms": max(t_bytes, t_ops), "bytes_ms": t_bytes,
@@ -682,7 +778,9 @@ def zsic_phase(dev, flush):
     cases = {}
     for a in ZSIC_ROWS:
         c = cases[a] = zsic_case(a, 128, dev, flush)
-        print(f"zsic_block a={a} bn=128: ms={c['ms']:.5f} plain_ms="
+        print(f"zsic_block a={a} bn=128: ms={c['ms']:.5f} (L2 cold; "
+              f"device {c['device_ms']:.5f} warm in "
+              f"{c['device_kernels_per_call']:g} kernel per call) plain_ms="
               f"{c['plain_ms']:.5f} bound_ms={c['bound_ms']:.5f} "
               f"({c['bound_by']}) code_mismatches={c['code_mismatches']} "
               f"max_abs_err={c['max_abs_err']:.3e}", flush=True)
@@ -691,7 +789,7 @@ def zsic_phase(dev, flush):
     # the same blocked run with the twin in place of the kernel: the PTQ
     # path's strided column slices of y and L, held bit for bit
     kernel_fn = zsic_ops.zsic_block
-    zsic_ops.zsic_block = zsic_block_ref
+    zsic_ops.zsic_block = twin_block
     try:
         zt, rt = zsic_quantize(y, l, alphas)
     finally:
@@ -1119,6 +1217,20 @@ def mixed_serve_phase(cfg, plan, dev):
         raise AssertionError(f"int8 launches per step "
                              f"{rec['launches_per_step']}, expected "
                              f"{len(int8_types)} x {cfg.n_layers}")
+    # one device kernel per int8 call in a decode step, and a traced step
+    traced = step_breakdown(cfg, mixed, dev, 8, 64, [])
+    rec.update({k: traced[k] for k in traced if k.startswith("traced_")
+                or k.startswith("graph_") or k.startswith("device_")
+                or k.startswith("decode_step")})
+    print(f"mixed serve decode step: {rec['graph_int8_kernels_per_step']} "
+          f"int8 and {rec['graph_packed_kernels_per_step']} packed device "
+          f"kernels of {rec['graph_kernels_per_step']} in a CUDA graph of "
+          "the step"
+          + ("" if rec.get("device_busy_ms_per_step") is None else
+             f"; traced: int8 {rec['traced_int8_ms_per_step']:.3f} ms, "
+             f"packed {rec['traced_packed_ms_per_step']:.3f} ms device per "
+             f"step, device idle share {rec['device_idle_share']:.4f}"),
+          flush=True)
     del mixed
     torch.cuda.empty_cache()
     rec.update({"formats": hist, "int8_types": int8_types,
@@ -1196,8 +1308,9 @@ def main() -> int:
              else f"{busy:.3f} ms (idle share "
                   f"{serve['device_idle_share']:.4f}; packed kernels "
                   f"{serve['traced_packed_ms_per_step']:.3f} ms device in "
-                  f"{serve['traced_packed_kernels_per_step']:.0f} launches "
-                  f"per step, gemm "
+                  f"{serve['traced_packed_kernels_per_step']:.0f} traced "
+                  f"launches per step ({serve['graph_packed_kernels_per_step']}"
+                  f" in a CUDA graph of the step), gemm "
                   f"{serve['traced_gemm_ms_per_step']:.3f}, other "
                   f"{serve['traced_other_ms_per_step']:.3f} ms; "
                   f"{serve['device_activities_per_step']:.0f} activities)")

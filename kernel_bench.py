@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time and profile the port's B1 (packed dequant-matmul) and B3 (flash
-attention forward) kernels alone, on one card.
+"""Time and profile the port's four kernels alone, on one card: B1
+(packed dequant-matmul), B2 (int8 dequant-matmul), B3 (flash attention
+forward) and B4 (in-block ZSIC recursion).
 
     python3 kernel_bench.py [--src DIR] [--tag NAME]
 
@@ -12,8 +13,14 @@ serving and ``model_ppl`` paths it prints the CUDA-event median of one
 call with L2 cold (as ``chip_smoke.py`` times it) and a ``torch.profiler``
 trace of 10 warm calls: every device kernel a call launches, with its
 count and device µs per call.  The kernels' ``ptxas`` lines (registers,
-spills, shared memory) come first.  Results also go to
-``chiprun_out/kernel_bench_<tag>.json``.
+spills, shared memory) come first, with the SASS instruction count of
+every kernel function where ``cuobjdump`` is present.  B2 runs at m = 1,
+8 and 128 on the serving shapes (its mixed-serve mix is wq/wk/wv at m =
+8, (2304, 2304)); B4 at the PTQ path's row counts with bn = 128 (and its
+PTQ mix, weighted by ``ZSIC_PTQ_MIX``), plus bn = 1, 32 and 64 at a =
+2304, which separates a launch's fixed cost from the per-column chain.  Results also go to
+``chiprun_out/kernel_bench_<tag>.json`` and B4's SASS listing to
+``chiprun_out/zsic_block_<tag>.sass``.
 """
 from __future__ import annotations
 
@@ -24,27 +31,37 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+#: ZSIC block launches by row count in one ``hptq`` run of the chip smoke
+#: (2 full-width minicpm-2b layers at 3 bits)
+ZSIC_PTQ_MIX = {230: 468, 576: 144, 2304: 234, 5760: 72}
+#: block widths of the chain-length sweep at a = 2304
+ZSIC_BN_SWEEP = (1, 32, 64)
 
 
-def profile_kernels(fn, dev, calls=10):
-    """Device kernels of ``calls`` calls of ``fn``: name → (launches per
-    call, device µs per call)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize(dev)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize(dev)
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            n, us = by_name.get(e.name, (0, 0.0))
-            by_name[e.name] = (n + 1, us + (e.time_range.end
-                                            - e.time_range.start))
-    return {name[:60]: {"per_call": n / calls, "us_per_call": us / calls}
-            for name, (n, us) in by_name.items()}
+def sass_counts(lib, dump=None):
+    """Kernel function → SASS instruction count of a built library (empty
+    without ``cuobjdump``); the listing also goes to ``dump``."""
+    import os
+    import re
+    import shutil
+    tool = Path(os.environ.get("CUDA_HOME") or "/usr/local/cuda") / "bin" \
+        / "cuobjdump"
+    tool = str(tool) if tool.exists() else shutil.which("cuobjdump")
+    if tool is None:
+        return {}
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                         text=True).stdout
+    if dump is not None:
+        dump.write_text(out)
+    counts, fn = {}, None
+    for line in out.splitlines():
+        head = re.match(r"\s*Function : (\S+)", line)
+        if head:
+            fn = head.group(1)
+            counts[fn] = 0
+        elif fn and re.match(r"\s*/\*[0-9a-f]{4}\*/", line):
+            counts[fn] += 1
+    return counts
 
 
 def main() -> int:
@@ -63,8 +80,10 @@ def main() -> int:
     import chip_smoke as cs
     from repro_torch.kernels import _build
     from repro_torch.kernels.dequant import (PLANE_GROUPS,
+                                             dequant_matmul_int8_cuda,
                                              dequant_matmul_packed_cuda)
     from repro_torch.kernels.flash import flash_attention_cuda
+    from repro_torch.kernels.zsic import zsic_block_cuda
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -74,16 +93,25 @@ def main() -> int:
     print(f"[{args.tag}] {repro_torch.__file__}\n{smi.stdout.strip()}",
           flush=True)
     _build.build_all()
-    for stem in ("dequant_packed", "flash_attention"):
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    rec_sass = {}
+    for stem in ("dequant_packed", "dequant_int8", "flash_attention",
+                 "zsic_block"):
         for line in _build.build_log(stem).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"ptxas {stem}: {line.strip()}")
+        rec_sass[stem] = sass_counts(
+            _build._target(_build.sources()[stem]),
+            out / f"{stem}_{args.tag}.sass" if stem == "zsic_block" else None)
+        for fn, count in rec_sass[stem].items():
+            print(f"sass {stem}: {fn} {count} instructions")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     flush = torch.ones(16 << 20, dtype=torch.float32, device=dev)
     cs.device_ms(lambda: flush.max(), dev, flush=flush)
     rec = {"device": smi.stdout.strip(), "tag": args.tag, "packed": [],
-           "flash": []}
+           "int8": [], "flash": [], "zsic": [], "sass": rec_sass}
     for nbits in (4, 3, 2):
         for m in (1, 8):
             for k, n in cs.PATH_SHAPES:
@@ -99,7 +127,7 @@ def main() -> int:
                                                       nbits=nbits)
                 c = {"nbits": nbits, "m": m, "k": k, "n": n,
                      "ms": cs.device_ms(call, dev, flush=flush),
-                     "kernels": profile_kernels(call, dev)}
+                     "kernels": cs.profile_kernels(call, dev)}
                 rec["packed"].append(c)
                 print(f"[{args.tag}] packed int{nbits} m={m} k={k} n={n}: "
                       f"{1e3 * c['ms']:.2f} us; kernels {c['kernels']}",
@@ -119,12 +147,50 @@ def main() -> int:
             return flash_attention_cuda(q, k, v, causal=True, window=window)
         c = {"bh": 144, "s": s, "d": 64, "window": window,
              "ms": cs.device_ms(call, dev, flush=flush),
-             "kernels": profile_kernels(call, dev)}
+             "kernels": cs.profile_kernels(call, dev)}
         rec["flash"].append(c)
         print(f"[{args.tag}] flash B*H=144 S={s} d=64 window={window}: "
               f"{1e3 * c['ms']:.2f} us; kernels {c['kernels']}", flush=True)
-    out = ROOT / "chiprun_out"
-    out.mkdir(exist_ok=True)
+    for m in (1, 8, 128):
+        for k, n in cs.PATH_SHAPES:
+            x = torch.randn((m, k), generator=gen, device=dev)
+            z = torch.randint(-127, 128, (k, n), generator=gen, device=dev,
+                              dtype=torch.int32).to(torch.int8).T
+            s = (torch.rand(k, generator=gen, device=dev) * 0.2 + 0.01) \
+                / k ** 0.5 / 30
+            t = torch.rand(n, generator=gen, device=dev) + 0.5
+
+            def call():
+                return dequant_matmul_int8_cuda(x, z, s, t)
+            c = {"m": m, "k": k, "n": n,
+                 "ms": cs.device_ms(call, dev, flush=flush),
+                 "kernels": cs.profile_kernels(call, dev)}
+            rec["int8"].append(c)
+            print(f"[{args.tag}] int8 m={m} k={k} n={n}: {1e3 * c['ms']:.2f}"
+                  f" us; kernels {c['kernels']}", flush=True)
+    rec["int8_m8_mixed_serve_mix_ms"] = next(
+        c["ms"] for c in rec["int8"] if c["m"] == 8 and c["k"] == c["n"])
+    zcases = [(a, 128) for a in cs.ZSIC_ROWS] \
+        + [(2304, bn) for bn in ZSIC_BN_SWEEP]
+    for a, bn in zcases:
+        (y, l, alphas), _ = cs.zsic_operands(a, bn, dev, seed=a + bn)
+
+        def call():
+            return zsic_block_cuda(y, l, alphas)
+        c = {"a": a, "bn": bn, "ms": cs.device_ms(call, dev, flush=flush),
+             "warm_ms": cs.device_ms(call, dev),
+             "kernels": cs.profile_kernels(call, dev)}
+        rec["zsic"].append(c)
+        print(f"[{args.tag}] zsic a={a} bn={bn}: {1e3 * c['ms']:.2f} us "
+              f"(L2 warm {1e3 * c['warm_ms']:.2f}); kernels {c['kernels']}",
+              flush=True)
+    by_a = {c["a"]: c for c in rec["zsic"] if c["bn"] == 128}
+    rec["zsic_ptq_mix_ms"] = sum(n * by_a[a]["ms"] for a, n
+                                 in ZSIC_PTQ_MIX.items()) \
+        / sum(ZSIC_PTQ_MIX.values())
+    print(f"[{args.tag}] int8 m=8 mixed-serve mix: "
+          f"{1e3 * rec['int8_m8_mixed_serve_mix_ms']:.2f} us; zsic PTQ mix: "
+          f"{1e3 * rec['zsic_ptq_mix_ms']:.2f} us", flush=True)
     (out / f"kernel_bench_{args.tag}.json").write_text(json.dumps(rec,
                                                                   indent=1))
     return 0

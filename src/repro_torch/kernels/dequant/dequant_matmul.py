@@ -4,14 +4,13 @@ Ports of ``repro/kernels/dequant/dequant_matmul.py``:
 ``dequant_matmul_packed_pallas`` is ``csrc/dequant_packed.cu`` and
 ``dequant_matmul_pallas`` (int8 codes) is ``csrc/dequant_int8.cu`` (their
 header notes say what bounds them and how they are designed).  This module
-checks the operands, allocates the output (and the int8 kernel's split-K
-scratch), launches on the current stream, raises on a launch error, and
-counts the launches (``LAUNCHES[nbits]``, 8 for the int8 kernel; one per
-call that launches, bumped nowhere else) so a run can show that its main
-path went through the kernels.  A packed call is one kernel launch: its
-split-K partial sums are added inside a thread-block cluster.  An int8
-call with more than one k split also runs that kernel's fixed-order
-reduction.
+checks the operands, allocates the output, launches on the current
+stream, raises on a launch error, and counts the launches
+(``LAUNCHES[nbits]``, 8 for the int8 kernel; one per call that launches,
+bumped nowhere else) so a run can show that its main path went through
+the kernels.  Each call is one kernel launch and allocates only its
+output: both kernels add their split-K partial sums inside a thread-block
+cluster.
 """
 from __future__ import annotations
 
@@ -33,9 +32,6 @@ LAUNCHES = {2: 0, 3: 0, 4: 0, 8: 0}
 
 _lib = None
 _lib8 = None
-#: k splits of an int8 launch, by (device index, m, n, k): the library
-#: picks them, this module sizes the workspace from them
-_SPLITS: dict = {}
 
 
 def reset_launches() -> None:
@@ -108,19 +104,15 @@ def dequant_matmul_packed_cuda(x_groups: torch.Tensor, payload: torch.Tensor,
 
 
 def _kernel8():
-    """(launch, splits) C functions of the built int8 library."""
+    """The launch C function of the built int8 library."""
     global _lib8
     if _lib8 is None:
         from repro_torch.kernels._build import load
-        lib = load("dequant_int8")
-        launch = lib.dequant_matmul_int8_f32
-        launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 \
-            + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+        launch = load("dequant_int8").dequant_matmul_int8_f32
+        launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 \
+            + [ctypes.c_longlong, ctypes.c_void_p]
         launch.restype = ctypes.c_int
-        splits = lib.dequant_matmul_int8_splits
-        splits.argtypes = [ctypes.c_int] * 3
-        splits.restype = ctypes.c_int
-        _lib8 = (launch, splits)
+        _lib8 = launch
     return _lib8
 
 
@@ -135,7 +127,8 @@ def dequant_matmul_int8_cuda(x: torch.Tensor, z: torch.Tensor,
     read in place; any other layout (an (n, k)-contiguous matrix) is first
     copied into it, which the serving path never does.  ``x``,
     ``col_scale`` (k,) and ``row_scale`` (n,) must be contiguous f32;
-    every operand a CUDA tensor on one device.
+    every operand a CUDA tensor on one device.  One kernel launch and no
+    memory beyond the output.
     """
     ops = {"x": x, "z": z, "col_scale": col_scale, "row_scale": row_scale}
     dev = z.device
@@ -163,18 +156,10 @@ def dequant_matmul_int8_cuda(x: torch.Tensor, z: torch.Tensor,
         return out
     if k == 0:
         return out.zero_()
-    launch, splits_fn = _kernel8()
-    key = (dev.index, m, n, k)
-    splits = _SPLITS.get(key)
-    if splits is None:
-        splits = _SPLITS[key] = splits_fn(m, n, k)
-    partial = torch.empty((splits, m, n), dtype=torch.float32, device=dev) \
-        if splits > 1 else None
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = launch(x.data_ptr(), z.data_ptr(), col_scale.data_ptr(),
-                 row_scale.data_ptr(), out.data_ptr(),
-                 None if partial is None else partial.data_ptr(),
-                 m, n, k, z.stride(1) if k > 1 else n, splits, stream)
+    err = _kernel8()(x.data_ptr(), z.data_ptr(), col_scale.data_ptr(),
+                     row_scale.data_ptr(), out.data_ptr(), m, n, k,
+                     z.stride(1) if k > 1 else n, stream)
     if err != 0:
         raise RuntimeError(f"dequant_int8 kernel launch failed: "
                            f"cudaError_t {err}")

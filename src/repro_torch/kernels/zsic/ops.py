@@ -5,8 +5,10 @@ of ``repro/kernels/zsic/ops.py``).
 in-block recursion goes to the hand-written kernel (``zsic_block.py``) for
 CUDA tensors and to its plain twin (``ref.py``) for CPU tensors — there is
 no fallback between the two — and the cancellation onto the columns left
-of each block is one ``torch.matmul``.  The reference pads the rows to its
-row tile; the kernel masks ragged rows itself, so nothing is padded here.
+of each block is one ``torch.matmul``.  Each block's codes and residual
+go straight into column slices of the full outputs (the kernel writes them
+in place).  The reference pads the rows to its row tile; the kernel masks
+ragged rows itself, so nothing is padded here.
 """
 from __future__ import annotations
 
@@ -18,11 +20,19 @@ from .zsic_block import MAX_BLOCK, zsic_block_cuda
 __all__ = ["zsic_quantize", "zsic_block"]
 
 
-def zsic_block(y, l_block, alphas):
-    """One column block: the kernel on CUDA, the twin on the CPU."""
+def zsic_block(y, l_block, alphas, *, out=None):
+    """One column block: the kernel on CUDA, the twin on the CPU.  With
+    ``out = (codes, residual)`` (column slices of the full outputs) the
+    kernel writes them in place; on the CPU the twin's result is copied
+    in."""
     if y.is_cuda:
-        return zsic_block_cuda(y, l_block, alphas)
-    return zsic_block_ref(y, l_block, alphas)
+        return zsic_block_cuda(y, l_block, alphas, out=out)
+    res = zsic_block_ref(y, l_block, alphas)
+    if out is None:
+        return res
+    for dst, src in zip(out, res):
+        dst.copy_(src)
+    return out
 
 
 def zsic_quantize(y, l, alphas, *, block: int = MAX_BLOCK):
@@ -44,9 +54,8 @@ def zsic_quantize(y, l, alphas, *, block: int = MAX_BLOCK):
     resid = torch.empty_like(y)
     for s in reversed(range(0, n, block)):
         e = min(s + block, n)
-        zb, rb = zsic_block(y[:, s:e], l[s:e, s:e], alphas[s:e])
-        z[:, s:e] = zb
-        resid[:, s:e] = rb
+        zb, _ = zsic_block(y[:, s:e], l[s:e, s:e], alphas[s:e],
+                           out=(z[:, s:e], resid[:, s:e]))
         if s > 0:
             scaled = zb.to(y.dtype) * alphas[s:e][None, :]
             y[:, :s] -= scaled @ l[s:e, :s]

@@ -3,7 +3,7 @@
 Port of ``repro/kernels/zsic/zsic_block.py::zsic_block_pallas``; the kernel
 itself is ``csrc/zsic_block.cu`` (its header note says what bounds it and
 how it is designed).  This module checks the operands, allocates the
-outputs, launches on the current stream, raises on a launch error, and
+outputs (or takes the caller's column slices), launches on the current stream, raises on a launch error, and
 counts the launches (``zsic_block_cuda.launches``, bumped once per call
 that launches and nowhere else, under a lock: the plan executor launches
 it from several threads) so a run can show that its main path went
@@ -44,13 +44,16 @@ def _kernel():
 
 
 def zsic_block_cuda(y: torch.Tensor, l_block: torch.Tensor,
-                    alphas: torch.Tensor):
+                    alphas: torch.Tensor, *, out=None):
     """Quantize one column block on the card: y (a, bn), l_block (bn, bn),
     alphas (bn,), all f32 CUDA tensors on one device, bn ≤ 128 →
     (codes int32 (a, bn), residual f32 (a, bn)).
 
     ``y`` and ``l_block`` may be column slices of larger matrices (unit
-    column stride, any row stride); ``alphas`` must be contiguous.
+    column stride, any row stride); ``alphas`` must be contiguous.  With
+    ``out=(codes, residual)`` (int32 and f32 (a, bn) on the same device,
+    unit column stride, any row stride: column slices of the caller's full
+    outputs) the kernel writes there and nothing is allocated.
     """
     a, bn = y.shape
     dev = y.device
@@ -71,14 +74,26 @@ def zsic_block_cuda(y: torch.Tensor, l_block: torch.Tensor,
             or not alphas.is_contiguous():
         raise ValueError("y and l_block need unit column stride and "
                          "alphas must be contiguous")
-    z = torch.empty((a, bn), dtype=torch.int32, device=dev)
-    resid = torch.empty((a, bn), dtype=torch.float32, device=dev)
+    if out is None:
+        z = torch.empty((a, bn), dtype=torch.int32, device=dev)
+        resid = torch.empty((a, bn), dtype=torch.float32, device=dev)
+    else:
+        z, resid = out
+        for name, t, dt in (("codes", z, torch.int32),
+                            ("residual", resid, torch.float32)):
+            if t.device != dev or t.dtype != dt or tuple(t.shape) != (a, bn):
+                raise ValueError(f"out {name} must be {dt} {(a, bn)} on "
+                                 f"{dev}, got {t.dtype} {tuple(t.shape)} "
+                                 f"on {t.device}")
+            if a > 1 and bn > 1 and t.stride(1) != 1:
+                raise ValueError(f"out {name} needs unit column stride")
     if a == 0:
         return z, resid
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _kernel()(y.data_ptr(), y.stride(0), l_block.data_ptr(),
-                    l_block.stride(0), alphas.data_ptr(), z.data_ptr(), bn,
-                    resid.data_ptr(), bn, a, bn, stream)
+                    l_block.stride(0), alphas.data_ptr(), z.data_ptr(),
+                    z.stride(0), resid.data_ptr(), resid.stride(0), a, bn,
+                    stream)
     if err != 0:
         raise RuntimeError(f"zsic_block kernel launch failed: cudaError_t "
                            f"{err}")

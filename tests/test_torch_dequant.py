@@ -334,3 +334,33 @@ def test_int8_kernel_wrapper_rejects_bad_operands():
         dequant_matmul_int8_cuda(x, z[:, :32], s, t)
     with pytest.raises(ValueError):
         dequant_matmul_int8_cuda(x[:, ::2], z[:, ::2], s[::2], t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(m, k, n) for m in (1, 8, 128)
+                                   for k, n in SERVING_SHAPES]
+                         + [(8, 2300, 5757)])
+def test_int8_kernel_is_one_device_kernel_per_call_without_workspace(m, k, n):
+    """One int8 call: one kernel node in a CUDA graph of the call, one
+    count, and no device memory beyond the output (the split-K partial
+    sums are added inside a thread-block cluster)."""
+    dev = require_cuda()
+    rng = np.random.default_rng(m + k + n)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32))
+    codes = torch.from_numpy(rng.integers(-127, 128, (k, n)).astype(np.int8))
+    s = torch.from_numpy((rng.random(k) * 0.01).astype(np.float32))
+    t = torch.from_numpy((rng.random(n) + 0.5).astype(np.float32))
+    x, codes, s, t = (a.to(dev) for a in (x, codes, s, t))
+    z = codes.transpose(0, 1)                  # the serving leaf's view
+    before = LAUNCHES[8]
+    assert graph_kernel_nodes(
+        lambda: dequant_matmul_int8_cuda(x, z, s, t)) == [0]
+    assert LAUNCHES[8] == before + 2
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = dequant_matmul_int8_cuda(x, z, s, t)
+    torch.cuda.synchronize()
+    # the caching allocator rounds a block up to 512 bytes
+    assert torch.cuda.max_memory_allocated() - held \
+        <= -(-out.numel() * 4 // 512) * 512

@@ -124,6 +124,7 @@ def test_zsic_f32_agrees_with_reference(lmmse):
     (96, 48, 32, 16),
     (128, 40, 128, 8),
     (60, 17, 16, 8),       # ragged rows: the reference pads, the port masks
+    (130, 9, 128, 8),      # a ragged block of 2 columns left of a full one
 ])
 def test_zsic_quantize_matches_reference_kernel(n, a, block, block_rows):
     """The port's blocked quantizer (twin on the CPU) against the Pallas
@@ -156,7 +157,12 @@ def test_zsic_block_twin_matches_reference_block():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("a,bn", [(2304, 128), (5760, 128), (230, 128),
-                                  (576, 128), (17, 60), (33, 1)])
+                                  (576, 128), (17, 60), (33, 1),
+                                  # ragged block widths (a partial top
+                                  # group of 4 columns, one column) and
+                                  # fewer rows than one block's 32
+                                  (2304, 1), (2304, 40), (2304, 127),
+                                  (5, 128), (31, 77), (1, 128)])
 def test_kernel_matches_twin_bit_for_bit(a, bn):
     dev = require_cuda()
     y, l, alphas = _setup(bn, a, seed=a + bn)
@@ -182,3 +188,71 @@ def test_kernel_full_quantize_against_float64():
     assert (to_numpy(z) == z_ref).mean() >= 0.999
     bound = 0.5 * alphas * np.abs(np.diag(l))
     assert np.all(np.abs(to_numpy(r)) <= bound[None, :] * (1 + 1e-4) + 1e-6)
+
+
+def _twin_block(y, l_block, alphas, *, out):
+    """``ops.zsic_block`` with the twin in place of the kernel."""
+    for dst, src in zip(out, zsic_block_ref(y, l_block, alphas)):
+        dst.copy_(src)
+    return out
+
+
+def test_block_writes_into_column_slices_on_cpu():
+    """ops.zsic_block fills column slices of wider outputs (as
+    zsic_quantize hands them) with the twin's result and leaves the other
+    columns alone."""
+    y, l, alphas = _setup(40, 11, seed=4)
+    args = [torch.as_tensor(np.asarray(v, np.float32)) for v in (y, l, alphas)]
+    z = torch.full((11, 70), -7, dtype=torch.int32)
+    r = torch.full((11, 70), 3.5)
+    got = zsic_block(*args, out=(z[:, 20:60], r[:, 20:60]))
+    zt, rt = zsic_block_ref(*args)
+    assert got[0].data_ptr() == z[:, 20:60].data_ptr()
+    assert torch.equal(z[:, 20:60], zt) and torch.equal(r[:, 20:60], rt)
+    assert (z[:, :20] == -7).all() and (z[:, 60:] == -7).all()
+    assert (r[:, :20] == 3.5).all() and (r[:, 60:] == 3.5).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bn", [128, 57])
+def test_kernel_writes_strided_column_slices(bn):
+    """The kernel reads y and L as column slices of wider matrices and
+    writes codes and residual into column slices of wider outputs, bit
+    for bit with the twin, leaving the other columns untouched."""
+    dev = require_cuda()
+    a, n, s = 300, 400, 136
+    y, l, alphas = _setup(n, a, seed=bn)
+    yd, ld, ad = [torch.as_tensor(np.asarray(v, np.float32), device=dev)
+                  for v in (y, l, alphas)]
+    ys, ls, als = yd[:, s:s + bn], ld[s:s + bn, s:s + bn], ad[s:s + bn]
+    z = torch.full((a, n), -7, dtype=torch.int32, device=dev)
+    r = torch.full((a, n), 3.5, device=dev)
+    before = zsic_block_cuda.launches
+    got = zsic_block_cuda(ys, ls, als, out=(z[:, s:s + bn], r[:, s:s + bn]))
+    torch.cuda.synchronize()
+    assert zsic_block_cuda.launches == before + 1
+    assert got[0].data_ptr() == z[:, s:].data_ptr()
+    zt, rt = zsic_block_ref(ys.contiguous(), ls.contiguous(), als)
+    assert torch.equal(z[:, s:s + bn], zt) and torch.equal(r[:, s:s + bn], rt)
+    assert (z[:, :s] == -7).all() and (z[:, s + bn:] == -7).all()
+    assert (r[:, :s] == 3.5).all() and (r[:, s + bn:] == 3.5).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,a", [(2304, 2304), (300, 45)])
+def test_kernel_quantize_equals_twin_quantize(n, a):
+    """A full zsic_quantize on the card equals the same call with
+    ops.zsic_block swapped for the twin, code for code and bit for bit."""
+    from repro_torch.kernels.zsic import ops
+    dev = require_cuda()
+    y, l, alphas = _setup(n, a, seed=n + a)
+    args = [torch.as_tensor(np.asarray(v, np.float32), device=dev)
+            for v in (y, l, alphas)]
+    z, r = zsic_quantize(*args)
+    kernel_fn, ops.zsic_block = ops.zsic_block, _twin_block
+    try:
+        zt, rt = zsic_quantize(*args)
+    finally:
+        ops.zsic_block = kernel_fn
+    assert torch.equal(z, zt)
+    assert torch.equal(r, rt)
