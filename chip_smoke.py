@@ -12,8 +12,9 @@ Phases, in order; any mismatch raises and the run exits non-zero:
    PyTorch twin for int4/int3/int2 payloads at the serving path's shapes
    (m ∈ {1, 8}; (k, n) ∈ {(2304, 2304), (2304, 5760), (5760, 2304)}), plus
    a ragged-k case and an escape case, each kernel call run twice (equal
-   bits: the split-K sums are added in a fixed order; the escapes'
-   ``index_add_`` is not); each case prints the kernel time,
+   bits: the split-K sums are added in a fixed order, and the escapes in
+   (row, col) order, also for a permuted COO); each case prints the
+   kernel time,
    the twin's time, one library call's time (``F.linear`` against the
    pre-dequantized f32 weight) and the least time the card could take
    (``bound_ms``, the larger of the bytes over 3.35 TB/s and the 2·m·n·k
@@ -31,6 +32,8 @@ Phases, in order; any mismatch raises and the run exits non-zero:
    against the pre-dequantized weight and the plain product the serving
    path ran before the kernel (``before_ms``), with the bound (bytes
    against 2·m·n·k f32 multiply-adds on the CUDA cores);
+2c. prefill kernels: B1 (int4) and B2 at m = 256 (8 prompts of 32
+   tokens) on the three shapes, timed as above;
 3. the ZSIC block kernel against its twin, bit for bit, at bn = 128 and the
    PTQ path's row counts (230, 576, 2304, 5760), with its bound (bytes of
    y, codes, residual and the L block against the a·bn·(bn+1)/2 unfused
@@ -57,6 +60,17 @@ Phases, in order; any mismatch raises and the run exits non-zero:
    graph must hold one device kernel per packed dense (its kernel nodes
    counted by name: the profiler now and then drops the record of a
    kernel launched as a thread-block cluster);
+5b. prefill phase: ``models.prefill`` of 8 prompts of 32 tokens at 40
+   layers (each dequant kernel once per layer of each of its leaves, flash
+   once per layer) against ``decode_chunk`` over the same prompts: cache
+   and last logits within LOGIT_TOL of the largest value; also for the
+   mixed tree in phase 10;
+5c. obs serve phase: the serve phase's traffic with ``repro_torch.obs``
+   off and on (equal streams, both step times printed), then int8, int3
+   and int2 at 4 layers with it on; the Chrome trace, Prometheus text,
+   JSONL log and a bench JSON go to ``chiprun_out/obs_*`` and
+   ``benchmarks/check_obs.py`` and ``check_bytes.py`` run on them
+   unchanged (a nonzero exit fails the smoke);
 6. ladder phase: the same at full width and 4 layers for int3 and int2;
 7. PTQ phase: minicpm-2b at full width cut to 2 layers, weights from the
    port's ``init_params`` (seed 0), calibration 2 batches of 4 × 128 and
@@ -69,8 +83,19 @@ Phases, in order; any mismatch raises and the run exits non-zero:
    × 1 batch launches per call) and through the twin;
 8. serve-after-PTQ phase: the watersic codes installed as packed int4
    leaves (``from_watersic``, escapes included) serve 4 requests (prompt
-   16, 8 new tokens); first-step logits against the model with
-   ``QuantizedLinear.dequant()`` weights;
+   16, 8 new tokens) twice (equal streams); first-step logits against the
+   model with ``QuantizedLinear.dequant()`` weights; each escaped leaf's
+   product equal bit for bit on a rerun and for a permuted COO;
+8b. gptq phase: the PTQ phase's 2 layers and calibration (14 matrices):
+   WaterSIC (no LMMSE) at 3 bits and Huffman-GPTQ at each matrix's
+   WaterSIC rate, both through the ZSIC kernel; each method's rate and
+   weighted distortion Σ N·D; for one (2304, 2304) matrix the card's GPTQ
+   codes against float64 ``gptq_frantar`` on the flipped order (≥ 99.9 %
+   equal) and the rANS bits per entry beside the empirical entropy;
+8c. flash grad phase: q/k/v grads through the flash wrapper (forward: the
+   kernel) against the twin's at the ``model_ppl`` shape, and
+   ``loss_fn``'s wq/wk/wv grads on the 2-layer model against the twin
+   path's (GRAD_TOL);
 9. plan phase: ``python -m repro_torch.launch.plan build`` in process
    (minicpm-2b at full width cut to 2 layers, numpy weights and tokens
    from seed 0, 2 calibration batches of 32 × 128, ``output`` weighting,
@@ -127,10 +152,14 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch import obs  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core import (CODE_RANGE, chol_lower,  # noqa: E402
-                              random_covariance, zsic_numpy)
-from repro_torch.core.packing import pack_codes  # noqa: E402
+from repro_torch.core import (CODE_RANGE, RansCodec, chol_lower,  # noqa: E402
+                              empirical_entropy, gptq_frantar,
+                              gptq_via_zsic, layer_distortion,
+                              quantize_at_rate, random_covariance,
+                              zsic_numpy)
+from repro_torch.core.packing import pack_codes_torch  # noqa: E402
 from repro_torch.kernels import _build, flash  # noqa: E402
 from repro_torch.kernels.flash import (attention_ref,  # noqa: E402
                                        flash_attention_cuda)
@@ -152,7 +181,8 @@ from repro_torch.kernels.dequant import (LAUNCHES, PLANE_GROUPS,  # noqa: E402
                                          unpack_payload_ref)
 from repro_torch.launch import plan as launch_plan  # noqa: E402
 from repro_torch.launch.serve import quantize_for_wbits  # noqa: E402
-from repro_torch.models import decode_chunk, decode_step  # noqa: E402
+from repro_torch.models import (decode_chunk, decode_step,  # noqa: E402
+                                loss_fn, prefill)
 from repro_torch.models import (init_cache, init_params,  # noqa: E402
                                 split_layers)
 from repro_torch.models.layers import unembed  # noqa: E402
@@ -160,8 +190,9 @@ from repro_torch.plan import (QuantPlan, build_plan, even_plan,  # noqa: E402
                               execute_plan, model_sensitivities,
                               plan_inputs_for_model)
 from repro_torch.quant import (from_watersic, is_qweight,  # noqa: E402
-                               leaf_format_histogram, quantize_params_tree,
-                               qweight_bytes, serving_formats_from_plan)
+                               leaf_format_histogram, leaf_inventory,
+                               quantize_params_tree, qweight_bytes,
+                               serving_formats_from_plan)
 from repro_torch.quant.pipeline import (PTQConfig, model_ppl,  # noqa: E402
                                         quantize_model)
 from repro_torch.serve import (ContinuousEngine, EngineConfig,  # noqa: E402
@@ -184,6 +215,11 @@ LOGIT_TOL = 1e-3
 FLASH_TOL = 2e-5
 #: model_ppl through the kernel vs through the twin, relative
 PPL_TOL = 1e-5
+#: loss_fn's weight grads with the kernel's forward vs the twin's, relative
+#: to the largest grad: both backwards are the twin's, but the activations
+#: they start from differ by FLASH_TOL-sized f32 reorderings, carried
+#: through two layers and the 122880-way softmax
+GRAD_TOL = 1e-4
 #: rows of the ZSIC block launches on the PTQ path at minicpm-2b's widths:
 #: the secant search's 10 % subsamples of 2304 and 5760 rows, and the
 #: full matrices
@@ -271,7 +307,7 @@ def operands(m, k, n, nbits, dev, gen, *, esc=False):
                       dtype=torch.int32)
     s = (torch.rand(k, generator=gen, device=dev) * 0.2 + 0.01) / k ** 0.5
     t = torch.rand(n, generator=gen, device=dev) + 0.5
-    payload, er, ec, ev = pack_codes(z, nbits=nbits)
+    payload, er, ec, ev = pack_codes_torch(z, nbits=nbits)
     return x, payload, s, t, (er, ec, ev)
 
 
@@ -347,13 +383,15 @@ def kernel_phase(dev, gen):
             x, payload, s, t, escs = operands(m, k, n, nbits, dev, gen,
                                               esc=esc)
             got = dequant_matmul(x, payload, s, t, escapes=escs)
-            # the kernel's part gives equal bits on a rerun; the escapes'
-            # index_add_ adds duplicate rows with atomics, so the escaped
-            # sum is held to the twin only
-            if not torch.equal(dequant_matmul(x, payload, s, t),
-                               dequant_matmul(x, payload, s, t)):
-                raise AssertionError(f"ops int{nbits} m={m} k={k} n={n}: "
-                                     "two runs differ")
+            # the escapes are summed in (row, col) order without atomics:
+            # a rerun, and a permuted COO, give equal bits
+            perm = torch.randperm(escs[0].numel(), generator=gen,
+                                  device=dev)
+            for again in (escs, tuple(e[perm] for e in escs)):
+                if not torch.equal(got, dequant_matmul(x, payload, s, t,
+                                                       escapes=again)):
+                    raise AssertionError(f"ops int{nbits} m={m} k={k} n={n}"
+                                         ": two runs differ")
             w_hat = dequantize_leaf_ref({"codes": payload, "s": s, "t": t,
                                          "esc_row": escs[0],
                                          "esc_col": escs[1],
@@ -546,7 +584,8 @@ def serve_tree(cfg, params, oracle_of, label, dev, *, n_req, prompt_len,
         raise AssertionError(f"dequant launches by nbits {launches}, "
                              f"expected {want_launches} = {per_step} per "
                              f"step x {steps['n']} decode steps")
-    if sorted(r.rid for r in done) != list(range(n_req)) or any(
+    streams = {r.rid: list(r.out_tokens) for r in done}
+    if sorted(streams) != list(range(n_req)) or any(
             len(r.out_tokens) != new_tokens
             or not all(0 <= x < cfg.vocab for x in r.out_tokens)
             for r in done):
@@ -561,7 +600,7 @@ def serve_tree(cfg, params, oracle_of, label, dev, *, n_req, prompt_len,
            "launches_per_step": per_step,
            "weight_bytes": eng.weight_bytes,
            "weight_bytes_bf16": eng.weight_bytes_bf16,
-           "first_step_logit_rel_err": logit_err}
+           "first_step_logit_rel_err": logit_err, "streams": streams}
     print(f"serve {cfg.name} L={cfg.n_layers} {label}: {tokens} tokens in "
           f"{wall:.3f}s = {rec['tokens_per_s']:.2f} tok/s, decode step "
           f"{rec['decode_step_ms']:.3f} ms (wall), {steps['n']} decode steps,"
@@ -1075,15 +1114,49 @@ def install_codes(qparams, qlinears, n_layers, nbits=4):
 
 
 def serve_after_ptq(cfg, qp, qlin, dev):
+    """The watersic codes served as packed int4 with their escapes, twice:
+    equal streams; and each escaped leaf's product (kernel + escape sum)
+    at the decode batch gives equal bits on a rerun and for a permuted
+    COO."""
     tree, escapes = install_codes(qp, qlin, cfg.n_layers)
     if escapes == 0:
         raise AssertionError("the installed WaterSIC codes carry no escapes")
     print(f"serve-after-ptq: watersic codes installed as packed int4 with "
           f"{escapes} escapes", flush=True)
-    rec = serve_tree(cfg, tree, lambda _: qp, "int4", dev, n_req=4,
-                     prompt_len=16, new_tokens=8, max_len=32, slots=4,
-                     chunk=16)
-    rec["escapes"] = escapes
+    runs = [serve_tree(cfg, tree, lambda _: qp, "int4", dev, n_req=4,
+                       prompt_len=16, new_tokens=8, max_len=32, slots=4,
+                       chunk=16) for _ in range(2)]
+    if runs[0]["streams"] != runs[1]["streams"]:
+        raise AssertionError(f"serve-after-ptq streams differ on a rerun: "
+                             f"{runs[0]['streams']} vs {runs[1]['streams']}")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    leaves = 0
+    for block in tree["layers"].values():
+        for leaf in block.values():
+            w = leaf.get("w") if isinstance(leaf, dict) else None
+            if not is_qweight(w):
+                continue
+            for i in range(cfg.n_layers):
+                esc = (w["esc_row"][i], w["esc_col"][i], w["esc_dval"][i])
+                x = torch.randn((4, w["s"].shape[-1]), generator=gen,
+                                device=dev)
+                args = (x, w["codes"][i], w["s"][i], w["t"][i])
+                first = dequant_matmul(*args, escapes=esc)
+                perm = torch.randperm(esc[0].numel(), generator=gen,
+                                      device=dev)
+                for again in (esc, tuple(e[perm] for e in esc)):
+                    if not torch.equal(first, dequant_matmul(
+                            *args, escapes=again)):
+                        raise AssertionError("an escaped product differs on "
+                                             "a rerun")
+                leaves += 1
+    print(f"serve-after-ptq rerun: equal streams, and {leaves} escaped "
+          f"products equal bit for bit on a rerun and a permuted COO",
+          flush=True)
+    rec = runs[0]
+    rec.update({"escapes": escapes, "rerun_streams_equal": True,
+                "rerun_equal_products": leaves})
     return rec
 
 
@@ -1222,6 +1295,7 @@ def mixed_serve_phase(cfg, plan, dev):
     rec.update({k: traced[k] for k in traced if k.startswith("traced_")
                 or k.startswith("graph_") or k.startswith("device_")
                 or k.startswith("decode_step")})
+    rec["prefill"] = prefill_phase(cfg, mixed, "mixed", dev)
     print(f"mixed serve decode step: {rec['graph_int8_kernels_per_step']} "
           f"int8 and {rec['graph_packed_kernels_per_step']} packed device "
           f"kernels of {rec['graph_kernels_per_step']} in a CUDA graph of "
@@ -1259,6 +1333,401 @@ def mixed_serve_phase(cfg, plan, dev):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# exact dense prefill, the GPTQ baseline, observability, flash gradients
+# ---------------------------------------------------------------------------
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def prefill_phase(cfg, tree, label, dev, *, n_req=8, prompt_len=32,
+                  max_len=64):
+    """``models.prefill`` of ``n_req`` prompts in one full-sequence pass
+    (every dequant kernel once per layer of each of its leaves over B·S
+    rows, flash attention causal) against ``decode_chunk`` over the same
+    prompts: the f32 cache and the last logits within LOGIT_TOL of the
+    largest value (the same products summed in another split and order
+    over the depth: m = B·S against m = B launches, flash against the
+    decode softmax over the cache)."""
+    rng = np.random.default_rng(21)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (n_req, prompt_len)),
+                           device=dev)
+    split = split_layers(tree)
+    prefill(cfg, split, {"tokens": toks[:, :4]}, max_len, torch.float32)
+    _sync(dev)
+    reset_launches()
+    reset_flash_launches()
+    t0 = time.perf_counter()
+    logits, cache = prefill(cfg, split, {"tokens": toks}, max_len,
+                            torch.float32)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    launches = {nb: c for nb, c in LAUNCHES.items() if c}
+    flash_launches = flash_attention_cuda.launches
+    want_launches = launches_per_step(tree, cfg.n_layers)
+    if launches != want_launches or flash_launches != cfg.n_layers:
+        raise AssertionError(f"prefill {label}: dequant launches {launches} "
+                             f"(expected {want_launches}), flash "
+                             f"{flash_launches} (expected {cfg.n_layers})")
+    t0 = time.perf_counter()
+    want_logits, want = decode_chunk(cfg, split, init_cache(
+        cfg, n_req, max_len, torch.float32, device=dev), toks)
+    _sync(dev)
+    chunk_wall = time.perf_counter() - t0
+    if int(cache.pos) != prompt_len or logits.shape != (n_req, cfg.vocab):
+        raise AssertionError(f"prefill {label}: pos {int(cache.pos)}, "
+                             f"logits {tuple(logits.shape)}")
+    errs = {}
+    for what, got, ref in (("k", cache.kv.k, want.kv.k),
+                           ("v", cache.kv.v, want.kv.v),
+                           ("logits", logits, want_logits)):
+        scale = float(ref.abs().max())
+        errs[what] = check(got, ref, f"prefill {label} {what} vs "
+                           "decode_chunk", atol=LOGIT_TOL * scale,
+                           rtol=0.0) / scale
+    greedy_equal = bool(torch.equal(logits.argmax(-1),
+                                    want_logits.argmax(-1)))
+    rec = {"format": label, "batch": n_req, "prompt_len": prompt_len,
+           "prefill_ms": 1e3 * wall, "decode_chunk_ms": 1e3 * chunk_wall,
+           "launches": launches, "flash_launches": flash_launches,
+           "rel_err": errs, "cache_bit_equal": bool(
+               torch.equal(cache.kv.k, want.kv.k)
+               and torch.equal(cache.kv.v, want.kv.v)),
+           "greedy_equal": greedy_equal}
+    print(f"prefill {cfg.name} L={cfg.n_layers} {label}: {n_req} x "
+          f"{prompt_len} tokens in {rec['prefill_ms']:.2f} ms (decode_chunk "
+          f"{rec['decode_chunk_ms']:.2f} ms), dequant launches {launches}, "
+          f"flash launches {flash_launches}; vs decode_chunk rel err k "
+          f"{errs['k']:.3e} v {errs['v']:.3e} logits {errs['logits']:.3e}, "
+          f"cache bit-equal {rec['cache_bit_equal']}, greedy tokens equal "
+          f"{greedy_equal}", flush=True)
+    return rec
+
+
+#: rows of a prefill launch: 8 prompts of 32 tokens
+PREFILL_M = 256
+
+
+def prefill_kernel_phase(dev, gen, flush):
+    """B1 (int4) and B2 at m = PREFILL_M on the serving shapes: kernel,
+    twin, ``F.linear`` on the pre-dequantized f32 weight, and the bound."""
+    cases = {"int4": [], "int8": []}
+    for k, n in PATH_SHAPES:
+        c = kernel_case(4, PREFILL_M, k, n, dev, gen, flush)
+        cases["int4"].append(c)
+        c8 = int8_case(PREFILL_M, k, n, "kn", dev, gen, flush, timed=True)
+        cases["int8"].append(c8)
+        for name, r in (("B1 int4", c), ("B2 int8", c8)):
+            print(f"prefill kernel {name} m={PREFILL_M} k={k} n={n}: "
+                  f"us={1e3 * r['ms']:.2f} plain_us={1e3 * r['plain_ms']:.2f}"
+                  f" F.linear_us={1e3 * r['library_ms']:.2f} bound_us="
+                  f"{1e3 * r['bound_ms']:.2f} ({r['bound_by']}) max_abs_err="
+                  f"{r['max_abs_err']:.3e}", flush=True)
+    return cases
+
+
+#: GPTQ damping, relative to the mean diagonal of Σ_X (the pipeline's): the
+#: 1024 calibration tokens leave Σ_X rank deficient at these widths
+GPTQ_DAMP = 0.05
+#: the matched-rate search stops within this many bits of WaterSIC's rate
+RATE_TOL = 0.005
+
+
+def _damped(sigma):
+    n = sigma.shape[0]
+    return sigma + GPTQ_DAMP * torch.mean(torch.diagonal(sigma)) * torch.eye(
+        n, dtype=sigma.dtype, device=sigma.device)
+
+
+def _distortion(w, w_hat, sigma):
+    err = w - w_hat
+    return float(((err @ sigma) * err).sum() / err.numel())
+
+
+def gptq_at_rate(w, sigma_d, target, alpha0):
+    """Huffman-GPTQ (``gptq_via_zsic``, ZSIC through the in-block kernel)
+    with α found by a secant search on log₂ α so the codes' entropy hits
+    ``target``; returns (result, α, evaluations)."""
+    def h(x):
+        return gptq_via_zsic(w, sigma_d, 2.0 ** x)
+    x0 = math.log2(alpha0)
+    r0 = h(x0)
+    f0 = r0["entropy"] - target
+    x1 = x0 + f0                      # entropy falls ≈ 1 bit per doubling
+    r1 = h(x1)
+    f1 = r1["entropy"] - target
+    evals = 2
+    while abs(f1) > RATE_TOL and evals < 8 and abs(f1 - f0) > 1e-9:
+        x0, f0, x1 = x1, f1, x1 - f1 * (x1 - x0) / (f1 - f0)
+        r1 = h(x1)
+        f1 = r1["entropy"] - target
+        evals += 1
+    return r1, 2.0 ** x1, evals
+
+
+def gptq_phase(cfg, dev):
+    """The PTQ phase's 2-layer full-width model and calibration (14
+    matrices): WaterSIC at 3 bits (ZSIC through the in-block kernel, no
+    LMMSE) and Huffman-GPTQ through the same kernel at each matrix's
+    WaterSIC rate; each method's rate and Σ N·D (weighted distortion on the
+    undamped Σ_X).  Then for one (2304, 2304) matrix: the card's GPTQ
+    codes against float64 ``gptq_frantar`` on the flipped order, and the
+    rANS bits per entry of the codes beside their empirical entropy."""
+    params = init_params(cfg, 0, device=dev)
+    rng = np.random.default_rng(1)
+    calib = [rng.integers(0, cfg.vocab, (4, 128)).astype(np.int32)
+             for _ in range(2)]
+    weights, stats = plan_inputs_for_model(cfg, params, calib)
+    rows, tot = [], {"watersic": [0.0, 0.0, 0], "gptq": [0.0, 0.0, 0]}
+    reset_zsic_launches()
+    t0 = time.perf_counter()
+    for name in sorted(weights):
+        w = weights[name].contiguous()
+        sigma = stats[name].sigma_x.to(torch.float32)
+        q = quantize_at_rate(w, stats[name], 3.0, damp=GPTQ_DAMP,
+                             lmmse=False)
+        d_ws = layer_distortion(w, q, sigma)
+        alpha0 = float(torch.exp(torch.log(q.alphas).mean()))
+        launches0 = zsic_block_cuda.launches
+        g, alpha, evals = gptq_at_rate(w, _damped(sigma), q.entropy_bits,
+                                       alpha0)
+        d_g = _distortion(w, g["w_hat"], sigma)
+        n_par = w.numel()
+        for key, rate, dist in (("watersic", q.entropy_bits, d_ws),
+                                ("gptq", g["entropy"], d_g)):
+            tot[key][0] += rate * n_par
+            tot[key][1] += dist * n_par
+            tot[key][2] += n_par
+        rows.append({"matrix": name, "shape": list(w.shape),
+                     "watersic_rate": q.entropy_bits, "watersic_D": d_ws,
+                     "gptq_rate": g["entropy"], "gptq_D": d_g,
+                     "gptq_alpha": alpha, "gptq_evals": evals,
+                     "gptq_zsic_launches": zsic_block_cuda.launches
+                     - launches0})
+        if abs(g["entropy"] - q.entropy_bits) > 0.05:
+            raise AssertionError(f"{name}: GPTQ rate {g['entropy']} does not "
+                                 f"match WaterSIC's {q.entropy_bits}")
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    launches = zsic_block_cuda.launches
+    if launches == 0 or any(r["gptq_zsic_launches"] == 0 for r in rows):
+        raise AssertionError("GPTQ ran without the ZSIC kernel")
+    summary = {k: {"rate": v[0] / v[2], "weighted_distortion": v[1],
+                   "params": v[2]} for k, v in tot.items()}
+    for k, v in summary.items():
+        print(f"gptq phase {k}: rate {v['rate']:.4f} bits, weighted "
+              f"distortion sum N*D {v['weighted_distortion']:.6e} over "
+              f"{len(rows)} matrices", flush=True)
+    ratio = summary["gptq"]["weighted_distortion"] \
+        / summary["watersic"]["weighted_distortion"]
+    print(f"gptq phase: GPTQ / WaterSIC weighted distortion {ratio:.4f} at "
+          f"matched rate; {launches} ZSIC kernel launches in {wall:.2f}s",
+          flush=True)
+    # one (d_model, d_model) matrix: the card's GPTQ against float64 Frantar
+    name = next(r["matrix"] for r in rows
+                if r["shape"] == [cfg.d_model, cfg.d_model])
+    alpha = next(r["gptq_alpha"] for r in rows if r["matrix"] == name)
+    w = weights[name].contiguous()
+    sigma_d = _damped(stats[name].sigma_x.to(torch.float32))
+    flip = torch.arange(w.shape[1] - 1, -1, -1, device=dev)
+    card = gptq_via_zsic(w[:, flip].contiguous(),
+                         sigma_d[flip][:, flip].contiguous(), alpha)
+    codes = card["codes"].flip(1).cpu().numpy()
+    t0 = time.perf_counter()
+    ref = gptq_frantar(w.double().cpu().numpy(),
+                       sigma_d.double().cpu().numpy(), alpha)
+    frantar_s = time.perf_counter() - t0
+    agree = float((codes == ref["codes"]).mean())
+    print(f"gptq {name} {tuple(w.shape)}: card (f32, ZSIC kernel) vs "
+          f"gptq_frantar float64 flipped: code agreement {agree:.6f}, "
+          f"distortion {card['distortion']:.6e} vs {ref['distortion']:.6e} "
+          f"(oracle {frantar_s:.1f}s)", flush=True)
+    if agree < 0.999:
+        raise AssertionError(f"GPTQ through the kernel agrees on {agree} of "
+                             "the codes with float64 Frantar")
+    t0 = time.perf_counter()
+    codec = RansCodec.from_data(codes)
+    payload = codec.encode(codes)
+    rans_s = time.perf_counter() - t0
+    rans_bits = 8 * len(payload) / codes.size
+    ent_bits = empirical_entropy(codes)
+    if not ent_bits - 1e-6 <= rans_bits <= ent_bits + 0.05:
+        raise AssertionError(f"rANS {rans_bits} bits/entry against entropy "
+                             f"{ent_bits}")
+    print(f"gptq {name}: rANS {rans_bits:.5f} bits/entry beside empirical "
+          f"entropy {ent_bits:.5f} ({codes.size} codes, {rans_s:.1f}s)",
+          flush=True)
+    return {"matrices": rows, "summary": summary,
+            "gptq_over_watersic_distortion": ratio, "wall_s": wall,
+            "zsic_launches": launches,
+            "frantar": {"matrix": name, "code_agreement": agree,
+                        "card_distortion": card["distortion"],
+                        "frantar_distortion": ref["distortion"],
+                        "oracle_s": frantar_s},
+            "rans": {"bits_per_entry": rans_bits, "entropy": ent_bits,
+                     "encode_s": rans_s}}
+
+
+def obs_engine_run(cfg, tree, prompts, new_tokens, dev, *, slots, max_len,
+                   chunk):
+    """One ``ContinuousEngine`` run of ``tree``: its streams and decode step
+    time and, with ``repro_torch.obs`` on, the ladder entry that
+    ``benchmarks/check_obs.py`` and ``check_bytes.py`` read."""
+    eng = ContinuousEngine(cfg, tree, config=EngineConfig(
+        n_slots=slots, max_len=max_len, cache_dtype=torch.float32,
+        prefill_chunk=chunk))
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, prompt=p.copy(), max_new_tokens=new_tokens))
+    _sync(dev)
+    before = obs.counters_snapshot("repro_kernel_")
+    t0 = time.perf_counter()
+    done = eng.run_until_done()
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    after = obs.counters_snapshot("repro_kernel_")
+    _, fb = qweight_bytes(tree)
+    tokens = sum(len(r.out_tokens) for r in done)
+    return {"tok_s": tokens / wall, "tokens": tokens, "wall_s": wall,
+            "bytes_per_w": eng.weight_bytes / (fb / 2),
+            "weight_bytes": eng.weight_bytes,
+            "weight_formats": dict(eng.weight_formats),
+            "obs_kernel": {k: v - before.get(k, 0.0) for k, v in after.items()
+                           if v != before.get(k, 0.0)},
+            "dispatches": eng.prefill_calls + eng.decode_calls,
+            "inventory": leaf_inventory(tree),
+            "decode_step_ms": 1e3 * eng.decode_s / max(eng.decode_calls, 1),
+            "streams": {r.rid: list(r.out_tokens) for r in done}}
+
+
+def obs_serve_phase(cfg, params, dev, out, *, n_req, prompt_len, new_tokens,
+                    max_len, slots, chunk, ladder_layers):
+    """The int4 serve traffic with observability off, then on (equal
+    streams), then int8/int3/int2 at ``ladder_layers`` layers with it on;
+    writes the trace, Prometheus text, event log and bench JSON into
+    ``out`` and runs ``benchmarks/check_obs.py`` and ``check_bytes.py``
+    unchanged; a gate's nonzero exit fails the phase."""
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, prompt_len).astype(np.int32)
+               for _ in range(n_req)]
+    kw = dict(slots=slots, max_len=max_len, chunk=chunk)
+    with obs.scoped(enable_obs=False):
+        off = obs_engine_run(cfg, params, prompts, new_tokens, dev, **kw)
+    paths = {k: str(out / f) for k, f in (
+        ("bench", "obs_bench.json"), ("trace", "obs_trace.json"),
+        ("prom", "obs.prom"), ("events", "obs_events.jsonl"))}
+    with obs.scoped(enable_obs=True):
+        ladder = {"int4_packed": obs_engine_run(cfg, params, prompts,
+                                                new_tokens, dev, **kw)}
+        short = dataclasses.replace(cfg, n_layers=ladder_layers)
+        base = init_params(short, 0, device=dev)
+        for name, wbits in (("int8", 8), ("int3_packed", 3),
+                            ("int2_packed", 2)):
+            ladder[name] = obs_engine_run(short, quantize_for_wbits(
+                base, wbits), prompts, new_tokens, dev, **kw)
+        del base
+        obs.write_trace(paths["trace"])
+        obs.write_prometheus(paths["prom"])
+        obs.write_jsonl(paths["events"])
+    on = ladder["int4_packed"]
+    if on["streams"] != off["streams"]:
+        raise AssertionError("streams with obs on differ from obs off")
+    keys = ("tok_s", "tokens", "bytes_per_w", "weight_bytes",
+            "weight_formats", "obs_kernel", "dispatches", "inventory")
+    with open(paths["bench"], "w") as f:
+        json.dump({"ladder": {name: {k: e[k] for k in keys}
+                              for name, e in ladder.items()},
+                   "sched": {"n_slots": slots}}, f, indent=1,
+                  sort_keys=True, default=float)
+    gates = []
+    for gate, args in (("check_obs", ["--bench", paths["bench"], "--trace",
+                                      paths["trace"], "--prom", paths["prom"],
+                                      "--events", paths["events"]]),
+                       ("check_bytes", [paths["bench"]])):
+        res = subprocess.run([sys.executable, str(ROOT / "benchmarks"
+                                                  / f"{gate}.py"), *args],
+                             capture_output=True, text=True, timeout=300)
+        print(res.stdout.rstrip(), flush=True)
+        if res.returncode != 0:
+            raise AssertionError(f"{gate}.py exited {res.returncode}: "
+                                 f"{res.stdout[-2000:]}{res.stderr[-2000:]}")
+        gates.append(gate)
+    print(f"obs serve {cfg.name} L={cfg.n_layers} int4: streams equal with "
+          f"obs on and off; decode step {on['decode_step_ms']:.3f} ms (on) "
+          f"vs {off['decode_step_ms']:.3f} ms (off), {on['tok_s']:.2f} vs "
+          f"{off['tok_s']:.2f} tok/s; {on['dispatches']} dispatches; gates "
+          f"{gates} passed", flush=True)
+    return {"streams_equal": True, "gates": gates,
+            "decode_step_ms_on": on["decode_step_ms"],
+            "decode_step_ms_off": off["decode_step_ms"],
+            "tok_s_on": on["tok_s"], "tok_s_off": off["tok_s"],
+            "dispatches": on["dispatches"],
+            "ladder": {name: {k: e[k] for k in ("tokens", "dispatches",
+                                                "weight_bytes",
+                                                "decode_step_ms")}
+                       for name, e in ladder.items()}}
+
+
+def flash_grad_phase(cfg, dev, gen):
+    """Gradients through the flash wrapper on the card: q/k/v grads at the
+    ``model_ppl`` shape (B·H = 4·36, S = 256, d = 64) against the twin's
+    autograd, and ``loss_fn``'s wq/wk/wv grads on the 2-layer model
+    against the same loss with the twin in the kernel's place."""
+    b, s, h, d = 4, 256, 36, 64
+    q, k, v = [torch.randn((b, s, h, d), generator=gen, device=dev)
+               .requires_grad_() for _ in range(3)]
+    g = torch.randn((b, s, h, d), generator=gen, device=dev)
+    reset_flash_launches()
+    out = flash.flash_attention(q, k, v, causal=True)
+    if flash_attention_cuda.launches != 1:
+        raise AssertionError("the flash wrapper did not launch the kernel")
+    got = torch.autograd.grad(out, (q, k, v), g)
+    want = torch.autograd.grad(flash_twin(q, k, v, causal=True), (q, k, v),
+                               g)
+    errs = [check(a, w, f"flash grad d{n}", atol=FLASH_TOL, rtol=FLASH_TOL)
+            for a, w, n in zip(got, want, "qkv")]
+    params = init_params(cfg, 0, device=dev)
+    rng = np.random.default_rng(2)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 129)), device=dev)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    leaves = [params["layers"]["attn"][n]["w"] for n in ("wq", "wk", "wv")]
+
+    def grads():
+        for t in leaves:
+            t.grad = None
+            t.requires_grad_(True)
+        loss_fn(cfg, params, batch).backward()
+        return [t.grad for t in leaves]
+    reset_flash_launches()
+    kernel_grads = grads()
+    launches = flash_attention_cuda.launches
+    kernel_fn = flash.flash_attention
+    flash.flash_attention = flash_twin
+    try:
+        twin_grads = grads()
+    finally:
+        flash.flash_attention = kernel_fn
+    if launches != cfg.n_layers or any(x is None for x in kernel_grads):
+        missing = [x is None for x in kernel_grads]
+        raise AssertionError(f"loss_fn on the card: {launches} flash "
+                             f"launches, wq/wk/wv grad missing {missing}")
+    loss_errs = []
+    for a, w, n in zip(kernel_grads, twin_grads, ("wq", "wk", "wv")):
+        scale = float(w.abs().max())
+        loss_errs.append(check(a, w, f"loss_fn grad {n}",
+                               atol=GRAD_TOL * scale, rtol=0.0) / scale)
+    print(f"flash grad B*H={b * h} S={s} d={d}: q/k/v grads through the "
+          f"kernel's wrapper vs the twin max |d| "
+          + ", ".join(f"{e:.3e}" for e in errs)
+          + f"; loss_fn wq/wk/wv grads ({launches} flash launches) vs the "
+          "twin path rel err " + ", ".join(f"{e:.3e}" for e in loss_errs),
+          flush=True)
+    return {"qkv_max_abs_err": errs, "loss_grad_rel_err": loss_errs,
+            "loss_flash_launches": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available", file=sys.stderr)
@@ -1288,9 +1757,12 @@ def main() -> int:
     torch.cuda.synchronize(dev)
     del a
 
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
     cases = kernel_phase(dev, gen)
     flush = torch.ones(16 << 20, dtype=torch.float32, device=dev)  # 64 MB
     int8_cases = int8_phase(dev, gen, flush)
+    prefill_kernels = prefill_kernel_phase(dev, gen, flush)
     zsic = zsic_phase(dev, flush)
     flash_cases = flash_phase(dev, gen, flush)
     del flush
@@ -1317,6 +1789,16 @@ def main() -> int:
           + f", unembed {serve['unembed_ms']:.5f} ms device, packed kernels "
           f"(kernel phase) {serve['packed_kernels_ms_per_step']:.5f} ms "
           "device", flush=True)
+    t0 = time.perf_counter()
+    serve["prefill"] = prefill_phase(cfg, params, "int4", dev)
+    obs_serve = obs_serve_phase(cfg, params, dev, out, n_req=8, prompt_len=32,
+                                new_tokens=16, max_len=64, slots=8, chunk=16,
+                                ladder_layers=4)
+    if obs_serve["ladder"]["int4_packed"]["tokens"] != serve["tokens"]:
+        raise AssertionError("the obs serve run's traffic differs from the "
+                             "serve phase's")
+    print(f"prefill + obs serve phases: {time.perf_counter() - t0:.1f}s",
+          flush=True)
     del params
     torch.cuda.empty_cache()
     ladder = {}
@@ -1336,10 +1818,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"ptq + serve-after-ptq phases: {time.perf_counter() - t0:.1f}s",
           flush=True)
+    t0 = time.perf_counter()
+    gptq = gptq_phase(ptq_cfg, dev)
+    torch.cuda.empty_cache()
+    flash_grad = flash_grad_phase(ptq_cfg, dev, gen)
+    torch.cuda.empty_cache()
+    print(f"gptq + flash grad phases: {time.perf_counter() - t0:.1f}s",
+          flush=True)
 
     t0 = time.perf_counter()
-    out = ROOT / "chiprun_out"
-    out.mkdir(exist_ok=True)
     plan, planned = plan_phase(dev, out)
     torch.cuda.empty_cache()
     planned["serve"] = mixed_serve_phase(cfg, plan, dev)
@@ -1421,7 +1908,9 @@ def main() -> int:
               "m8_decode_mix_per_launch": detail_mix, "zsic": zsic,
               "zsic_ptq_mix_per_launch": zmix, "flash": flash_cases,
               "ptq": ptq, "int8": int8_cases,
-              "int8_mixed_serve_mix_per_launch": int8_mix, "plan": planned}
+              "int8_mixed_serve_mix_per_launch": int8_mix, "plan": planned,
+              "prefill_kernels": prefill_kernels, "gptq": gptq,
+              "obs_serve": obs_serve, "flash_grad": flash_grad}
     (out / "chip_smoke_detail.json").write_text(json.dumps(detail, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

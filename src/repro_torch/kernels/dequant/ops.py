@@ -18,6 +18,16 @@ delta (``_apply_escapes``).  An int8 code matrix z (n, k) goes to the
 int8 kernel on CUDA (``dequant_matmul_int8_cuda``, which reads the
 transposed view of a (k, n) serving leaf in place) and to its plain twin
 ``ref.dequant_matmul_ref`` on the CPU.
+
+Observability (DESIGN.md §11), as in the reference: with
+``repro_torch.obs`` enabled, each public entry bumps
+``repro_kernel_dispatch_total{format, path}`` (``path`` is ``cuda`` for
+a kernel launch, ``ref`` for the twin; the port runs eagerly, so this
+counts calls, where the reference's jitted graphs count traces), and the
+engines charge every forward dispatch its modeled weight traffic with
+:func:`record_weight_traffic` over :func:`weight_format_bytes` — the
+``quant.leaf_inventory`` records that ``benchmarks/check_bytes.py``
+audits.
 """
 from __future__ import annotations
 
@@ -27,31 +37,89 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
+
 from .dequant_matmul import (PLANE_GROUPS, dequant_matmul_int8_cuda,
                              dequant_matmul_packed_cuda)
 from .ref import dequant_matmul_packed_ref, dequant_matmul_ref, payload_nbits
 
 __all__ = ["dequant_matmul", "dequant_matmul_packed", "payload_nbits",
-           "payload_checksums", "verify_payloads"]
+           "payload_checksums", "verify_payloads", "weight_format_bytes",
+           "record_weight_traffic"]
+
+#: payload nbits → the leaf-format label shared with quant.leaf_inventory
+#: and benchmarks/check_bytes.py
+FORMAT_OF_NBITS = {8: "int8", 4: "packed-int4", 3: "packed-int3",
+                   2: "packed-int2"}
+
+
+def _count_dispatch(fmt: str, z: torch.Tensor) -> None:
+    if obs.enabled():
+        obs.counter("repro_kernel_dispatch_total", format=fmt,
+                    path="cuda" if z.is_cuda else "ref").inc()
+
+
+def weight_format_bytes(tree) -> Dict[str, int]:
+    """Serving format → total stored bytes over a param tree, grouped from
+    ``quant.leaf_inventory`` (the records check_bytes.py audits)."""
+    from repro_torch.quant import leaf_inventory  # lazy: avoids a cycle
+    out: Dict[str, int] = {}
+    for rec in leaf_inventory(tree):
+        out[rec["format"]] = out.get(rec["format"], 0) + int(rec["bytes"])
+    return out
+
+
+def record_weight_traffic(format_bytes: Dict[str, int],
+                          dispatches: int = 1) -> None:
+    """Model ``dispatches`` forward passes' weight reads: every dispatch
+    (prefill chunk or decode step) streams the whole tree once, so each
+    format's ``repro_kernel_hbm_bytes_total`` grows by its stored bytes ×
+    dispatches and ``repro_kernel_weight_dispatch_total`` by dispatches."""
+    if not obs.enabled() or dispatches <= 0:
+        return
+    for fmt, nbytes in format_bytes.items():
+        obs.counter("repro_kernel_hbm_bytes_total", format=fmt) \
+            .inc(nbytes * dispatches)
+        obs.counter("repro_kernel_weight_dispatch_total", format=fmt) \
+            .inc(dispatches)
 
 
 def _apply_escapes(out, x, col_scale, row_scale, escapes):
     """out[b, r] += x[b, c]·s[c]·dval·t[r] for each COO escape (r, c, dval).
 
     ``dval = true_code − clipped_code``, so the correction is exact on top
-    of the clipped body; duplicate rows accumulate.  On CUDA ``index_add_``
-    adds with atomics, so the order of duplicate-row additions (and the
-    last bits of the sum) may vary from run to run.
+    of the clipped body; duplicate rows accumulate.  The sum is the same
+    bits on every run and for every order of the COO, with no atomics:
+    the entries are put in (row, col) order by a stable sort, each row's
+    run of contributions is summed by a segmented scan of ⌈log2 cap⌉
+    doubling steps (a fixed tree per run length), and each run's total is
+    written once, at its last entry, into a per-column delta (the other
+    entries write into a spare column that is dropped).
     """
     esc_row, esc_col, esc_dval = escapes
-    if esc_row.shape[0] == 0:
+    cap = esc_row.shape[0]
+    if cap == 0:
         return out
-    ec = esc_col.long()
-    er = esc_row.long()
-    coef = (col_scale[ec].to(torch.float32) * esc_dval.to(torch.float32)
+    m, n = out.shape
+    order = torch.sort(esc_row.long() * x.shape[1] + esc_col.long(),
+                       stable=True).indices
+    er = esc_row.long()[order]
+    ec = esc_col.long()[order]
+    coef = (col_scale[ec].to(torch.float32)
+            * esc_dval[order].to(torch.float32)
             * row_scale[er].to(torch.float32))
-    contrib = x[:, ec].to(torch.float32) * coef[None, :]
-    return out.index_add_(1, er, contrib.to(out.dtype))
+    run = x[:, ec].to(torch.float32) * coef[None, :]          # (m, cap)
+    step = 1
+    while step < cap:
+        same = (er[step:] == er[:-step])[None, :]
+        run = torch.cat([run[:, :step], run[:, step:] + torch.where(
+            same, run[:, :-step], torch.zeros_like(run[:, :-step]))], dim=1)
+        step *= 2
+    last = torch.ones_like(er, dtype=torch.bool)
+    last[:-1] = er[1:] != er[:-1]
+    target = torch.where(last, er, torch.full_like(er, n))
+    delta = run.new_zeros((m, n + 1)).index_copy_(1, target, run)
+    return out + delta[:, :n].to(out.dtype)
 
 
 def dequant_matmul(x, z, col_scale, row_scale, *, escapes=None):
@@ -64,6 +132,7 @@ def dequant_matmul(x, z, col_scale, row_scale, *, escapes=None):
     if z.dtype == torch.uint8:
         return dequant_matmul_packed(x, z, col_scale, row_scale,
                                      nbits=payload_nbits(z), escapes=escapes)
+    _count_dispatch("int8", z)
     if z.is_cuda:
         out = dequant_matmul_int8_cuda(
             x.to(torch.float32).contiguous(), z,
@@ -83,6 +152,7 @@ def dequant_matmul_packed(x, payload, col_scale, row_scale, *,
     Requires ``G·kg − G < k ≤ G·kg`` (the payload's pad columns are fewer
     than one group row).
     """
+    _count_dispatch(FORMAT_OF_NBITS[nbits], payload)
     g = PLANE_GROUPS[nbits]
     m, k = x.shape
     n, kg = payload.shape[0], payload.shape[-1]

@@ -6,8 +6,16 @@ Runs on the card unless ``--device cpu`` is given (and raises when there
 is no card).  Prints tokens/s, the weight bytes, and the number of
 packed-kernel launches the run made.
 
+``--trace-out``/``--metrics-out``/``--events-out`` enable
+``repro_torch.obs`` (DESIGN.md §11) and export the run's Chrome trace
+(Perfetto), Prometheus text exposition and JSONL metric log (the input to
+``launch/summarize.py --metrics``, this package's or the reference's).
+
     python -m repro_torch.launch.serve --arch minicpm-2b --wbits 4 \
-        --requests 8 --continuous --prefill-chunk 16
+        --requests 8 --continuous --prefill-chunk 16 \
+        --trace-out trace.json --metrics-out serve.prom \
+        --events-out events.jsonl
+    python -m repro_torch.launch.summarize --metrics events.jsonl
     python -m repro_torch.launch.serve --arch minicpm-2b --reduced \
         --wbits 3 --device cpu
 """
@@ -19,7 +27,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import obs, resolve_device
 from repro_torch.configs import get_config
 from repro_torch.kernels.dequant import LAUNCHES, reset_launches
 from repro_torch.models import init_params
@@ -27,7 +35,36 @@ from repro_torch.quant import quantize_params_tree
 from repro_torch.serve import (ContinuousEngine, EngineConfig, Request,
                                ServeEngine)
 
-__all__ = ["quantize_for_wbits", "main"]
+__all__ = ["quantize_for_wbits", "add_obs_flags", "obs_setup",
+           "obs_export", "main"]
+
+
+def add_obs_flags(ap: argparse.ArgumentParser) -> None:
+    """The observability exports (the reference's flags)."""
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write a Chrome trace-event JSON (Perfetto)")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="write the Prometheus text exposition")
+    ap.add_argument("--events-out", default=None, metavar="PATH",
+                    help="write the JSONL metric log "
+                         "(launch/summarize.py --metrics)")
+
+
+def obs_setup(args) -> bool:
+    """Enable repro_torch.obs when any export flag is set; returns
+    enablement."""
+    if args.trace_out or args.metrics_out or args.events_out:
+        obs.enable()
+    return obs.enabled()
+
+
+def obs_export(args) -> None:
+    for path, write in ((args.trace_out, obs.write_trace),
+                        (args.metrics_out, obs.write_prometheus),
+                        (args.events_out, obs.write_jsonl)):
+        if path:
+            write(path)
+            print(f"wrote {path}")
 
 
 def quantize_for_wbits(params, wbits: int):
@@ -56,8 +93,10 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' runs the plain "
                          "PyTorch twins)")
+    add_obs_flags(ap)
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
+    obs_setup(args)
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -91,6 +130,7 @@ def main(argv=None):
           f"(int4 {LAUNCHES[4]}, int3 {LAUNCHES[3]}, int2 {LAUNCHES[2]})")
     for r in done[:4]:
         print(f"  rid={r.rid} out={r.out_tokens[:8]}")
+    obs_export(args)
     return done
 
 

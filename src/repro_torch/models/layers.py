@@ -128,16 +128,19 @@ def _attn_out(scores, v):
 
 
 def attention_train(p, x, *, n_q, n_kv, head_dim, rope_theta=10000.0,
-                    causal=True, window: Optional[int] = None):
-    """Full-sequence self-attention (train / evaluation forward).
+                    causal=True, window: Optional[int] = None,
+                    return_kv: bool = False):
+    """Full-sequence self-attention (train / evaluation forward, prefill).
 
     Rope at positions 0..S-1.  Where the reference's flash conditions hold
     (causal, ``n_q == n_kv``, head_dim ∈ {64, 128, 256}) it takes
     ``kernels/flash``: the hand-written kernel for CUDA tensors, its
-    materialized twin for CPU tensors.  Other shapes take the plain masked
-    softmax over the (S, S) scores.  Cross attention, explicit positions
-    and prefix-LM masks belong to the other families (ROADMAP queue A
-    item 12).
+    materialized twin for CPU tensors, differentiable either way (the
+    backward recomputes through the twin).  Other shapes take the plain
+    masked softmax over the (S, S) scores.  ``return_kv`` also returns the
+    post-rope (K, V), each (B, S, n_kv, head_dim): what a decode cache
+    holds.  Cross attention, explicit positions and prefix-LM masks belong
+    to the other families (ROADMAP queue A item 12).
     """
     b, s, d = x.shape
     q = _split_heads(dense(p["wq"], x), n_q, head_dim)
@@ -162,7 +165,10 @@ def attention_train(p, x, *, n_q, n_kv, head_dim, rope_theta=10000.0,
                              torch.full_like(scores, -1e30))
         probs = torch.softmax(scores.to(torch.float32), dim=-1)
         out = _attn_out(probs.to(x.dtype), v)
-    return dense(p["wo"], out)
+    out = dense(p["wo"], out)
+    if return_kv:
+        return out, (k, v)
+    return out
 
 
 def attention_decode(p, x_t, cache: KVCache, pos, *, n_q, n_kv, head_dim,

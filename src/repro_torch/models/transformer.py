@@ -8,6 +8,7 @@ API (plain functions of (cfg, params, ...)):
   init_cache(cfg, batch, max_len, dtype)     -> DecodeCache
   decode_step(cfg, params, cache, token)     -> (logits, cache)
   decode_chunk(cfg, params, cache, tokens)   -> (last logits, cache)
+  prefill(cfg, params, batch, max_len)       -> (last logits, cache)
   cache_write_slot / cache_reset_slot        -> slot graft / eviction
   split_layers(params)                       -> params with per-layer views
 
@@ -30,7 +31,7 @@ from .layers import (KVCache, attention_decode, attention_train, embed,
                      layernorm, mlp, rmsnorm, unembed)
 
 __all__ = ["init_params", "forward_train", "loss_fn", "init_cache",
-           "decode_step", "decode_chunk", "cache_write_slot",
+           "decode_step", "decode_chunk", "prefill", "cache_write_slot",
            "cache_reset_slot", "split_layers", "DecodeCache"]
 
 
@@ -269,3 +270,46 @@ def decode_chunk(cfg: ArchConfig, params, cache: DecodeCache, tokens):
     for j in range(tokens.shape[1]):
         logits, cache = decode_step(cfg, params, cache, tokens[:, j:j + 1])
     return logits, cache
+
+
+def prefill(cfg: ArchConfig, params, batch, max_len: int,
+            cache_dtype=torch.bfloat16):
+    """Run the whole prompt in one full-sequence pass: (B, S) tokens →
+    (logits of the LAST token (B, vocab), a lockstep cache at position S).
+
+    Port of the dense family of the reference's ``prefill``
+    (``_prefill_attn``), made exact: each layer's post-norm, post-rope K/V
+    come out of the same ``attention_train`` that computes the layer (every
+    dense over B·S rows, flash attention where its conditions hold) and go
+    into the slot cache, so the cache is the one ``decode_chunk`` builds
+    over the same prompt, up to f32 rounding (the reference's
+    ``_capture_kv`` projects the raw embeddings instead; ROADMAP queue C).
+    A windowed cache holds the last ``buf`` positions at slot p mod buf.
+    """
+    _check_family(cfg)
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    dev = tokens.device
+    cache = init_cache(cfg, b, max_len, cache_dtype, device=dev)
+    buf = cache.kv.k.shape[2]
+    if s > buf and not cfg.local_window:
+        raise ValueError(f"prompt of {s} tokens exceeds the cache's "
+                         f"{buf} positions")
+    keep = torch.arange(max(0, s - buf), s, device=dev)
+    slots = keep % buf
+    ak = dict(_attn_kwargs(cfg), window=cfg.local_window or None)
+    x = _embed_tokens(cfg, params, tokens)
+    layers = split_layers(params)["layers"]
+    for i, lp in enumerate(layers):
+        a_out, (k, v) = attention_train(lp["attn"],
+                                        _norm(cfg, lp["ln_attn"], x),
+                                        causal=True, return_kv=True, **ak)
+        cache.kv.k[i][:, slots] = k[:, keep].to(cache_dtype)
+        cache.kv.v[i][:, slots] = v[:, keep].to(cache_dtype)
+        x = x + a_out
+        x = x + mlp(lp["mlp"], _norm(cfg, lp["ln_mlp"], x),
+                    activation=cfg.activation)
+    x = _norm(cfg, params["ln_f"], x[:, -1:])
+    logits = unembed(params["embed"], x, cfg.vocab)[:, 0, :]
+    return logits, DecodeCache(cache.kv,
+                               torch.tensor(s, dtype=torch.int32, device=dev))

@@ -19,8 +19,14 @@ checks it on the card, where the threads share one stream).
 Each task retries under a :class:`~repro_torch.dist.fault.RestartPolicy`;
 an optional :class:`~repro_torch.dist.fault.Heartbeat` beats once per
 completed task, and a :class:`~repro_torch.dist.fault.StragglerMonitor`
-accumulates per-device task times.  The reference's ``repro.obs`` spans
-and counters come with the port of ``obs`` (ROADMAP queue A item 10).
+accumulates per-device task times.
+
+Observability (DESIGN.md §11): with ``repro_torch.obs`` enabled each
+task records a ``plan.task`` span (matrix, device, bits), bumps
+``repro_plan_tasks_total`` and observes ``repro_plan_task_seconds``; the
+whole run records a ``plan.execute`` span; retries count into
+``repro_plan_retries_total`` and flagged stragglers into
+``repro_plan_stragglers_total`` — the reference's names.
 """
 from __future__ import annotations
 
@@ -33,6 +39,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.watersic import (CalibStats, QuantizedLinear,
                                        layer_distortion, quantize_at_rate)
 from repro_torch.dist.fault import Heartbeat, RestartPolicy, StragglerMonitor
@@ -167,9 +174,16 @@ def execute_plan(plan: QuantPlan,
                     raise
                 with retry_lock:
                     retries += 1
+                obs.counter("repro_plan_retries_total").inc()
                 time.sleep(delay)
         t1 = time.perf_counter()
         dev_label = str(dev) if dev is not None else "default"
+        if obs.enabled():
+            obs.complete("plan.task", t0, t1, matrix=entry.name,
+                         device=dev_label,
+                         bits=float(entry.execution_bits))
+            obs.counter("repro_plan_tasks_total").inc()
+            obs.histogram("repro_plan_task_seconds").observe(t1 - t0)
         return (entry.name, q, t1 - t0, dev_label)
 
     t_start = time.perf_counter()
@@ -196,7 +210,14 @@ def execute_plan(plan: QuantPlan,
     finally:
         if pool is not None:
             pool.shutdown(wait=True)
-    wall = time.perf_counter() - t_start
+    t_done = time.perf_counter()
+    wall = t_done - t_start
+    stragglers = monitor.stragglers()
+    if obs.enabled():
+        obs.complete("plan.execute", t_start, t_done, n_workers=n_workers,
+                     tasks=len(order), retries=retries)
+        if stragglers:
+            obs.counter("repro_plan_stragglers_total").inc(len(stragglers))
 
     for e in entries:
         q = results[e.name]
@@ -207,7 +228,7 @@ def execute_plan(plan: QuantPlan,
                 w, q, stats[e.name].sigma_x.to(w.device)))
     report = ExecutorReport(n_workers=n_workers, wall_s=wall, task_s=task_s,
                             device_of=device_of, retries=retries,
-                            stragglers=monitor.stragglers())
+                            stragglers=stragglers)
     return results, report
 
 

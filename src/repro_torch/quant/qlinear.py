@@ -26,7 +26,7 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.packing import (pack_codes, pack_int2_planar,
+from repro_torch.core.packing import (pack_codes_torch, pack_int2_planar,
                                       pack_int3_planar, pack_int4_planar)
 
 __all__ = ["quantize_params_tree", "from_watersic", "is_qweight",
@@ -192,7 +192,7 @@ def from_watersic(q, *, nbits: int = 8,
     as in the reference), s = α⊙γ over the in-features, t (out,).
 
     ``nbits`` 4 / 3 / 2: the planar payload in kernel orientation
-    (``pack_codes``) plus the exact escape COO of the codes outside the
+    (``pack_codes_torch``) plus the exact escape COO of the codes outside the
     layout's range; ``escape_capacity`` fixes the COO length (stackable
     across layers).  Dead input features get code 0 and scale 0.
     """
@@ -210,8 +210,8 @@ def from_watersic(q, *, nbits: int = 8,
         s = s_full
     t = q.t.to(torch.float32)
     if nbits in (2, 3, 4):
-        payload, er, ec, ev = pack_codes(codes, nbits=nbits,
-                                         escape_capacity=escape_capacity)
+        payload, er, ec, ev = pack_codes_torch(
+            codes, nbits=nbits, escape_capacity=escape_capacity)
         return {"codes": payload, "s": s, "t": t,
                 "esc_row": er, "esc_col": ec, "esc_dval": ev}
     if nbits != 8:

@@ -14,8 +14,17 @@
 Prefill is per-token (``prefill_chunk=None``) or chunked (``decode_chunk``
 of C tokens per call, identical to C decode steps).  Requests carry
 arrival, first-token and finish stamps (``ttft_s``/``tpot_s``); rounds
-and steps land in ``round_stats`` / ``step_stats``.  The reference's
-observability, chaos, resilience, quality, requant and snapshot hooks are
+and steps land in ``round_stats`` / ``step_stats``.
+
+Observability (DESIGN.md §11): with ``repro_torch.obs`` enabled both
+engines record the reference's spans (``serve.prefill``, ``serve.decode``,
+``serve.admit`` on one lane per slot, ``serve.step``), instants
+(``serve.request.arrival`` / ``first_token`` / ``finish``), counters,
+gauges and TTFT/TPOT histograms under the same names and labels, made
+from the same perf_counter stamps as the stats, and charge every forward
+dispatch its modeled weight traffic (``record_weight_traffic``).  Off, it
+is one boolean test per site and the streams are unchanged.  The
+reference's chaos, resilience, quality, requant and snapshot hooks are
 later slices of the port and are left out here.
 
 The engines run on the device of ``params`` (the embedding's device).
@@ -30,7 +39,10 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.dequant.ops import (record_weight_traffic,
+                                             weight_format_bytes)
 from repro_torch.models import (cache_reset_slot, cache_write_slot,
                                 decode_chunk, decode_step, init_cache,
                                 split_layers)
@@ -140,7 +152,40 @@ def _run_prefill(decode_fn, decode_chunk_fn, params, cache,
 
 
 class _EngineBase:
-    """Construction shared by both engines."""
+    """Construction and observability shared by both engines.
+
+    ``_format_bytes`` lazily caches the tree's per-format stored bytes
+    (the ``quant.leaf_inventory`` grouping) so each device dispatch can be
+    charged its modeled weight read; every obs hook is one
+    ``obs.enabled()`` test when disabled."""
+
+    _obs_engine = "?"
+    _fmt_bytes = None
+
+    def _format_bytes(self):
+        if self._fmt_bytes is None:
+            self._fmt_bytes = weight_format_bytes(self.params)
+        return self._fmt_bytes
+
+    def _obs_arrival(self, req: "Request") -> None:
+        if obs.enabled():
+            obs.instant("serve.request.arrival", rid=req.rid,
+                        engine=self._obs_engine)
+            obs.gauge("repro_serve_queue_depth",
+                      engine=self._obs_engine).set(len(self.queue))
+
+    def _obs_request_done(self, req: "Request", slot=None) -> None:
+        kw = {} if slot is None else {"slot": int(slot)}
+        obs.instant("serve.request.finish", rid=req.rid,
+                    engine=self._obs_engine, **kw)
+        obs.counter("repro_serve_finished_total",
+                    engine=self._obs_engine).inc()
+        if req.ttft_s is not None:
+            obs.histogram("repro_serve_ttft_seconds",
+                          engine=self._obs_engine).observe(req.ttft_s)
+        if req.tpot_s is not None:
+            obs.histogram("repro_serve_tpot_seconds",
+                          engine=self._obs_engine).observe(req.tpot_s)
 
     def _setup(self, cfg: ArchConfig, params, config: EngineConfig):
         self.config = config
@@ -175,6 +220,8 @@ class _EngineBase:
 class ServeEngine(_EngineBase):
     """Static-batching rounds — the reference scheduler."""
 
+    _obs_engine = "static"
+
     def __init__(self, cfg: ArchConfig, params, *,
                  config: Optional[EngineConfig] = None, **kwargs):
         self._setup(cfg, params,
@@ -185,6 +232,7 @@ class ServeEngine(_EngineBase):
         if req.arrival_s is None:
             req.arrival_s = time.perf_counter()
         self.queue.append(req)
+        self._obs_arrival(req)
         return True
 
     def _admit(self) -> List[Request]:
@@ -241,12 +289,30 @@ class ServeEngine(_EngineBase):
             logits, cache = self._decode(self._step_params, cache, tok)
             last = _greedy(logits)
         t2 = time.perf_counter()
-        self.round_stats.append(RoundStats(
+        st = RoundStats(
             batch=b, prompt_len=plen, prefill_calls=prefill_calls,
             prefill_s=t1 - t0, decode_calls=decode_steps, decode_s=t2 - t1,
             new_tokens=sum(len(r.out_tokens) for r in batch),
             ttft_s=[r.ttft_s for r in batch],
-            tpot_s=[r.tpot_s for r in batch if r.tpot_s is not None]))
+            tpot_s=[r.tpot_s for r in batch if r.tpot_s is not None])
+        self.round_stats.append(st)
+        if obs.enabled():
+            # registry/tracer views of the SAME stamps RoundStats carries
+            obs.complete("serve.prefill", t0, t1, engine="static",
+                         batch=b, calls=st.prefill_calls)
+            obs.complete("serve.decode", t1, t2, engine="static",
+                         batch=b, calls=st.decode_calls)
+            obs.counter("repro_serve_rounds_total").inc()
+            obs.counter("repro_serve_admitted_total",
+                        engine="static").inc(b)
+            obs.counter("repro_serve_tokens_total",
+                        engine="static").inc(st.new_tokens)
+            obs.gauge("repro_serve_queue_depth",
+                      engine="static").set(len(self.queue))
+            for r in batch:
+                self._obs_request_done(r)
+            record_weight_traffic(self._format_bytes(),
+                                  st.prefill_calls + st.decode_calls)
         for r in batch:
             r.done = True
         return batch
@@ -268,6 +334,8 @@ class ContinuousEngine(_EngineBase):
     prefill is decode steps and decode is row-wise, so the mixed batch
     never couples slots.
     """
+
+    _obs_engine = "continuous"
 
     def __init__(self, cfg: ArchConfig, params, *,
                  config: Optional[EngineConfig] = None, **kwargs):
@@ -291,6 +359,7 @@ class ContinuousEngine(_EngineBase):
         if req.arrival_s is None:
             req.arrival_s = time.perf_counter()
         self.queue.append(req)
+        self._obs_arrival(req)
         return True
 
     @property
@@ -312,7 +381,11 @@ class ContinuousEngine(_EngineBase):
                          for r in reqs])
         logits, sub, calls = self._prefill(sub, toks)
         _sync(logits)
-        self.prefill_s += time.perf_counter() - t0
+        t1 = time.perf_counter()
+        self.prefill_s += t1 - t0
+        obs.complete("serve.prefill", t0, t1, engine="continuous",
+                     slots=[s for s, _ in pairs], calls=calls,
+                     common_len=common)
         for i, (slot, req) in enumerate(pairs):
             if g == 1:
                 sub_i, log_i = sub, logits
@@ -325,7 +398,11 @@ class ContinuousEngine(_EngineBase):
                 t_tail = time.perf_counter()
                 log_i, sub_i, c_tail = self._prefill(sub_i, tail[None, :])
                 _sync(log_i)
-                self.prefill_s += time.perf_counter() - t_tail
+                t_tail_end = time.perf_counter()
+                self.prefill_s += t_tail_end - t_tail
+                obs.complete("serve.prefill", t_tail, t_tail_end,
+                             engine="continuous", slot=slot, rid=req.rid,
+                             calls=c_tail)
                 calls += c_tail
             first = int(_greedy(log_i)[0])
             self.cache = cache_write_slot(self.cache, sub_i, slot)
@@ -334,9 +411,22 @@ class ContinuousEngine(_EngineBase):
             req.out_tokens.append(first)
             self.slots[slot] = req
             self._last[slot] = first
+            if obs.enabled():
+                # per-slot admission lane: burst prefill + this row's graft
+                obs.complete("serve.admit", t0, t_tok, tid=slot, slot=slot,
+                             engine="continuous", rid=req.rid,
+                             prompt_len=len(req.prompt))
+                obs.instant("serve.request.first_token", rid=req.rid,
+                            slot=slot, engine="continuous")
             if len(req.out_tokens) >= req.max_new_tokens:
                 self._finish(slot, req, t_tok, finished)
         self.prefill_calls += calls
+        if obs.enabled():
+            obs.counter("repro_serve_admitted_total",
+                        engine="continuous").inc(g)
+            obs.counter("repro_serve_tokens_total",
+                        engine="continuous").inc(g)
+            record_weight_traffic(self._format_bytes(), calls)
 
     def _finish(self, slot: int, req: Request, t: float,
                 finished: List[Request]) -> None:
@@ -349,6 +439,9 @@ class ContinuousEngine(_EngineBase):
             self.cache = cache_reset_slot(self.cache, slot)
         self.finished.append(req)
         finished.append(req)
+        if obs.enabled():
+            obs.counter("repro_serve_evicted_total").inc()
+            self._obs_request_done(req, slot=slot)
 
     def step(self) -> List[Request]:
         """One scheduler iteration: admit → lockstep decode → evict.
@@ -376,6 +469,8 @@ class ContinuousEngine(_EngineBase):
             t_tok = time.perf_counter()
             self.decode_calls += 1
             self.decode_s += t_tok - td
+            obs.complete("serve.decode", td, t_tok, engine="continuous",
+                         slots=active)
             for i in active:
                 r = self.slots[i]
                 r.out_tokens.append(int(last[i]))
@@ -383,9 +478,22 @@ class ContinuousEngine(_EngineBase):
                 decoded += 1
                 if len(r.out_tokens) >= r.max_new_tokens:
                     self._finish(i, r, t_tok, finished)
+        t_end = time.perf_counter()
         self.step_stats.append(StepStats(
             active=len(active), admitted=admitted, finished=len(finished),
-            new_tokens=admitted + decoded, step_s=time.perf_counter() - t0))
+            new_tokens=admitted + decoded, step_s=t_end - t0))
+        if obs.enabled():
+            obs.complete("serve.step", t0, t_end, engine="continuous",
+                         active=len(active), admitted=admitted,
+                         finished=len(finished))
+            obs.counter("repro_serve_tokens_total",
+                        engine="continuous").inc(decoded)
+            obs.gauge("repro_serve_slots_active",
+                      engine="continuous").set(self.active_slots)
+            obs.gauge("repro_serve_queue_depth",
+                      engine="continuous").set(len(self.queue))
+            if active:
+                record_weight_traffic(self._format_bytes(), 1)
         return finished
 
     def run_until_done(self, max_steps: int = 100_000) -> List[Request]:

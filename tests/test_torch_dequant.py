@@ -17,7 +17,7 @@ import torch
 
 from _torch_parity import (assert_close, assert_same_ints, graph_kernel_nodes,
                            require_cuda, to_numpy)
-from repro_torch.core.packing import pack_codes
+from repro_torch.core.packing import pack_codes_torch
 from repro_torch.kernels.dequant import (LAUNCHES, dequant_matmul,
                                          dequant_matmul_int8_cuda,
                                          dequant_matmul_packed_cuda,
@@ -54,7 +54,7 @@ def test_packed_matmul_matches_jax(nbits, k, m, esc):
 
     x, z, s, t = _case(m, k, 24, nbits, esc, seed=nbits * 1000 + k + m)
     jp = pack_codes_jnp(jnp.asarray(z), nbits=nbits)
-    tp = pack_codes(torch.from_numpy(z), nbits=nbits)
+    tp = pack_codes_torch(torch.from_numpy(z), nbits=nbits)
     for a, b in zip(jp, tp):                      # payload + COO, bytewise
         assert_same_ints(a, b)
     assert (tp[1].shape[0] > 0) == esc
@@ -104,7 +104,7 @@ def test_dequantize_leaf_matches_jax(nbits):
         codes = rng.integers(-127, 128, (stack, n_in, n_out)).astype(np.int8)
         leaf = {"codes": codes, "s": s, "t": t}
     else:
-        parts = [pack_codes(torch.from_numpy(
+        parts = [pack_codes_torch(torch.from_numpy(
             rng.integers(-_HI[nbits] - 3, _HI[nbits] + 3,
                          (n_out, n_in)).astype(np.int32)),
             nbits=nbits, escape_capacity=n_in * n_out)
@@ -173,6 +173,50 @@ def test_int8_codes_on_cuda_name_the_roadmap_item():
     assert_close(got, want, tol=CUDA_TOL)
 
 
+def _dense_escapes(n, k, per_row, seed):
+    """A COO with ``per_row`` escapes in each of n rows at distinct
+    columns, dvals spread over six decades (so the order of a row's sum
+    shows in its last bits), and 5 (row 0, col 0, dval 0) capacity pads."""
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(n), per_row)
+    cols = np.concatenate([rng.choice(k, per_row, replace=False)
+                           for _ in range(n)])
+    dval = (rng.standard_normal(n * per_row)
+            * 10.0 ** rng.integers(-3, 3, n * per_row))
+    return (np.concatenate([rows, np.zeros(5, int)]).astype(np.int32),
+            np.concatenate([cols, np.zeros(5, int)]).astype(np.int32),
+            np.concatenate([dval, np.zeros(5)]).astype(np.float32))
+
+
+@pytest.mark.parametrize("nbits", [2, 4])
+def test_escape_sum_is_independent_of_coo_order(nbits):
+    """A permuted escape COO gives the same output bits (the escapes are
+    summed in (row, col) order, whatever order they come in), and the sum
+    stays within the f32 tolerance of the reference's scatter-add
+    (``repro.kernels.dequant.ops.dequant_matmul``, interpret mode)."""
+    import jax.numpy as jnp
+    from repro.kernels.dequant import ops as jops
+    m, k, n = 4, 301, 24
+    x, z, s, t = _case(m, k, n, nbits, False, seed=31 + nbits)
+    payload = pack_codes_torch(torch.from_numpy(z), nbits=nbits)[0]
+    coo = _dense_escapes(n, k, 40, seed=nbits)
+    xs, ss, ts = map(torch.from_numpy, (x, s, t))
+    got = dequant_matmul(xs, payload, ss, ts,
+                         escapes=tuple(map(torch.from_numpy, coo)))
+    for seed in range(3):
+        perm = np.random.default_rng(seed).permutation(coo[0].shape[0])
+        again = dequant_matmul(xs, payload, ss, ts, escapes=tuple(
+            torch.from_numpy(np.ascontiguousarray(c[perm])) for c in coo))
+        assert torch.equal(got, again)
+    want = jops.dequant_matmul(jnp.asarray(x), jnp.asarray(to_numpy(payload)),
+                               jnp.asarray(s), jnp.asarray(t),
+                               escapes=tuple(map(jnp.asarray, coo)),
+                               interpret=True)
+    scale = float(np.abs(np.asarray(want)).max())
+    assert_close(to_numpy(got) / scale, np.asarray(want) / scale,
+                 tol=CPU_TOL)
+
+
 # ---------------------------------------------------------------------------
 # Card tests: the CUDA kernel against its twin
 # ---------------------------------------------------------------------------
@@ -180,7 +224,7 @@ def test_int8_codes_on_cuda_name_the_roadmap_item():
 
 def _cuda_operands(m, k, n, nbits, esc, seed, dev):
     x, z, s, t = _case(m, k, n, nbits, esc, seed)
-    payload, er, ec, ev = pack_codes(torch.from_numpy(z), nbits=nbits)
+    payload, er, ec, ev = pack_codes_torch(torch.from_numpy(z), nbits=nbits)
     return (torch.from_numpy(x).to(dev), payload.to(dev),
             torch.from_numpy(s).to(dev), torch.from_numpy(t).to(dev),
             (er.to(dev), ec.to(dev), ev.to(dev)))
@@ -210,8 +254,8 @@ def test_kernel_matches_twin(nbits, k, n, m):
 @pytest.mark.cuda
 @pytest.mark.parametrize("nbits", [2, 3, 4])
 def test_ops_on_cuda_matches_cpu_with_escapes(nbits):
-    """The CUDA route of ops (pad, group view, kernel, escape index_add_)
-    against the CPU route on the same inputs."""
+    """The CUDA route of ops (pad, group view, kernel, escape sum) against
+    the CPU route on the same inputs."""
     dev = require_cuda()
     x, payload, s, t, esc = _cuda_operands(8, 301, 70, nbits, True, 3, dev)
     got = dequant_matmul(x, payload, s, t, escapes=esc)
@@ -364,3 +408,26 @@ def test_int8_kernel_is_one_device_kernel_per_call_without_workspace(m, k, n):
     # the caching allocator rounds a block up to 512 bytes
     assert torch.cuda.max_memory_allocated() - held \
         <= -(-out.numel() * 4 // 512) * 512
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nbits", [2, 3, 4])
+def test_escaped_product_reruns_and_permutations_give_equal_bits(nbits):
+    """On the card the escaped sum has no atomics: reruns and a permuted
+    COO give the same bits, within CUDA_TOL of the CPU route."""
+    dev = require_cuda()
+    m, k, n = 8, 2304, 2304
+    x, z, s, t = _case(m, k, n, nbits, False, seed=77 + nbits)
+    payload = pack_codes_torch(torch.from_numpy(z), nbits=nbits)[0].to(dev)
+    coo = _dense_escapes(n, k, 12, seed=nbits)
+    xs, ss, ts = (torch.from_numpy(a).to(dev) for a in (x, s, t))
+    esc = tuple(torch.from_numpy(c).to(dev) for c in coo)
+    first = dequant_matmul(xs, payload, ss, ts, escapes=esc)
+    perm = torch.as_tensor(np.random.default_rng(0).permutation(
+        coo[0].shape[0]), device=dev)
+    for escapes in (esc, esc, tuple(e[perm] for e in esc)):
+        assert torch.equal(first, dequant_matmul(xs, payload, ss, ts,
+                                                 escapes=escapes))
+    want = dequant_matmul(xs.cpu(), payload.cpu(), ss.cpu(), ts.cpu(),
+                          escapes=tuple(map(torch.from_numpy, coo)))
+    assert_close(first, want, tol=CUDA_TOL)

@@ -244,3 +244,96 @@ def test_kernel_is_one_device_kernel_per_call(d):
     assert graph_kernel_nodes(lambda: flash_attention_cuda(
         q, k, v, causal=False, window=64)) == [0]
     assert flash_attention_cuda.launches == before + 2
+
+
+# ---------------------------------------------------------------------------
+# gradients: the autograd wrapper (forward = kernel or twin, backward =
+# the twin's gradient recomputed)
+# ---------------------------------------------------------------------------
+
+
+def _grad_cfgs():
+    """2-layer minicpm-2b with reduced widths and head_dim 64, so every
+    layer's attention takes the flash path in the port."""
+    import dataclasses
+
+    from repro.configs import get_config as jget
+    from repro_torch.configs import get_config as tget
+    kw = dict(n_layers=2, d_model=128, n_heads=2, n_kv=2, head_dim=64,
+              d_ff=192, vocab=160)
+    return (dataclasses.replace(jget("minicpm-2b"), **kw),
+            dataclasses.replace(tget("minicpm-2b"), **kw))
+
+
+def test_loss_grads_match_reference_default_path():
+    """vs ``jax.grad`` of ``repro.models.loss_fn`` on its default
+    (materialized-softmax) path: the grads of wq/wk/wv and of the
+    embedding, 1e-5 relative (normalized by the largest reference grad)."""
+    import jax
+    import jax.numpy as jnp
+    from repro.models import init_params, split_tree
+    from repro.models import loss_fn as jloss
+    jcfg, tcfg = _grad_cfgs()
+    base = to_numpy(split_tree(init_params(jcfg, jax.random.PRNGKey(3)))[0])
+    toks = _tokens(jcfg, b=2, s=20, seed=4)
+    jb = {"tokens": jnp.asarray(toks[:, :-1]),
+          "targets": jnp.asarray(toks[:, 1:])}
+    want = jax.grad(lambda p: jloss(jcfg, p, jb))(
+        jax.tree.map(jnp.asarray, base))
+    tp = from_jax_params(base, "cpu")
+    leaves = {"wq": tp["layers"]["attn"]["wq"]["w"],
+              "wk": tp["layers"]["attn"]["wk"]["w"],
+              "wv": tp["layers"]["attn"]["wv"]["w"],
+              "embed": tp["embed"]["w"]}
+    for t in leaves.values():
+        t.requires_grad_(True)
+    loss = loss_fn(tcfg, tp, {"tokens": torch.as_tensor(toks[:, :-1]),
+                              "targets": torch.as_tensor(toks[:, 1:])})
+    loss.backward()
+    for name, t in leaves.items():
+        g = (np.asarray(want["embed"]["w"]) if name == "embed"
+             else np.asarray(want["layers"]["attn"][name]["w"]))
+        assert t.grad is not None, name
+        scale = float(np.abs(g).max())
+        assert scale > 0, name
+        assert_close(to_numpy(t.grad) / scale, g / scale, tol=TOL)
+
+
+def test_flash_backward_recomputes_through_the_twin():
+    """``flash_attention`` is one autograd node whose forward runs without
+    a graph (as the kernel does) and whose backward gives the twin's
+    gradients: q, k, v grads equal those of ``attention_ref`` on the
+    folded heads."""
+    rng = np.random.default_rng(9)
+    q, k, v = [torch.as_tensor(x, dtype=torch.float64).requires_grad_()
+               for x in _qkv(2, 33, 3, 64, seed=9)]
+    g = torch.as_tensor(rng.standard_normal((2, 33, 3, 64)))
+    out = flash_attention(q, k, v, causal=True, window=7)
+    assert "FlashAttention" in type(out.grad_fn).__name__
+    got = torch.autograd.grad(out, (q, k, v), g)
+    fold = [x.transpose(1, 2).reshape(6, 33, 64) for x in (q, k, v)]
+    ref = attention_ref(*fold, causal=True, window=7)
+    want = torch.autograd.grad(ref.reshape(2, 3, 33, 64).transpose(1, 2),
+                               (q, k, v), g)
+    for a, b in zip(got, want):
+        assert torch.allclose(a, b, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_kernel_grads_match_twin(d):
+    """q/k/v grads through the wrapper on the card (forward: the kernel)
+    against the twin's autograd on the same inputs."""
+    dev = require_cuda()
+    q, k, v = [torch.as_tensor(x, device=dev).requires_grad_()
+               for x in _qkv(2, 130, 3, d, seed=d)]
+    g = torch.randn((2, 130, 3, d), device=dev)
+    before = flash_attention_cuda.launches
+    out = flash_attention(q, k, v, causal=True)
+    assert flash_attention_cuda.launches == before + 1
+    got = torch.autograd.grad(out, (q, k, v), g)
+    fold = [x.transpose(1, 2).reshape(6, 130, d) for x in (q, k, v)]
+    ref = attention_ref(*fold, causal=True).reshape(2, 3, 130, d)
+    want = torch.autograd.grad(ref.transpose(1, 2), (q, k, v), g)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)

@@ -29,7 +29,10 @@ def test_importing_every_module_loads_no_jax():
     mods = _modules()
     assert "repro_torch.kernels.dequant.ops" in mods and len(mods) > 20
     assert {"repro_torch.plan", "repro_torch.plan.executor",
-            "repro_torch.dist.fault", "repro_torch.launch.plan"} <= set(mods)
+            "repro_torch.dist.fault", "repro_torch.launch.plan",
+            "repro_torch.obs", "repro_torch.obs.metrics",
+            "repro_torch.obs.trace", "repro_torch.core.gptq",
+            "repro_torch.core.rans"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "

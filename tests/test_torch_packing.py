@@ -9,7 +9,7 @@ import pytest
 import torch
 
 from _torch_parity import assert_same_ints
-from repro_torch.core.packing import (pack_codes, pack_int2_planar,
+from repro_torch.core.packing import (pack_codes_torch, pack_int2_planar,
                                       pack_int3_planar, pack_int4_planar,
                                       unpack_int2_planar, unpack_int3_planar,
                                       unpack_int4_planar)
@@ -66,7 +66,7 @@ def test_pack_codes_matches_jax(nbits, n, capacity):
     z[5, n - 1] = hi + 1
     want = pack_codes_jnp(jnp.asarray(z), nbits=nbits,
                           escape_capacity=capacity)
-    got = pack_codes(torch.from_numpy(z), nbits=nbits,
+    got = pack_codes_torch(torch.from_numpy(z), nbits=nbits,
                      escape_capacity=capacity)
     for a, b in zip(got, want):
         assert_same_ints(a, b)
@@ -79,6 +79,6 @@ def test_pack_codes_rejects_short_capacity():
     z[0, 1] = 50
     z[1, 3] = -50
     with pytest.raises(ValueError, match="escape_capacity"):
-        pack_codes(z, nbits=4, escape_capacity=1)
+        pack_codes_torch(z, nbits=4, escape_capacity=1)
     with pytest.raises(ValueError):
-        pack_codes(z, nbits=5)
+        pack_codes_torch(z, nbits=5)
