@@ -118,6 +118,41 @@ Phases, in order; any mismatch raises and the run exits non-zero:
    then a 2-layer copy's greedy streams from ``ServeEngine`` and
    ``ContinuousEngine`` must be identical.
 
+Serving resilience and the rest of the serving path (each report line
+carries the card's name and power limit; every kernel count is zeroed
+just before a phase and read just after, and the phase fails if a kernel
+of its path never launched):
+
+5d. resilience serve: the serve phase's traffic at 40 layers with
+   ``ResilienceConfig(retry, integrity_every=8, snapshot_every=5)``
+   against the same traffic with it off: equal streams; both step times,
+   one integrity check's time (crc32 of every payload, copied to the
+   host) and one snapshot's;
+5e. int8 KV (``REPRO_OPTS=int8_kv``) at 40 layers: the exact prefill's
+   int8 cache equals ``q8`` of the f32 prefill's cache at every layer and
+   after the first decode step the new layer-0 rows equal ``q8`` of the
+   f32 cache's new rows, bit for bit (deeper rows attend to a dequantized
+   prefix: reported); first-step logit difference, greedy agreement over
+   the serve traffic, KV bytes and step time against the f32 cache;
+6b. chaos matrix: ``repro_torch.launch.chaos`` at full width cut to 4
+   layers, packed int4, each of the five fault kinds at seed 0, each
+   summary and trace passing ``benchmarks/check_chaos.py`` unchanged;
+   then B1's product of the leaf a corrupt-payload plan flips changes and
+   returns bit for bit after ``PayloadGuard.heal``;
+6c. degrade ladder: int4 → int3 → int2 at full width cut to 4 layers,
+   12 requests on 2 slots (high watermark 4): all complete; the rung
+   trace and the step time per rung;
+11. quality and requant: the reference bench's two quality cells and its
+   requant cell at its own model (``BENCH_CFG``: 4 layers, d 256) pass
+   ``check_quality.py`` and ``check_requant.py`` (no ``--baseline``: it
+   holds the reference's numbers from another platform); then one
+   requant actuation at full width cut to 2 layers, its limit fixed at
+   1.5× the clean phase's largest Frobenius shift before the drift
+   phase, reporting both, the actuation's wall time and the launches of
+   the step that serves the swapped tree (the re-plan quantizes with the
+   reference's LMMSE column loop, which is no kernel: B4 is not on this
+   path).
+
 The second-to-last line is the kernel summary JSON (six entries: the
 packed kernel per payload, the int8 kernel, ZSIC and flash), the last
 line ``{"ok": true, "device": {...}}``.  Per-case numbers also go to
@@ -185,7 +220,7 @@ from repro_torch.models import (decode_chunk, decode_step,  # noqa: E402
                                 loss_fn, prefill)
 from repro_torch.models import (init_cache, init_params,  # noqa: E402
                                 split_layers)
-from repro_torch.models.layers import unembed  # noqa: E402
+from repro_torch.models.layers import kv_tensors, unembed  # noqa: E402
 from repro_torch.plan import (QuantPlan, build_plan, even_plan,  # noqa: E402
                               execute_plan, model_sensitivities,
                               plan_inputs_for_model)
@@ -196,7 +231,14 @@ from repro_torch.quant import (from_watersic, is_qweight,  # noqa: E402
 from repro_torch.quant.pipeline import (PTQConfig, model_ppl,  # noqa: E402
                                         quantize_model)
 from repro_torch.serve import (ContinuousEngine, EngineConfig,  # noqa: E402
-                               Request, ServeEngine)
+                               QualityConfig, QualityMonitor, Request,
+                               RequantConfig, ResilienceConfig, ServeEngine,
+                               engine_from_plan, replan_from_sigma,
+                               sigma_threshold_detectors)
+from repro_torch import chaos  # noqa: E402
+from repro_torch.obs.drift import Threshold  # noqa: E402
+from repro_torch.plan import collect_sigma_x  # noqa: E402
+from repro_torch.quant.pipeline import matrix_tap_map  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOP_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
@@ -1571,18 +1613,21 @@ def gptq_phase(cfg, dev):
                      "encode_s": rans_s}}
 
 
-def obs_engine_run(cfg, tree, prompts, new_tokens, dev, *, slots, max_len,
-                   chunk):
-    """One ``ContinuousEngine`` run of ``tree``: its streams and decode step
-    time and, with ``repro_torch.obs`` on, the ladder entry that
-    ``benchmarks/check_obs.py`` and ``check_bytes.py`` read."""
+def engine_run(cfg, tree, prompts, new_tokens, dev, *, slots, max_len,
+               chunk, resilience=None) -> dict:
+    """One ``ContinuousEngine`` run of ``tree`` (the kernel counts zeroed
+    just before it): its streams, step and decode step times, tokens/s,
+    KV-cache bytes and launches and, with ``repro_torch.obs`` on, the
+    ladder entry that ``benchmarks/check_obs.py`` and ``check_bytes.py``
+    read; ``engine`` is the engine itself."""
     eng = ContinuousEngine(cfg, tree, config=EngineConfig(
         n_slots=slots, max_len=max_len, cache_dtype=torch.float32,
-        prefill_chunk=chunk))
+        prefill_chunk=chunk, resilience=resilience))
     for i, p in enumerate(prompts):
         eng.submit(Request(rid=i, prompt=p.copy(), max_new_tokens=new_tokens))
     _sync(dev)
     before = obs.counters_snapshot("repro_kernel_")
+    reset_launches()
     t0 = time.perf_counter()
     done = eng.run_until_done()
     _sync(dev)
@@ -1590,6 +1635,7 @@ def obs_engine_run(cfg, tree, prompts, new_tokens, dev, *, slots, max_len,
     after = obs.counters_snapshot("repro_kernel_")
     _, fb = qweight_bytes(tree)
     tokens = sum(len(r.out_tokens) for r in done)
+    steps = [st.step_s for st in eng.step_stats]
     return {"tok_s": tokens / wall, "tokens": tokens, "wall_s": wall,
             "bytes_per_w": eng.weight_bytes / (fb / 2),
             "weight_bytes": eng.weight_bytes,
@@ -1599,6 +1645,12 @@ def obs_engine_run(cfg, tree, prompts, new_tokens, dev, *, slots, max_len,
             "dispatches": eng.prefill_calls + eng.decode_calls,
             "inventory": leaf_inventory(tree),
             "decode_step_ms": 1e3 * eng.decode_s / max(eng.decode_calls, 1),
+            "steps": len(steps),
+            "step_ms_mean": 1e3 * statistics.mean(steps),
+            "step_ms_median": 1e3 * statistics.median(steps),
+            "kv_bytes": sum(t.numel() * t.element_size()
+                            for t in kv_tensors(eng.cache.kv)),
+            "launches": dict(LAUNCHES), "engine": eng,
             "streams": {r.rid: list(r.out_tokens) for r in done}}
 
 
@@ -1614,18 +1666,18 @@ def obs_serve_phase(cfg, params, dev, out, *, n_req, prompt_len, new_tokens,
                for _ in range(n_req)]
     kw = dict(slots=slots, max_len=max_len, chunk=chunk)
     with obs.scoped(enable_obs=False):
-        off = obs_engine_run(cfg, params, prompts, new_tokens, dev, **kw)
+        off = engine_run(cfg, params, prompts, new_tokens, dev, **kw)
     paths = {k: str(out / f) for k, f in (
         ("bench", "obs_bench.json"), ("trace", "obs_trace.json"),
         ("prom", "obs.prom"), ("events", "obs_events.jsonl"))}
     with obs.scoped(enable_obs=True):
-        ladder = {"int4_packed": obs_engine_run(cfg, params, prompts,
+        ladder = {"int4_packed": engine_run(cfg, params, prompts,
                                                 new_tokens, dev, **kw)}
         short = dataclasses.replace(cfg, n_layers=ladder_layers)
         base = init_params(short, 0, device=dev)
         for name, wbits in (("int8", 8), ("int3_packed", 3),
                             ("int2_packed", 2)):
-            ladder[name] = obs_engine_run(short, quantize_for_wbits(
+            ladder[name] = engine_run(short, quantize_for_wbits(
                 base, wbits), prompts, new_tokens, dev, **kw)
         del base
         obs.write_trace(paths["trace"])
@@ -1668,6 +1720,248 @@ def obs_serve_phase(cfg, params, dev, out, *, n_req, prompt_len, new_tokens,
                                                 "weight_bytes",
                                                 "decode_step_ms")}
                        for name, e in ladder.items()}}
+
+
+#: the reference bench's serving model (``benchmarks/serve_bench.py``'s
+#: ``run``, full size): the quality gates' thresholds were calibrated on it
+BENCH_CFG = dict(name="bench", family="dense", n_layers=4, d_model=256,
+                 n_heads=4, n_kv=4, d_ff=512, vocab=256, head_dim=64)
+
+
+def bench_envelope(dev) -> dict:
+    """The shared bench envelope ``benchmarks/bench_schema.py`` validates
+    (schema 1, bench "serve"), written here without importing it."""
+    try:
+        rev = subprocess.run(["git", "rev-parse", "--short", "HEAD"],
+                             cwd=ROOT, capture_output=True, text=True,
+                             timeout=10).stdout.strip() or "unknown"
+    except OSError:
+        rev = "unknown"
+    return {"schema_version": 1, "bench": "serve", "git_rev": rev,
+            "host": {"device_count": (torch.cuda.device_count()
+                                      if dev.type == "cuda" else 1),
+                     "platform": "gpu" if dev.type == "cuda" else "cpu"}}
+
+
+def quality_cells(cfg, params, dev, *, budget=24, step_limit_s=0.25,
+                  delay_s=0.5) -> dict:
+    """``serve_bench.quality_bench`` on this package: a warm-up run, then
+    two obs-enabled cells over the same packed-int4 tree and workload with
+    a ``QualityMonitor`` attached — clean (no drift flag allowed) and
+    under seeded slow-step + corrupt-payload faults (``step_s`` and
+    ``integrity`` must flag), equal streams; returns both summaries.
+    ``step_limit_s``/``delay_s`` are the bench's step detector and sleep
+    (a shared CPU running the twins needs wider ones)."""
+    rng = np.random.default_rng(3)
+    n_req, plen = 4, 8
+    prompts = [rng.integers(0, cfg.vocab, plen).astype(np.int32)
+               for _ in range(n_req)]
+    calib = [rng.integers(0, cfg.vocab, (2, 16)).astype(np.int32)
+             for _ in range(2)]
+    acc = collect_sigma_x(cfg, params, calib)
+    qtree = quantize_params_tree(params, nbits=4, packed=True)
+    max_len = plen + budget + 2
+    # absolute-threshold step detector: a clean step of this model is
+    # milliseconds, the chaos sleep 0.5 s
+    qcfg = QualityConfig(
+        sigma_every=2, probe_every=4, slo_every=8,
+        detectors={"step_s": lambda: Threshold(limit=step_limit_s),
+                   "integrity": lambda: Threshold(limit=0.0)},
+        track_sigma_drift=False)    # live traffic != calib tokens by design
+
+    def run(mon=None, resilience=None, plan=None):
+        eng = ContinuousEngine(cfg, qtree, config=EngineConfig(
+            n_slots=n_req, max_len=max_len, prefill_chunk=4, quality=mon,
+            resilience=resilience))
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=p.copy(),
+                               max_new_tokens=budget))
+        if plan is None:
+            return eng, eng.run_until_done()
+        with chaos.active(plan):
+            return eng, eng.run_until_done()
+
+    def cell(plan):
+        with obs.scoped(enable_obs=True):
+            mon = QualityMonitor(cfg, params, calib=acc, config=qcfg)
+            eng, done = run(mon, ResilienceConfig(integrity_every=1), plan)
+            assert len(done) == n_req and not eng.dropped
+            summary = mon.summary()
+            summary["out"] = {r.rid: list(map(int, r.out_tokens))
+                              for r in done}
+            summary["steps"] = len(eng.step_stats)
+            return summary
+
+    run()                               # warm every shape fault-free
+    clean = cell(None)
+    sp = chaos.seeded_plan("slow-step", seed=0, horizon=12, n_faults=2,
+                           first=2, delay_s=delay_s)
+    cp = chaos.seeded_plan("corrupt-payload", seed=0, horizon=12,
+                           n_faults=2, first=2, n_bytes=3)
+    chaotic = cell(chaos.ChaosPlan(seed=0, specs=sp.specs + cp.specs))
+    if chaotic["out"] != clean["out"]:
+        raise AssertionError("quality chaos cell changed token streams")
+    if clean["drift"]["n_flags"]:
+        raise AssertionError(f"clean quality cell flagged drift: "
+                             f"{clean['drift']}")
+    flagged = chaotic["drift"]["series"]
+    if flagged.get("step_s", 0) < 1 or flagged.get("integrity", 0) < 1:
+        raise AssertionError(f"quality chaos cell missed a flag: {flagged}")
+    return {"clean": clean, "chaos": chaotic}
+
+
+def requant_cell(cfg, params, dev, *, limit=2.0) -> dict:
+    """``serve_bench.requant_bench`` on this package: clean traffic, then a
+    rank-collapsing repeated-token phase trips the streamed-Σ Frobenius
+    detectors (``limit``); the actuator must fire exactly once, swap at a
+    step boundary with every busy step emitting, and the swapped tree
+    must equal the offline re-plan from the recorded snapshots byte for
+    byte.  Returns the summary ``benchmarks/check_requant.py`` reads."""
+    rng = np.random.default_rng(9)
+    plen, budget = 8, 8
+    calib = [rng.integers(0, cfg.vocab, (2, 16)).astype(np.int32)
+             for _ in range(2)]
+    sens = model_sensitivities(cfg, params, calib, weighting="output")
+    plan = build_plan(sens, 4.0, weighting="output")
+    acc = collect_sigma_x(cfg, params, calib)
+    qcfg = QualityConfig(
+        sigma_every=1, probe_every=10_000, slo_every=10_000,
+        detectors=sigma_threshold_detectors(matrix_tap_map(cfg, params),
+                                            limit=limit))
+    with obs.scoped(enable_obs=True):
+        eng = engine_from_plan(
+            cfg, params, plan, calib=acc, sensitivities=sens,
+            quality_config=qcfg,
+            config=EngineConfig(
+                n_slots=2, max_len=plen + budget + 2,
+                requant=RequantConfig(min_samples=8, cooldown_steps=8,
+                                      max_actuations=1)))
+        rid = 0
+
+        def drive(prompt_fn, n_req, n_steps):
+            nonlocal rid
+            for _ in range(n_req):
+                eng.submit(Request(rid=rid, prompt=prompt_fn(),
+                                   max_new_tokens=budget))
+                rid += 1
+            for _ in range(n_steps):
+                eng.step()
+
+        drive(lambda: rng.integers(0, cfg.vocab, plen).astype(np.int32),
+              6, 40)
+        drive(lambda: np.full(plen, 7, np.int32), 10, 80)
+    # the bench JSON's requant block: per-step emission, the offline
+    # bit-identity verdict, post-swap realized/predicted distortion
+    steps = [{"tick": i + 1, "active": st.active, "admitted": st.admitted,
+              "new_tokens": st.new_tokens}
+             for i, st in enumerate(eng.step_stats)]
+    acts = eng.requant.actuations
+    if len(acts) != 1:
+        raise AssertionError(f"expected exactly 1 actuation, got "
+                             f"{len(acts)}")
+    a = acts[0]
+    _, tree, _, _, _ = replan_from_sigma(cfg, params, a["plan_before"],
+                                         a["snapshots"])
+    live = dict(_leaves_with_paths(eng.params))
+    offline = dict(_leaves_with_paths(tree))
+    bit_identical = live.keys() == offline.keys() and all(
+        torch.equal(live[k], offline[k]) for k in live)
+    swap_tick = next(t for t, why in eng.swap_history if why == "requant")
+    ratios = {}
+    for name in a["matrices"]:
+        e = a["plan_after"].entry(name)
+        if e.realized_distortion and e.pred_distortion:
+            ratios[name] = e.realized_distortion / e.pred_distortion
+    busy = [s for s in steps if s["active"] or s["admitted"]]
+    return {
+        "actuations": len(acts),
+        "tick": a["tick"], "swap_tick": swap_tick,
+        "taps": list(a["taps"]), "matrices": list(a["matrices"]),
+        "payload_before": a["payload_before"],
+        "payload_after": a["payload_after"],
+        "bit_identical": bool(bit_identical),
+        "busy_steps": len(busy),
+        "stalled_steps": [s["tick"] for s in busy if s["new_tokens"] < 1],
+        "finished": len(eng.finished),
+        "dropped": sum(1 for r in eng.finished if r.dropped),
+        "realized_over_pred": ratios,
+        "replan_wall_s": a["wall_s"],
+        "executor_wall_s": a["executor_wall_s"],
+        "weight_formats_after": dict(eng.weight_formats)}
+
+
+def _leaves_with_paths(tree, path=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves_with_paths(tree[k], path + (k,))
+    else:
+        yield path, tree
+
+
+def run_gate(gate, args) -> str:
+    """One stdlib gate of ``benchmarks/`` as a subprocess; its nonzero
+    exit fails the phase."""
+    res = subprocess.run([sys.executable, str(ROOT / "benchmarks"
+                                              / f"{gate}.py"), *args],
+                         capture_output=True, text=True, timeout=300)
+    print(res.stdout.rstrip(), flush=True)
+    if res.returncode != 0:
+        raise AssertionError(f"{gate}.py exited {res.returncode}: "
+                             f"{res.stdout[-2000:]}{res.stderr[-2000:]}")
+    return gate
+
+
+def quality_requant_phase(dev, out, *, cfg_kw=None, budget=24) -> dict:
+    """The reference bench's two quality cells and its requant cell at its
+    own model configuration (``BENCH_CFG``; weights from ``init_params``
+    seed 0), written as a bench JSON (``out/quality_bench.json``) that
+    ``benchmarks/check_quality.py`` and ``check_requant.py`` gate
+    unchanged (without ``--baseline``: the committed baseline holds the
+    reference's numbers from another platform).  B1 serves the int4
+    cells, B1/B2 the plan's formats, B4 runs in the re-plan; each count is
+    zeroed just before and read just after."""
+    from repro_torch.configs.base import ArchConfig
+    cfg = ArchConfig(**(cfg_kw or BENCH_CFG))
+    params = init_params(cfg, 0, device=dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    quality = quality_cells(cfg, params, dev, budget=budget)
+    q_launches = dict(LAUNCHES)
+    q_s = time.perf_counter() - t0
+    reset_launches()
+    reset_zsic_launches()
+    t0 = time.perf_counter()
+    requant = requant_cell(cfg, params, dev)
+    rq_launches = {"dequant": dict(LAUNCHES),
+                   "zsic": zsic_block_cuda.launches}
+    rq_s = time.perf_counter() - t0
+    payload = {**bench_envelope(dev), "quality": quality, "requant": requant}
+    path = out / "quality_bench.json"
+    path.write_text(json.dumps(payload, indent=1, default=float))
+    gates = [run_gate("check_quality", ["--bench", str(path)]),
+             run_gate("check_requant", ["--bench", str(path)])]
+    # the bench cell's re-plan quantizes as the reference's does (WaterSIC
+    # with LMMSE, no kernel): B4 is not on the requant path
+    if dev.type == "cuda" and (q_launches[4] == 0
+                               or sum(rq_launches["dequant"].values()) == 0):
+        raise AssertionError(f"quality/requant cells missed a kernel: "
+                             f"{q_launches} {rq_launches}")
+    print(f"quality + requant cells ({cfg.name} L={cfg.n_layers} "
+          f"d={cfg.d_model}): clean logits MSE "
+          f"{quality['clean']['logits_mse_mean']:.4e}, chaos flags "
+          f"{quality['chaos']['drift']['series']}; requant actuated at tick "
+          f"{requant['tick']} (swap {requant['swap_tick']}), "
+          f"{len(requant['matrices'])} matrices, re-plan "
+          f"{requant['replan_wall_s']:.3f}s, bit-identical "
+          f"{requant['bit_identical']}; B1 launches {q_launches[4]} "
+          f"(quality), requant dequant {rq_launches['dequant']} ZSIC "
+          f"{rq_launches['zsic']}; {q_s:.1f}s + {rq_s:.1f}s; gates {gates} "
+          f"[{CARD}]", flush=True)
+    return {"quality_launches": q_launches, "requant_launches": rq_launches,
+            "quality_s": q_s, "requant_s": rq_s, "gates": gates,
+            "requant": requant,
+            "quality_logits_mse": quality["clean"]["logits_mse_mean"],
+            "quality_chaos_flags": quality["chaos"]["drift"]["series"]}
 
 
 def flash_grad_phase(cfg, dev, gen):
@@ -1728,6 +2022,489 @@ def flash_grad_phase(cfg, dev, gen):
             "loss_flash_launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# Serving resilience, chaos, snapshot/resume, int8 KV (slice 7)
+# ---------------------------------------------------------------------------
+
+#: the chaos matrix's depth cut at full width
+CHAOS_LAYERS = 4
+#: the slow-step fault's sleep at full width: the step there carries an
+#: integrity check of every payload (crc32 on the host), so the sleep must
+#: stand clear of 4x the median step
+CHAOS_DELAY_S = 2.0
+
+
+def corrupt_product_check(cfg, dev) -> dict:
+    """The corrupt-payload fault flips bytes that B1 reads: for the leaf a
+    seed-0 plan corrupts, B1's product (every layer's view, m = 8) changes
+    after the flip and returns bit for bit after ``PayloadGuard.heal``."""
+    from repro_torch.kernels.dequant.ops import _walk_qweights
+    from repro_torch.serve import PayloadGuard
+    from repro_torch.models.layers import dense
+
+    class Eng:
+        params = quantize_for_wbits(init_params(cfg, 0, device=dev), 4)
+    eng = Eng()
+    views = split_layers(eng.params)
+    guard = PayloadGuard(eng.params)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    x = torch.randn((8, max(cfg.d_model, cfg.d_ff)), generator=gen,
+                    device=dev)
+
+    def product(path):
+        """B1's product of every layer's view of the leaf at ``path``."""
+        ys = []
+        for layer in views["layers"]:
+            node = layer
+            for k in path.split("/")[1:]:
+                node = node[k]
+            ys.append(dense({"w": node}, x[:, :node["s"].shape[0]]))
+        _sync(dev)
+        return torch.stack(ys)
+
+    clean = {p: product(p) for p, _ in _walk_qweights(eng.params)}
+    rt = chaos.ChaosRuntime(chaos.seeded_plan(
+        "corrupt-payload", 0, horizon=20, n_faults=2, first=0))
+    while not rt.log:
+        rt.fire("serve.step", engine=eng)
+    path = rt.log[0]["path"]
+    guard_bad = guard.verify(eng.params)
+    dirty = product(path)
+    guard.heal(eng.params, guard_bad)
+    healed = product(path)
+    clean = clean[path]
+    changed = not torch.equal(dirty, clean)
+    equal = torch.equal(healed, clean)
+    if guard_bad != [path] or not changed or not equal:
+        raise AssertionError(f"corrupt-payload product check: detected "
+                             f"{guard_bad} (flipped {path}), changed "
+                             f"{changed}, healed bit-equal {equal}")
+    diff = float((dirty - clean).abs().max())
+    print(f"corrupt-payload {path}: B1 product max |Δ| {diff:.4e} after the "
+          f"flip, bit-equal after healing [{CARD}]", flush=True)
+    return {"path": path, "n_bytes": rt.log[0]["n_bytes"],
+            "dirty_max_abs_diff": diff, "healed_bit_equal": equal}
+
+
+def chaos_phase(cfg, dev, out) -> dict:
+    """The chaos matrix through ``repro_torch.launch.chaos`` at full width
+    cut to CHAOS_LAYERS layers, packed int4: each of the five fault kinds
+    at seed 0 (fault-free, faulted and snapshot→kill→resume runs), each
+    summary and trace gated by ``benchmarks/check_chaos.py`` unchanged;
+    B1 must run in each cell.  Then the corrupt-payload product check."""
+    from repro_torch.launch import chaos as chaos_launch
+    short = dataclasses.replace(cfg, n_layers=CHAOS_LAYERS)
+    rows = {}
+    for kind in chaos.FAULT_KINDS:
+        t0 = time.perf_counter()
+        js, tr = out / f"chaos_{kind}.json", out / f"chaos_{kind}_trace.json"
+        reset_launches()
+        summary = chaos_launch.main([
+            "--kind", kind, "--seed", "0", "--arch", cfg.name,
+            "--n-layers", str(short.n_layers), "--delay-s",
+            str(CHAOS_DELAY_S), "--json-out", str(js), "--trace-out",
+            str(tr)])
+        b1 = LAUNCHES[4]
+        run_gate("check_chaos", ["--summary", str(js), "--trace", str(tr)])
+        if b1 == 0:
+            raise AssertionError(f"chaos {kind}: B1 never launched")
+        steps = summary["step_s"]
+        rows[kind] = {"injected": summary["injected"],
+                      "schedule": summary["schedule"],
+                      "slow_steps": summary["slow_steps"],
+                      "retries_used": summary["retries_used"],
+                      "resume_match": summary["resume_match"],
+                      "b1_launches": b1,
+                      "median_step_ms": 1e3 * statistics.median(steps),
+                      "cell_s": time.perf_counter() - t0}
+        print(f"chaos {kind} at {short.name} L={short.n_layers}: "
+              f"{summary['injected']} injected at {summary['schedule']}, "
+              f"check_chaos passed; median step "
+              f"{rows[kind]['median_step_ms']:.2f} ms, "
+              f"{summary['slow_steps']} slow steps flagged, B1 {b1} "
+              f"launches; "
+              f"{rows[kind]['cell_s']:.1f}s [{CARD}]", flush=True)
+    rows["corrupt_product"] = corrupt_product_check(short, dev)
+    return rows
+
+
+def _pairs(run_a, run_b):
+    """``run_a``, ``run_b``, ``run_b``, ``run_a`` in turns (the host's
+    spread drifts within a call); returns the two runs of each."""
+    a1, b1 = run_a(), run_b()
+    b2, a2 = run_b(), run_a()
+    return (a1, a2), (b1, b2)
+
+
+def resilience_serve_phase(cfg, params, dev, *, n_req, prompt_len,
+                           new_tokens, max_len, slots, chunk) -> dict:
+    """The serve cell's int4 traffic at full depth with the resilience
+    layer off and on (retry policy, integrity check every 8 steps,
+    snapshots every 5 steps), in turns off, on, on, off: equal streams;
+    the step times of each run, the time of one integrity check (crc32 of
+    every payload, copied to the host), of building the guard (its
+    pristine host copies) and of one snapshot."""
+    import tempfile
+    from repro_torch.dist.fault import RestartPolicy
+    from repro_torch.kernels.dequant.ops import (_walk_qweights,
+                                                 payload_checksums)
+    from repro_torch.serve import PayloadGuard
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, prompt_len).astype(np.int32)
+               for _ in range(n_req)]
+    kw = dict(slots=slots, max_len=max_len, chunk=chunk)
+    with tempfile.TemporaryDirectory(dir=ROOT / "chiprun_out") as snap:
+        def run_on():
+            res = ResilienceConfig(
+                retry=RestartPolicy(max_restarts=3, backoff_base_s=0.01),
+                integrity_every=8, snapshot_dir=snap, snapshot_every=5,
+                snapshot_keep=1)
+            rec = engine_run(cfg, params, prompts, new_tokens, dev,
+                             resilience=res, **kw)
+            rec["snapshots"] = len([d for d in Path(snap).iterdir()
+                                    if d.name.startswith("step_")])
+            return rec
+
+        offs, ons = _pairs(lambda: engine_run(cfg, params, prompts,
+                                              new_tokens, dev, **kw),
+                           run_on)
+        t0 = time.perf_counter()
+        ons[1]["engine"].snapshot(snap)
+        snapshot_s = time.perf_counter() - t0
+    for r in offs + ons:
+        r.pop("engine")
+    if any(r["streams"] != offs[0]["streams"] for r in offs + ons):
+        raise AssertionError("streams with the resilience layer on differ "
+                             "from off")
+    if dev.type == "cuda" and ons[0]["launches"][4] == 0:
+        raise AssertionError("resilience serve: B1 never launched")
+    checks = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        payload_checksums(params)
+        checks.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    PayloadGuard(params)
+    guard_s = time.perf_counter() - t0
+    payload_bytes = sum(leaf["codes"].numel()
+                        for _, leaf in _walk_qweights(params))
+
+    def each(runs, key):
+        return [r[key] for r in runs]
+
+    rec = {"step_ms_mean_off": each(offs, "step_ms_mean"),
+           "step_ms_mean_on": each(ons, "step_ms_mean"),
+           "step_ms_median_off": each(offs, "step_ms_median"),
+           "step_ms_median_on": each(ons, "step_ms_median"),
+           "decode_step_ms_off": each(offs, "decode_step_ms"),
+           "decode_step_ms_on": each(ons, "decode_step_ms"),
+           "tok_s_off": each(offs, "tok_s"), "tok_s_on": each(ons, "tok_s"),
+           "steps": ons[0]["steps"], "snapshots_written_kept": ons[0][
+               "snapshots"], "b1_launches_on": ons[0]["launches"][4],
+           "integrity_check_s": statistics.median(checks),
+           "payload_bytes": payload_bytes, "guard_build_s": guard_s,
+           "snapshot_s": snapshot_s, "streams_equal": True}
+    print(f"resilience serve {cfg.name} L={cfg.n_layers} ({rec['steps']} "
+          f"steps, off/on/on/off): streams equal; step mean "
+          f"{rec['step_ms_mean_off'][0]:.2f}/{rec['step_ms_mean_on'][0]:.2f}/"
+          f"{rec['step_ms_mean_on'][1]:.2f}/{rec['step_ms_mean_off'][1]:.2f} "
+          f"ms, median {rec['step_ms_median_off'][0]:.2f}/"
+          f"{rec['step_ms_median_on'][0]:.2f}/"
+          f"{rec['step_ms_median_on'][1]:.2f}/"
+          f"{rec['step_ms_median_off'][1]:.2f} ms; integrity check "
+          f"{1e3 * rec['integrity_check_s']:.1f} ms over "
+          f"{payload_bytes / 1e9:.3f} GB of payload; guard build "
+          f"{1e3 * guard_s:.1f} ms; snapshot {1e3 * snapshot_s:.1f} ms; B1 "
+          f"{rec['b1_launches_on']} launches [{CARD}]", flush=True)
+    return rec
+
+
+def int8kv_phase(cfg, params, dev, *, n_req, prompt_len, new_tokens,
+                 max_len, slots, chunk) -> dict:
+    """``REPRO_OPTS=int8_kv`` at full depth against the f32 cache: the
+    exact prefill's int8 cache equals ``q8`` of the f32 prefill's, every
+    layer, bit for bit; after the first decode step the new layer-0 rows
+    equal ``q8`` of the f32 cache's new rows bit for bit (deeper layers
+    read a dequantized prefix, so their rows are reported, not held);
+    first-step logit difference; the serve traffic's greedy agreement,
+    KV bytes and step time (f32, int8, int8, f32 in turns)."""
+    import os
+    from repro_torch.models import layer_kv
+    from repro_torch.models.layers import q8
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, prompt_len).astype(np.int32)
+               for _ in range(n_req)]
+    toks = torch.as_tensor(np.stack(prompts), dtype=torch.long, device=dev)
+    saved = os.environ.get("REPRO_OPTS")
+
+    def first_step(opts):
+        os.environ["REPRO_OPTS"] = opts
+        logits, cache = prefill(cfg, params, {"tokens": toks}, max_len,
+                                torch.float32)
+        nxt = logits.argmax(-1, keepdim=True)
+        step_logits, cache = decode_step(cfg, params, cache, nxt)
+        _sync(dev)
+        return logits, step_logits, cache
+
+    try:
+        l32, s32, c32 = first_step("")
+        l8, s8, c8 = first_step("int8_kv")
+        kw = dict(slots=slots, max_len=max_len, chunk=chunk)
+
+        def run(opts):
+            os.environ["REPRO_OPTS"] = opts
+            return engine_run(cfg, params, prompts, new_tokens, dev, **kw)
+
+        f32s, i8s = _pairs(lambda: run(""), lambda: run("int8_kv"))
+        for r in f32s + i8s:
+            r.pop("engine")
+    finally:
+        if saved is None:
+            os.environ.pop("REPRO_OPTS", None)
+        else:
+            os.environ["REPRO_OPTS"] = saved
+    f32, i8 = f32s[0], i8s[0]
+    if f32s[1]["streams"] != f32["streams"] or \
+            i8s[1]["streams"] != i8["streams"]:
+        raise AssertionError("int8 KV: a rerun changed the streams")
+    p = prompt_len
+    prefix_equal = all(
+        torch.equal(codes[:, :, :p], want[0])
+        and torch.equal(scale[:, :, :p], want[1])
+        for codes, scale, want in (
+            (c8.kv.k, c8.kv.k_scale, q8(c32.kv.k[:, :, :p])),
+            (c8.kv.v, c8.kv.v_scale, q8(c32.kv.v[:, :, :p]))))
+    l0_8, l0_32 = layer_kv(c8.kv, 0), layer_kv(c32.kv, 0)
+    new_row_equal = all(
+        torch.equal(codes[:, p], q8(f[:, p])[0])
+        and torch.equal(scale[:, p], q8(f[:, p])[1])
+        for codes, scale, f in ((l0_8.k, l0_8.k_scale, l0_32.k),
+                                (l0_8.v, l0_8.v_scale, l0_32.v)))
+    deq = c8.kv.k[:, :, p].float() * c8.kv.k_scale[:, :, p]
+    ref = c32.kv.k[:, :, p]
+    row_rel = float((deq - ref).abs().max() / ref.abs().max())
+    if not (prefix_equal and new_row_equal):
+        raise AssertionError(f"int8 KV: prefill cache == q8(f32) "
+                             f"{prefix_equal}, layer-0 new rows == q8(f32) "
+                             f"{new_row_equal}")
+    if not torch.equal(l8, l32):
+        raise AssertionError("int8 KV: the prefill logits moved")
+    agree = [sum(a == b for a, b in zip(f32["streams"][r],
+                                        i8["streams"][r]))
+             / len(f32["streams"][r]) for r in f32["streams"]]
+    first_diff = float((s8 - s32).abs().max())
+    rec = {"prefill_cache_equals_q8": prefix_equal,
+           "first_step_layer0_rows_equal_q8": new_row_equal,
+           "first_step_all_layers_k_row_max_rel": row_rel,
+           "first_step_logit_max_abs_diff": first_diff,
+           "first_step_logit_max_abs": float(s32.abs().max()),
+           "first_step_greedy_equal": bool(torch.equal(s8.argmax(-1),
+                                                       s32.argmax(-1))),
+           "greedy_agreement": statistics.mean(agree),
+           "streams_equal": f32["streams"] == i8["streams"],
+           "kv_bytes_f32": f32["kv_bytes"], "kv_bytes_int8": i8["kv_bytes"],
+           "decode_step_ms_f32": [r["decode_step_ms"] for r in f32s],
+           "decode_step_ms_int8": [r["decode_step_ms"] for r in i8s],
+           "tok_s_f32": [r["tok_s"] for r in f32s],
+           "tok_s_int8": [r["tok_s"] for r in i8s],
+           "b1_launches_int8": i8["launches"][4]}
+    if dev.type == "cuda" and i8["launches"][4] == 0:
+        raise AssertionError("int8 KV serve: B1 never launched")
+    print(f"int8 KV {cfg.name} L={cfg.n_layers}: prefill cache == q8(f32 "
+          f"cache) at every layer, layer-0 first-step rows == q8 bit for "
+          f"bit (deeper K rows within {row_rel:.3e} of max); first-step "
+          f"logits max |Δ| {first_diff:.4e} (max |logit| "
+          f"{rec['first_step_logit_max_abs']:.3f}); greedy agreement "
+          f"{rec['greedy_agreement']:.4f}; KV {rec['kv_bytes_int8']} vs "
+          f"{rec['kv_bytes_f32']} bytes; decode step f32/int8/int8/f32 "
+          f"{f32s[0]['decode_step_ms']:.2f}/{i8s[0]['decode_step_ms']:.2f}/"
+          f"{i8s[1]['decode_step_ms']:.2f}/{f32s[1]['decode_step_ms']:.2f} "
+          f"ms [{CARD}]", flush=True)
+    return rec
+
+
+def degrade_phase(cfg, dev) -> dict:
+    """The int4 → int3 → int2 ladder at full width cut to 4 layers under a
+    queue that crosses the high watermark (12 requests on 2 slots, high 4,
+    low 1): every request completes; the rung trace, and the step time
+    and launches at each rung."""
+    from repro_torch.serve import DegradePolicy, build_bit_ladder
+    short = dataclasses.replace(cfg, n_layers=4)
+    base = init_params(short, 0, device=dev)
+    ladder = build_bit_ladder(base, (4, 3, 2))
+    del base
+    eng = ContinuousEngine(short, ladder[0][1], config=EngineConfig(
+        n_slots=2, max_len=32, cache_dtype=torch.float32, prefill_chunk=16,
+        resilience=ResilienceConfig(degrade=DegradePolicy(
+            ladder=ladder, high_watermark=4, low_watermark=1, streak=1,
+            cooldown_steps=2))))
+    rng = np.random.default_rng(0)
+    for i in range(12):
+        eng.submit(Request(rid=i, prompt=rng.integers(
+            0, short.vocab, 16).astype(np.int32), max_new_tokens=8))
+    reset_launches()
+    by_rung, done = {}, []
+    while eng.queue or eng.active_slots:
+        before = dict(LAUNCHES)
+        done += eng.step()
+        name = ladder[eng._rung][0]
+        rec = by_rung.setdefault(name, {"steps": 0, "step_s": [],
+                                        "launches": {}})
+        rec["steps"] += 1
+        rec["step_s"].append(eng.step_stats[-1].step_s)
+        for nb, n in LAUNCHES.items():
+            if n - before[nb]:
+                rec["launches"][nb] = rec["launches"].get(nb, 0) \
+                    + n - before[nb]
+    if len(done) != 12 or eng.dropped:
+        raise AssertionError(f"degrade: {len(done)} of 12 finished, "
+                             f"{len(eng.dropped)} dropped")
+    if dev.type == "cuda" and not all(LAUNCHES[nb] for nb in (4, 3, 2)):
+        raise AssertionError(f"degrade: a rung's kernel never launched "
+                             f"{dict(LAUNCHES)}")
+    rungs = [[t, n, d] for t, n, d in eng.rung_history]
+    out = {"rungs": rungs, "finished": len(done), "launches": dict(LAUNCHES),
+           "by_rung": {k: {"steps": v["steps"], "launches": v["launches"],
+                           "step_ms_median": 1e3 * statistics.median(
+                               v["step_s"])}
+                       for k, v in by_rung.items()}}
+    print(f"degrade {short.name} L=4: rungs "
+          + " -> ".join(f"{n}@{t}({d})" for t, n, d in rungs)
+          + "; step ms median by rung "
+          + ", ".join(f"{k} {v['step_ms_median']:.2f} ({v['steps']} steps)"
+                      for k, v in out["by_rung"].items())
+          + f" [{CARD}]", flush=True)
+    return out
+
+
+class RuleThreshold:
+    """A ``sigma_fro`` detector whose limit is fixed between phases: while
+    ``box["limit"]`` is None it records the largest shift it sees (the
+    clean phase's) and never fires; then it fires above the limit."""
+
+    def __init__(self, box):
+        self.box = box
+        self.n = 0
+
+    def update(self, x) -> bool:
+        self.n += 1
+        x = float(x)
+        if self.box["limit"] is None:
+            self.box["peak"] = max(self.box["peak"], x)
+            return False
+        return x > self.box["limit"]
+
+
+def requant_full_phase(cfg, dev, *, n_layers=2, sigma_every=4) -> dict:
+    """One requant actuation at full width cut to ``n_layers`` layers: a
+    4.0-bit output-weighted plan from 64 calibration tokens served by
+    ``engine_from_plan``; clean traffic, then the limit is fixed at 1.5×
+    the clean phase's largest Frobenius shift, then repeated-token
+    traffic until the actuator fires (once), then one step that lands and
+    serves the swapped tree; the drift traffic is not run to its end.
+    The re-plan quantizes as the reference's does (WaterSIC with LMMSE,
+    whose column loop is no kernel; B4 is reported, not required).
+    Reports both values, the actuation's wall time and its re-planned
+    matrices, and the B1/B2 launches of the clean phase and of the
+    swapped step."""
+    short = dataclasses.replace(cfg, n_layers=n_layers)
+    params = init_params(short, 0, device=dev)
+    rng = np.random.default_rng(9)
+    plen, budget = 8, 8
+    calib = [rng.integers(0, short.vocab, (2, 16)).astype(np.int32)
+             for _ in range(2)]
+    t0 = time.perf_counter()
+    sens = model_sensitivities(short, params, calib, weighting="output")
+    plan = build_plan(sens, 4.0, weighting="output")
+    acc = collect_sigma_x(short, params, calib)
+    build_s = time.perf_counter() - t0
+    box = {"limit": None, "peak": 0.0}
+    mats = matrix_tap_map(short, params)
+    dets = sigma_threshold_detectors(mats, limit=math.inf)
+    for rec in mats:
+        dets[f"sigma_fro:L{rec['layer']}/{rec['tap']}"] = \
+            lambda: RuleThreshold(box)
+    qcfg = QualityConfig(sigma_every=sigma_every, probe_every=10_000,
+                         slo_every=10_000, detectors=dets)
+    with obs.scoped(enable_obs=True):
+        eng = engine_from_plan(
+            short, params, plan, calib=acc, sensitivities=sens,
+            quality_config=qcfg, config=EngineConfig(
+                n_slots=2, max_len=plen + budget + 2,
+                cache_dtype=torch.float32,
+                requant=RequantConfig(min_samples=8, cooldown_steps=8,
+                                      max_actuations=1)))
+        formats = dict(eng.weight_formats)
+        reset_launches()
+        for i in range(4):
+            eng.submit(Request(rid=i, prompt=rng.integers(
+                0, short.vocab, plen).astype(np.int32), max_new_tokens=budget))
+        t0 = time.perf_counter()
+        eng.run_until_done()
+        clean_s = time.perf_counter() - t0
+        serve_launches = dict(LAUNCHES)
+        box["limit"] = 1.5 * box["peak"]
+        reset_zsic_launches()
+        for i in range(8):
+            eng.submit(Request(rid=100 + i, prompt=np.full(plen, 7, np.int32),
+                               max_new_tokens=budget))
+        t0 = time.perf_counter()
+        while (eng.queue or eng.active_slots) and not eng.requant.actuations:
+            eng.step()
+        zsic = zsic_block_cuda.launches
+        reset_launches()
+        eng.step()                  # the staged tree lands at this boundary
+        swap_launches = dict(LAUNCHES)
+        drift_s = time.perf_counter() - t0
+    acts = eng.requant.actuations
+    if len(acts) != 1:
+        raise AssertionError(f"full-width requant: {len(acts)} actuations "
+                             f"(clean peak {box['peak']:.4f}, limit "
+                             f"{box['limit']:.4f})")
+    a = acts[0]
+    swapped = [why for _, why in eng.swap_history] == ["requant"]
+    if not swapped or (dev.type == "cuda" and (
+            serve_launches[4] == 0 or sum(swap_launches.values()) == 0)):
+        raise AssertionError(f"full-width requant: swaps "
+                             f"{eng.swap_history}, launches clean "
+                             f"{serve_launches} swapped step "
+                             f"{swap_launches}")
+    ratios = {n: a["plan_after"].entry(n).realized_distortion
+              / a["plan_after"].entry(n).pred_distortion
+              for n in a["matrices"]
+              if a["plan_after"].entry(n).realized_distortion
+              and a["plan_after"].entry(n).pred_distortion}
+    moved = {n: [a["payload_before"][n], a["payload_after"][n]]
+             for n in a["matrices"]
+             if a["payload_before"][n] != a["payload_after"][n]}
+    out = {"clean_peak_fro_shift": box["peak"], "limit": box["limit"],
+           "tick": a["tick"], "taps": a["taps"], "matrices": a["matrices"],
+           "sigma_n": a["sigma_n"], "moved": moved,
+           "realized_over_pred": ratios, "actuation_wall_s": a["wall_s"],
+           "executor_wall_s": a["executor_wall_s"], "zsic_launches": zsic,
+           "serve_launches": serve_launches,
+           "swapped_step_launches": swap_launches, "formats_before": formats,
+           "formats_after": dict(eng.weight_formats),
+           "plan_build_s": build_s, "clean_s": clean_s,
+           "drift_s": drift_s, "finished": len(eng.finished)}
+    print(f"requant {short.name} L={n_layers} full width: clean peak shift "
+          f"{box['peak']:.4f} -> limit {box['limit']:.4f}; actuated at tick "
+          f"{a['tick']} on taps {a['taps']} ({len(a['matrices'])} matrices, "
+          f"moved {moved or 'none'}); actuation {a['wall_s']:.3f} s "
+          f"(executor {a['executor_wall_s']:.3f} s, {zsic} B4 launches); "
+          f"swapped step launches {swap_launches}; realized/predicted "
+          f"{ratios}; clean {clean_s:.1f} s, drift {drift_s:.1f} s "
+          f"[{CARD}]", flush=True)
+    return out
+
+
+T_START = time.perf_counter()
+#: ``nvidia-smi``'s name and power limit of the card, set by ``main``;
+#: every report line of the slice-7 phases carries it
+CARD = "card not read"
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available", file=sys.stderr)
@@ -1739,6 +2516,8 @@ def main() -> int:
                           "--format=csv,noheader", "-i", "0"],
                          capture_output=True, text=True, check=True)
     print(smi.stdout.strip(), flush=True)
+    global CARD
+    CARD = smi.stdout.strip()
     t0 = time.perf_counter()
     took = _build.build_all()
     print(f"build: {json.dumps(took)} ({time.perf_counter() - t0:.2f}s)",
@@ -1799,6 +2578,12 @@ def main() -> int:
                              "serve phase's")
     print(f"prefill + obs serve phases: {time.perf_counter() - t0:.1f}s",
           flush=True)
+    traffic = dict(n_req=8, prompt_len=32, new_tokens=16, max_len=64,
+                   slots=8, chunk=16)
+    t0 = time.perf_counter()
+    resilience = resilience_serve_phase(cfg, params, dev, **traffic)
+    int8kv = int8kv_phase(cfg, params, dev, **traffic)
+    phase_s = {"resilience_int8kv": time.perf_counter() - t0}
     del params
     torch.cuda.empty_cache()
     ladder = {}
@@ -1809,6 +2594,15 @@ def main() -> int:
                                       max_len=32, slots=4, chunk=16)
         del p
         torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    chaos_rows = chaos_phase(cfg, dev, out)
+    torch.cuda.empty_cache()
+    degrade = degrade_phase(cfg, dev)
+    torch.cuda.empty_cache()
+    phase_s["chaos_degrade"] = time.perf_counter() - t0
+    print(f"chaos + degrade phases: {phase_s['chaos_degrade']:.1f}s",
+          flush=True)
 
     t0 = time.perf_counter()
     ptq_cfg = dataclasses.replace(cfg, n_layers=2)
@@ -1833,6 +2627,16 @@ def main() -> int:
     planned["phases_s"] = time.perf_counter() - t0
     print(f"plan + mixed-serve phases: {planned['phases_s']:.1f}s",
           flush=True)
+
+    t0 = time.perf_counter()
+    quality = quality_requant_phase(dev, out)
+    torch.cuda.empty_cache()
+    requant_full = requant_full_phase(cfg, dev)
+    torch.cuda.empty_cache()
+    phase_s["quality_requant"] = time.perf_counter() - t0
+    print(f"quality + requant phases: {phase_s['quality_requant']:.1f}s; "
+          f"slice-7 phases {sum(phase_s.values()):.1f}s; smoke so far "
+          f"{time.perf_counter() - T_START:.1f}s", flush=True)
 
     kernels, detail_mix = [], {}
     for nbits in (4, 3, 2):
@@ -1910,8 +2714,14 @@ def main() -> int:
               "ptq": ptq, "int8": int8_cases,
               "int8_mixed_serve_mix_per_launch": int8_mix, "plan": planned,
               "prefill_kernels": prefill_kernels, "gptq": gptq,
-              "obs_serve": obs_serve, "flash_grad": flash_grad}
-    (out / "chip_smoke_detail.json").write_text(json.dumps(detail, indent=1))
+              "obs_serve": obs_serve, "flash_grad": flash_grad,
+              "resilience_serve": resilience, "int8_kv": int8kv,
+              "chaos": chaos_rows, "degrade": degrade, "quality": quality,
+              "requant_full": requant_full, "slice7_phase_s": phase_s,
+              "total_s": time.perf_counter() - T_START}
+    (out / "chip_smoke_detail.json").write_text(json.dumps(detail, indent=1,
+                                                           default=float))
+    print(f"chip_smoke total {detail['total_s']:.1f}s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

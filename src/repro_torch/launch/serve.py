@@ -11,6 +11,19 @@ packed-kernel launches the run made.
 (Perfetto), Prometheus text exposition and JSONL metric log (the input to
 ``launch/summarize.py --metrics``, this package's or the reference's).
 
+Resilience flags (DESIGN.md §12) attach the serving-resilience layer:
+``--deadline-s``/``--queue-cap`` bound latency and queue growth (dropped
+requests are reported at exit), ``--retries`` arms transient-dispatch
+retry, ``--integrity-every`` checksums and heals the quantized payloads,
+``--degrade`` walks the int4→int3→int2 ladder under queue pressure, and
+``--snapshot-dir``/``--snapshot-every`` write crash-recoverable engine
+snapshots (``--resume`` restarts from the latest one).
+
+``--requant`` (DESIGN.md §15) serves from a waterfilled plan instead of
+``--wbits`` and arms the live sense→decide→act loop; the driver sends a
+drifted second traffic phase (repeated-token prompts) so the loop
+closes.  Requires ``--continuous``; incompatible with ``--degrade``.
+
     python -m repro_torch.launch.serve --arch minicpm-2b --wbits 4 \
         --requests 8 --continuous --prefill-chunk 16 \
         --trace-out trace.json --metrics-out serve.prom \
@@ -18,6 +31,10 @@ packed-kernel launches the run made.
     python -m repro_torch.launch.summarize --metrics events.jsonl
     python -m repro_torch.launch.serve --arch minicpm-2b --reduced \
         --wbits 3 --device cpu
+    python -m repro_torch.launch.serve --arch minicpm-2b --reduced \
+        --wbits 4 --continuous --retries 3 --integrity-every 2 \
+        --snapshot-dir snap --snapshot-every 2 --device cpu
+    python -m repro_torch.launch.serve ... --snapshot-dir snap --resume
 """
 from __future__ import annotations
 
@@ -29,14 +46,19 @@ import torch
 
 from repro_torch import obs, resolve_device
 from repro_torch.configs import get_config
+from repro_torch.dist.fault import RestartPolicy
 from repro_torch.kernels.dequant import LAUNCHES, reset_launches
 from repro_torch.models import init_params
 from repro_torch.quant import quantize_params_tree
-from repro_torch.serve import (ContinuousEngine, EngineConfig, Request,
-                               ServeEngine)
+from repro_torch.serve import (ContinuousEngine, DegradePolicy, EngineConfig,
+                               QualityConfig, Request, RequantConfig,
+                               ResilienceConfig, ServeEngine,
+                               build_bit_ladder, engine_from_plan,
+                               sigma_threshold_detectors)
 
 __all__ = ["quantize_for_wbits", "add_obs_flags", "obs_setup",
-           "obs_export", "main"]
+           "obs_export", "add_resilience_flags", "resilience_from_args",
+           "add_requant_flags", "requant_from_args", "main"]
 
 
 def add_obs_flags(ap: argparse.ArgumentParser) -> None:
@@ -67,6 +89,120 @@ def obs_export(args) -> None:
             print(f"wrote {path}")
 
 
+def add_resilience_flags(ap: argparse.ArgumentParser) -> None:
+    """Serving-resilience knobs (the reference's flags)."""
+    ap.add_argument("--deadline-s", type=float, default=None,
+                    help="per-request deadline (monotonic seconds from "
+                         "arrival); expired requests are dropped, reported")
+    ap.add_argument("--queue-cap", type=int, default=None,
+                    help="bounded admission queue; submits past the cap "
+                         "are shed")
+    ap.add_argument("--retries", type=int, default=0,
+                    help="transient-dispatch restart budget (0 = fail fast)")
+    ap.add_argument("--retry-backoff-s", type=float, default=0.05)
+    ap.add_argument("--integrity-every", type=int, default=None, metavar="N",
+                    help="checksum the quantized payloads every N steps "
+                         "and heal corruption from pristine copies")
+    ap.add_argument("--degrade", action="store_true",
+                    help="walk the serving bit ladder down under queue "
+                         "pressure (and back up when it drains)")
+    ap.add_argument("--degrade-high", type=int, default=8,
+                    help="queue depth that counts as overload")
+    ap.add_argument("--degrade-low", type=int, default=1,
+                    help="queue depth that counts as drained")
+    ap.add_argument("--snapshot-dir", default=None, metavar="DIR",
+                    help="periodic engine snapshots via dist.checkpoint")
+    ap.add_argument("--snapshot-every", type=int, default=16, metavar="N")
+    ap.add_argument("--resume", action="store_true",
+                    help="resume the continuous engine from the latest "
+                         "snapshot in --snapshot-dir")
+
+
+def resilience_from_args(args, params) -> ResilienceConfig | None:
+    """The ResilienceConfig the flags describe (None if untouched).
+
+    ``params`` is the engine's nominal serving tree — with ``--degrade``
+    it becomes rung 0 of the ladder and the lower rungs are quantized
+    down from it (already-quantized leaves pass through unchanged).
+    """
+    degrade = None
+    if args.degrade:
+        degrade = DegradePolicy(
+            ladder=[("rung0", params)] + build_bit_ladder(params, (3, 2)),
+            high_watermark=args.degrade_high,
+            low_watermark=args.degrade_low)
+    retry = RestartPolicy(max_restarts=args.retries,
+                          backoff_base_s=args.retry_backoff_s,
+                          reset_after=4) if args.retries else None
+    if not any([args.deadline_s, args.queue_cap, retry,
+                args.integrity_every, degrade, args.snapshot_dir]):
+        return None
+    return ResilienceConfig(
+        queue_cap=args.queue_cap,
+        default_deadline_s=args.deadline_s,
+        retry=retry,
+        integrity_every=args.integrity_every,
+        degrade=degrade,
+        snapshot_dir=args.snapshot_dir,
+        snapshot_every=args.snapshot_every if args.snapshot_dir else None)
+
+
+def add_requant_flags(ap: argparse.ArgumentParser) -> None:
+    """Live-requantization knobs (DESIGN.md §15)."""
+    g = ap.add_argument_group("requant")
+    g.add_argument("--requant", action="store_true",
+                   help="serve from a waterfilled plan and re-plan + "
+                        "hot-swap live when traffic Σ drifts (needs "
+                        "--continuous; incompatible with --degrade)")
+    g.add_argument("--requant-budget", type=float, default=4.0,
+                   help="global bit budget per param for the plan")
+    g.add_argument("--requant-calib", type=int, default=2, metavar="N",
+                   help="synthetic calibration batches for the initial plan")
+    g.add_argument("--requant-limit", type=float, default=2.0,
+                   help="sigma_fro divergence threshold arming the drift "
+                        "detectors (relative Frobenius shift)")
+    g.add_argument("--requant-min-samples", type=int, default=32)
+    g.add_argument("--requant-cooldown", type=int, default=8)
+    g.add_argument("--requant-max", type=int, default=None, metavar="K",
+                   help="cap on actuations (default unbounded)")
+    g.add_argument("--requant-sigma-every", type=int, default=2,
+                   help="shadow Σ_X sampling period (engine ticks)")
+
+
+def requant_from_args(args) -> RequantConfig | None:
+    if not args.requant:
+        return None
+    return RequantConfig(min_samples=args.requant_min_samples,
+                         cooldown_steps=args.requant_cooldown,
+                         max_actuations=args.requant_max)
+
+
+def _requant_engine(args, cfg, params, econfig):
+    """Plan-driven engine with the live requant loop armed (§15)."""
+    from repro_torch.plan import (build_plan, collect_sigma_x,
+                                  model_sensitivities)
+    from repro_torch.quant.pipeline import matrix_tap_map
+
+    rng = np.random.default_rng(1)
+    calib = [rng.integers(0, cfg.vocab,
+                          (2, max(args.prompt_len, 8))).astype(np.int32)
+             for _ in range(args.requant_calib)]
+    sens = model_sensitivities(cfg, params, calib, weighting="output")
+    plan = build_plan(sens, args.requant_budget, weighting="output")
+    acc = collect_sigma_x(cfg, params, calib)
+    qc = QualityConfig(
+        sigma_every=args.requant_sigma_every,
+        detectors=sigma_threshold_detectors(
+            matrix_tap_map(cfg, params), limit=args.requant_limit))
+    eng = engine_from_plan(cfg, params, plan, calib=acc,
+                           sensitivities=sens, config=econfig,
+                           continuous=True, quality_config=qc)
+    print(f"requant armed: {plan.planned_bits_per_param:.2f} b/param plan, "
+          f"limit={args.requant_limit} cooldown={args.requant_cooldown} "
+          f"min_samples={args.requant_min_samples}")
+    return eng
+
+
 def quantize_for_wbits(params, wbits: int):
     """The serving tree of ``--wbits``: 16 leaves the weights as they are,
     8 gives int8 codes, 4/3/2 the packed planar leaves."""
@@ -94,31 +230,65 @@ def main(argv=None):
                     help="torch device (default cuda; 'cpu' runs the plain "
                          "PyTorch twins)")
     add_obs_flags(ap)
+    add_resilience_flags(ap)
+    add_requant_flags(ap)
     args = ap.parse_args(argv)
+    if args.requant:
+        if not args.continuous:
+            ap.error("--requant requires --continuous")
+        if args.degrade:
+            ap.error("--requant is incompatible with --degrade (both "
+                     "hot-swap the served tree)")
+    if args.resume and not (args.continuous and args.snapshot_dir):
+        ap.error("--resume needs --continuous and --snapshot-dir")
     device = resolve_device(args.device)
-    obs_setup(args)
+    if not obs_setup(args) and args.requant:
+        obs.enable()   # the sense→act loop samples behind repro_torch.obs
 
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    params = quantize_for_wbits(init_params(cfg, 0, device=device),
-                                args.wbits)
+    params = init_params(cfg, 0, device=device)
+    if not args.requant:
+        params = quantize_for_wbits(params, args.wbits)
+    # the driver builds exactly ONE EngineConfig; every construction path
+    # below (fresh, resumed, plan-driven) consumes it
     econfig = EngineConfig(n_slots=args.slots,
                            max_len=args.prompt_len + args.max_new + 2,
-                           prefill_chunk=args.prefill_chunk or None)
+                           prefill_chunk=args.prefill_chunk or None,
+                           resilience=resilience_from_args(args, params),
+                           requant=requant_from_args(args))
     cls = ContinuousEngine if args.continuous else ServeEngine
-    eng = cls(cfg, params, config=econfig)
+    if args.resume:
+        eng = ContinuousEngine.resume(args.snapshot_dir, cfg, params,
+                                      config=econfig)
+        print(f"resumed from snapshot at tick {eng._tick} "
+              f"({eng.active_slots} slots live, {len(eng.queue)} queued)")
+    elif args.requant:
+        eng = _requant_engine(args, cfg, params, econfig)
+    else:
+        eng = cls(cfg, params, config=econfig)
     print(f"{cfg.name} on {device}: wbits={args.wbits} "
           f"weight bytes {eng.weight_bytes} (bf16 {eng.weight_bytes_bf16}) "
           f"formats {eng.weight_formats}")
     rng = np.random.default_rng(0)
-    for i in range(args.requests):
-        eng.submit(Request(rid=i, prompt=rng.integers(
-            0, cfg.vocab, args.prompt_len).astype(np.int32),
-            max_new_tokens=args.max_new))
+    if not args.resume:
+        for i in range(args.requests):
+            eng.submit(Request(rid=i, prompt=rng.integers(
+                0, cfg.vocab, args.prompt_len).astype(np.int32),
+                max_new_tokens=args.max_new))
     reset_launches()
     t0 = time.perf_counter()
     done = eng.run_until_done()
+    if args.requant:
+        # drifted second phase: repeated-token prompts collapse the live
+        # Σ toward rank one, 2x the clean traffic so the drifted samples
+        # dominate the streamed estimate
+        for i in range(2 * args.requests):
+            eng.submit(Request(rid=args.requests + i,
+                               prompt=np.full(args.prompt_len, 7, np.int32),
+                               max_new_tokens=args.max_new))
+        done += eng.run_until_done()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0
@@ -128,6 +298,22 @@ def main(argv=None):
           f"({total / dt:.1f} tok/s, {sched})")
     print(f"  packed-kernel launches: {sum(LAUNCHES.values())} "
           f"(int4 {LAUNCHES[4]}, int3 {LAUNCHES[3]}, int2 {LAUNCHES[2]})")
+    if eng.resilience is not None:
+        for r in eng.dropped:
+            print(f"  dropped rid={r.rid} ({r.drop_reason})")
+        if eng.rung_history:
+            print("  rungs: " + " -> ".join(
+                f"{name}@{tick}" for tick, name, _ in eng.rung_history))
+    if args.requant:
+        acts = eng.requant.actuations if eng.requant else []
+        print(f"  requant actuations: {len(acts)}")
+        for a in acts:
+            moved = {n: (a["payload_before"][n], a["payload_after"][n])
+                     for n in a["matrices"]
+                     if a["payload_before"][n] != a["payload_after"][n]}
+            print(f"    tick={a['tick']} taps={','.join(a['taps'])} "
+                  f"matrices={len(a['matrices'])} moved={moved or 'none'} "
+                  f"replan={a['wall_s'] * 1e3:.0f}ms")
     for r in done[:4]:
         print(f"  rid={r.rid} out={r.out_tokens[:8]}")
     obs_export(args)

@@ -9,15 +9,16 @@ saves a full cache copy per layer and step.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+from typing import Any, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import flash
 
-__all__ = ["rmsnorm", "layernorm", "dense", "rope", "KVCache",
-           "attention_train", "attention_decode", "mlp", "embed", "unembed"]
+__all__ = ["rmsnorm", "layernorm", "dense", "rope", "KVCache", "kv_tensors",
+           "q8", "attention_train", "attention_decode", "mlp", "embed",
+           "unembed"]
 
 
 # ---------------------------------------------------------------------------
@@ -100,10 +101,34 @@ def rope(x, positions, theta: float = 10000.0):
 class KVCache(NamedTuple):
     """Ring-buffered KV cache: buffer length = window (local attention) or
     max_len.  k, v: (B, buf, n_kv, hd), or layer-stacked (L, B, buf, n_kv,
-    hd) inside a decode cache."""
+    hd) inside a decode cache.
+
+    ``int8_kv`` (``repro_torch.opts``): k/v stored int8 with exact
+    per-(position, head) scales ``k_scale``/``v_scale`` of shape (B, buf,
+    n_kv, 1) f32 (layer-stacked likewise); () when the cache is float."""
 
     k: torch.Tensor
     v: torch.Tensor
+    k_scale: Any = ()
+    v_scale: Any = ()
+
+
+def kv_tensors(kv: KVCache):
+    """The cache's tensor fields (the int8 scales only when present)."""
+    return [t for t in kv if torch.is_tensor(t)]
+
+
+def q8(x: torch.Tensor):
+    """Per-row int8 quantization over the last axis: ``(rint(x / s), s)``
+    with ``s = max(max|x| / 127, 1e-12)`` (the reference's ``q8``).
+
+    ``max|x| / 127`` is taken as XLA compiles the reference's jitted
+    decode step: a multiply by the f32 reciprocal of 127 (the same bits on
+    the CPU and the card).  ``x / s`` is a true division of tensor by
+    tensor, and ``torch.round`` rounds half to even like ``jnp.rint``."""
+    amax = x.abs().amax(dim=-1, keepdim=True)
+    s = torch.clamp_min(amax * torch.full_like(amax, 1.0 / 127.0), 1e-12)
+    return torch.round(x / s).to(torch.int8), s.to(torch.float32)
 
 
 def _split_heads(x, n, hd):
@@ -179,7 +204,8 @@ def attention_decode(p, x_t, cache: KVCache, pos, *, n_q, n_kv, head_dim,
     x_t: (B, 1, d); ``pos`` is the absolute position of this token — a
     0-d int tensor (lockstep) or a (B,) vector (continuous batching: each
     slot at its own offset).  Writes this token's K/V into ``cache`` in
-    place and returns ``(out, cache)``.
+    place and returns ``(out, cache)``.  An int8 cache stores ``q8`` of
+    K/V with their scales and attends to the dequantized buffers.
 
     The reference's scatter semantics are reproduced explicitly: a
     per-slot row whose slot lies past the buffer (an idle serving slot
@@ -199,20 +225,33 @@ def attention_decode(p, x_t, cache: KVCache, pos, *, n_q, n_kv, head_dim,
         q = rope(q, posv, rope_theta)
         k_t = rope(k_t, posv, rope_theta)
     slot = pos % buf if window is not None else pos
+    int8_kv = cache.k.dtype == torch.int8
+    if int8_kv:
+        k_c, ks_t = q8(k_t)
+        v_c, vs_t = q8(v_t)
+        writes = ((cache.k, k_c), (cache.v, v_c),
+                  (cache.k_scale, ks_t), (cache.v_scale, vs_t))
+    else:
+        writes = ((cache.k, k_t), (cache.v, v_t))
     if per_slot:
         rows = torch.arange(b, device=x_t.device)
         valid = (slot >= 0) & (slot < buf)
         safe = torch.where(valid, slot, torch.zeros_like(slot)).long()
-        for big, new in ((cache.k, k_t), (cache.v, v_t)):
+        for big, new in writes:
             # dropped rows rewrite their slot-0 entry with its own value
             keep = torch.where(valid[:, None, None],
                                new[:, 0].to(big.dtype), big[rows, safe])
             big[rows, safe] = keep
     else:
         start = slot.clamp(0, buf - 1).reshape(1).long()
-        for big, new in ((cache.k, k_t), (cache.v, v_t)):
+        for big, new in writes:
             big.index_copy_(1, start, new.to(big.dtype))
-    scores = _attn_scores(q, cache.k, 1.0 / math.sqrt(head_dim))
+    if int8_kv:
+        k_eff = cache.k.to(q.dtype) * cache.k_scale.to(q.dtype)
+        v_eff = cache.v.to(q.dtype) * cache.v_scale.to(q.dtype)
+    else:
+        k_eff, v_eff = cache.k, cache.v
+    scores = _attn_scores(q, k_eff, 1.0 / math.sqrt(head_dim))
     idx = torch.arange(buf, device=x_t.device)
     if per_slot:
         if window is not None:
@@ -230,7 +269,7 @@ def attention_decode(p, x_t, cache: KVCache, pos, *, n_q, n_kv, head_dim,
         mask = valid[None, None, None, None, :]
     scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
     probs = torch.softmax(scores.to(torch.float32), dim=-1)
-    out = _attn_out(probs.to(x_t.dtype), cache.v)
+    out = _attn_out(probs.to(x_t.dtype), v_eff)
     return dense(p["wo"], out), cache
 
 

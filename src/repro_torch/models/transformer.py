@@ -27,12 +27,14 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
+from repro_torch.opts import enabled as _opt
 from .layers import (KVCache, attention_decode, attention_train, embed,
-                     layernorm, mlp, rmsnorm, unembed)
+                     kv_tensors, layernorm, mlp, q8, rmsnorm, unembed)
 
 __all__ = ["init_params", "forward_train", "loss_fn", "init_cache",
            "decode_step", "decode_chunk", "prefill", "cache_write_slot",
-           "cache_reset_slot", "split_layers", "DecodeCache"]
+           "cache_reset_slot", "cache_rows", "layer_kv", "split_layers",
+           "DecodeCache"]
 
 
 def _check_family(cfg: ArchConfig):
@@ -147,7 +149,8 @@ def loss_fn(cfg: ArchConfig, params, batch) -> torch.Tensor:
 
 
 class DecodeCache(NamedTuple):
-    kv: Any                   # KVCache, each (L, B, buf, n_kv, hd)
+    kv: Any                   # KVCache, each (L, B, buf, n_kv, hd) (+ the
+                              # int8 scales (L, B, buf, n_kv, 1))
     pos: torch.Tensor         # int32: 0-d (lockstep) or (B,) per slot
     extras: Any = ()
 
@@ -156,16 +159,38 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, *, per_slot: bool = False,
                device=None) -> DecodeCache:
     """Fresh decode cache; ``per_slot=True`` makes ``pos`` a (batch,)
-    vector, one position counter per serving slot."""
+    vector, one position counter per serving slot.  With ``REPRO_OPTS``
+    holding ``int8_kv`` the K/V buffers are int8 with f32 scales (the
+    reference's ``_kv_buf``) and ``dtype`` is not used."""
     _check_family(cfg)
     dev = resolve_device(device)
     buf = min(max_len, cfg.local_window) if cfg.local_window else max_len
     shape = (cfg.n_layers, batch, buf, cfg.n_kv, cfg.resolved_head_dim)
-    kv = KVCache(k=torch.zeros(shape, dtype=dtype, device=dev),
-                 v=torch.zeros(shape, dtype=dtype, device=dev))
+    if _opt("int8_kv"):
+        sshape = shape[:-1] + (1,)
+        kv = KVCache(k=torch.zeros(shape, dtype=torch.int8, device=dev),
+                     v=torch.zeros(shape, dtype=torch.int8, device=dev),
+                     k_scale=torch.zeros(sshape, dtype=torch.float32,
+                                         device=dev),
+                     v_scale=torch.zeros(sshape, dtype=torch.float32,
+                                         device=dev))
+    else:
+        kv = KVCache(k=torch.zeros(shape, dtype=dtype, device=dev),
+                     v=torch.zeros(shape, dtype=dtype, device=dev))
     pos = torch.zeros((batch,) if per_slot else (), dtype=torch.int32,
                       device=dev)
     return DecodeCache(kv, pos)
+
+
+def layer_kv(kv: KVCache, i: int) -> KVCache:
+    """Layer ``i``'s views of a layer-stacked KV cache (scales included)."""
+    return KVCache(*(t[i] if torch.is_tensor(t) else t for t in kv))
+
+
+def cache_rows(cache: DecodeCache, i: int) -> DecodeCache:
+    """Batch row ``i`` of a cache as a batch-1 cache of views."""
+    return cache._replace(kv=KVCache(*(t[:, i:i + 1] if torch.is_tensor(t)
+                                       else t for t in cache.kv)))
 
 
 def _slot_index(slot, batch: int) -> int:
@@ -180,7 +205,7 @@ def cache_write_slot(cache: DecodeCache, sub: DecodeCache,
     if cache.pos.ndim != 1:
         raise ValueError("cache_write_slot needs a per-slot cache")
     i = _slot_index(slot, cache.pos.shape[0])
-    for big, small in zip(cache.kv, sub.kv):
+    for big, small in zip(kv_tensors(cache.kv), kv_tensors(sub.kv)):
         big[:, i:i + 1] = small.to(big.dtype)
     sub_pos = sub.pos if sub.pos.ndim == 0 else sub.pos[0]
     cache.pos[i] = sub_pos.to(torch.int32)
@@ -192,7 +217,7 @@ def cache_reset_slot(cache: DecodeCache, slot) -> DecodeCache:
     if cache.pos.ndim != 1:
         raise ValueError("cache_reset_slot needs a per-slot cache")
     i = _slot_index(slot, cache.pos.shape[0])
-    for big in cache.kv:
+    for big in kv_tensors(cache.kv):
         big[:, i:i + 1] = 0
     cache.pos[i] = 0
     return cache
@@ -251,8 +276,7 @@ def decode_step(cfg: ArchConfig, params, cache: DecodeCache, token):
     for i, lp in enumerate(layers):
         a_in = _norm(cfg, lp["ln_attn"], x)
         a_out, _ = attention_decode(
-            lp["attn"], a_in, KVCache(cache.kv.k[i], cache.kv.v[i]), pos,
-            **ak)
+            lp["attn"], a_in, layer_kv(cache.kv, i), pos, **ak)
         x = x + a_out
         x = x + mlp(lp["mlp"], _norm(cfg, lp["ln_mlp"], x),
                     activation=cfg.activation)
@@ -285,6 +309,8 @@ def prefill(cfg: ArchConfig, params, batch, max_len: int,
     over the same prompt, up to f32 rounding (the reference's
     ``_capture_kv`` projects the raw embeddings instead; ROADMAP queue C).
     A windowed cache holds the last ``buf`` positions at slot p mod buf.
+    An int8 cache (``int8_kv``) takes ``q8`` of each position's K/V with
+    its scale, as a decode step writes them.
     """
     _check_family(cfg)
     tokens = batch["tokens"]
@@ -304,8 +330,14 @@ def prefill(cfg: ArchConfig, params, batch, max_len: int,
         a_out, (k, v) = attention_train(lp["attn"],
                                         _norm(cfg, lp["ln_attn"], x),
                                         causal=True, return_kv=True, **ak)
-        cache.kv.k[i][:, slots] = k[:, keep].to(cache_dtype)
-        cache.kv.v[i][:, slots] = v[:, keep].to(cache_dtype)
+        kv_i = layer_kv(cache.kv, i)
+        if kv_i.k.dtype == torch.int8:
+            for (codes, scale), new in (((kv_i.k, kv_i.k_scale), k),
+                                        ((kv_i.v, kv_i.v_scale), v)):
+                codes[:, slots], scale[:, slots] = q8(new[:, keep])
+        else:
+            kv_i.k[:, slots] = k[:, keep].to(cache_dtype)
+            kv_i.v[:, slots] = v[:, keep].to(cache_dtype)
         x = x + a_out
         x = x + mlp(lp["mlp"], _norm(cfg, lp["ln_mlp"], x),
                     activation=cfg.activation)

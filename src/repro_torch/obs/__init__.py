@@ -24,8 +24,8 @@ lifecycle: TTFT/TPOT histograms, slot/queue gauges, admission/eviction
 counters), ``repro_plan_*`` (executor tasks/retries/stragglers) and
 ``repro_kernel_*`` (dequant dispatch + modeled HBM weight traffic,
 reconciled against ``benchmarks/check_bytes.py``'s accounting by
-``benchmarks/check_obs.py``).  The quality half of the reference's
-``obs`` (``drift``, ``slo``, ``streamsig``) comes with ``serve/quality``.
+``benchmarks/check_obs.py``).  The quality half (``drift``, ``slo``,
+``streamsig``) serves ``serve/quality``.
 """
 from __future__ import annotations
 

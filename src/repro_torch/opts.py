@@ -1,0 +1,32 @@
+"""Beyond-baseline optimization flags (port of ``repro/opts.py``).
+
+Optimizations are opt-in through the same ``REPRO_OPTS`` variable the
+reference reads (comma-separated), so one environment drives both
+packages the same way:
+
+    REPRO_OPTS=int8_kv python -m repro_torch.launch.serve ...
+
+Flags the port reads:
+  int8_kv — decode KV caches stored int8 with exact per-(position, head)
+            scales (``models.init_cache``, ``layers.attention_decode``).
+
+The reference's other flags (``parallel_prefill``, ``kv_seq_shard``,
+``flat_remat``, ``moe_bf16_dispatch``, ``seq_shard_train``) belong to
+families and the multi-device slice that the port has not reached; the
+parser accepts them and nothing reads them yet.
+"""
+from __future__ import annotations
+
+import os
+from typing import FrozenSet
+
+__all__ = ["enabled", "all_enabled"]
+
+
+def all_enabled() -> FrozenSet[str]:
+    raw = os.environ.get("REPRO_OPTS", "")
+    return frozenset(x.strip() for x in raw.split(",") if x.strip())
+
+
+def enabled(name: str) -> bool:
+    return name in all_enabled()

@@ -1,10 +1,9 @@
 """Engine-construction config (port of ``repro/serve/config.py``).
 
-One frozen :class:`EngineConfig` carries the scheduler geometry and the
-decode-fn injection for either engine; :func:`resolve_engine_config` is
-the single shim that turns legacy per-option kwargs into one.  The
-``resilience``, ``quality`` and ``requant`` subsystems are later slices of
-the port: the fields exist, and setting one raises.
+One frozen :class:`EngineConfig` carries the scheduler geometry, the
+decode-fn injection and the optional resilience / quality / requant
+subsystems for either engine; :func:`resolve_engine_config` is the single
+shim that turns legacy per-option kwargs into one.
 """
 from __future__ import annotations
 
@@ -13,6 +12,10 @@ import warnings
 from typing import Any, Callable, Optional
 
 import torch
+
+from .quality import QualityMonitor
+from .requant import RequantConfig
+from .resilience import ResilienceConfig
 
 __all__ = ["EngineConfig", "resolve_engine_config"]
 
@@ -24,7 +27,9 @@ class EngineConfig:
     ``decode_fn``/``decode_chunk_fn`` inject dispatch functions with the
     signature ``fn(params, cache, tokens)``; None uses the model's
     ``decode_step``/``decode_chunk``.  ``reset_on_evict`` is
-    continuous-engine only.
+    continuous-engine only.  The three subsystem fields carry
+    fully-constructed configs/monitors — None disables each subsystem
+    with one ``is None`` test on the hot path.
     """
 
     n_slots: int = 4
@@ -34,16 +39,9 @@ class EngineConfig:
     decode_fn: Optional[Callable] = None
     decode_chunk_fn: Optional[Callable] = None
     reset_on_evict: bool = False
-    resilience: Any = None
-    quality: Any = None
-    requant: Any = None
-
-    def __post_init__(self):
-        for name in ("resilience", "quality", "requant"):
-            if getattr(self, name) is not None:
-                raise NotImplementedError(
-                    f"EngineConfig.{name}: the {name} subsystem is not ported "
-                    "yet (ROADMAP item 10)")
+    resilience: Optional[ResilienceConfig] = None
+    quality: Optional[QualityMonitor] = None
+    requant: Optional[RequantConfig] = None
 
 
 _CONFIG_KEYS = frozenset(f.name for f in dataclasses.fields(EngineConfig))

@@ -23,9 +23,29 @@ engines record the reference's spans (``serve.prefill``, ``serve.decode``,
 gauges and TTFT/TPOT histograms under the same names and labels, made
 from the same perf_counter stamps as the stats, and charge every forward
 dispatch its modeled weight traffic (``record_weight_traffic``).  Off, it
-is one boolean test per site and the streams are unchanged.  The
-reference's chaos, resilience, quality, requant and snapshot hooks are
-later slices of the port and are left out here.
+is one boolean test per site and the streams are unchanged.
+
+Resilience (DESIGN.md §12): ``EngineConfig(resilience=ResilienceConfig(
+...))`` enables per-request deadlines on the monotonic clock, a bounded
+queue with load shedding, transient-dispatch retry
+(``dist.fault.RestartPolicy``), payload checksums with exact in-place
+healing (``serve.resilience.PayloadGuard``), queue-pressure degradation
+down the bit ladder (a tree swap at a step boundary; the KV cache is
+format-independent) and periodic snapshots through ``dist.checkpoint``
+(``ContinuousEngine.resume``).  The chaos hooks (``repro_torch.chaos``)
+sit at serve.step / serve.admit / serve.decode (continuous) and
+serve.round (static), each behind one ``chaos.enabled()`` test, and fire
+before the engine writes any state for that step: the decode writes the
+KV cache in place, and a retried dispatch rewrites the same rows with the
+same values, so recovered streams equal the fault-free run's.  A quality
+monitor (``EngineConfig(quality=...)``) samples after each step and a
+requant actuator (``attach_requant``) is polled after it, both only with
+obs on.  With every subsystem off each branch is one ``is None`` /
+``enabled()`` test and the streams are unchanged.
+
+Tree swaps (degradation, requant) rebuild the per-layer views the decode
+reads (``_step_params``); payload corruption and healing write the codes
+tensors in place, which those views share.
 
 The engines run on the device of ``params`` (the embedding's device).
 """
@@ -39,28 +59,21 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from repro_torch import obs
+from repro_torch import chaos, obs
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.dequant.ops import (record_weight_traffic,
                                              weight_format_bytes)
-from repro_torch.models import (cache_reset_slot, cache_write_slot,
-                                decode_chunk, decode_step, init_cache,
-                                split_layers)
+from repro_torch.models import (cache_reset_slot, cache_rows,
+                                cache_write_slot, decode_chunk, decode_step,
+                                init_cache, split_layers)
 from repro_torch.quant import leaf_format_histogram, qweight_bytes
 from repro_torch.serve.config import EngineConfig, resolve_engine_config
+from repro_torch.serve.resilience import (EngineStalledError, PayloadGuard,
+                                          ResilienceConfig)
 
 __all__ = ["Request", "RoundStats", "StepStats", "ServeEngine",
-           "ContinuousEngine", "EngineStalledError", "EngineConfig"]
-
-
-class EngineStalledError(RuntimeError):
-    """``run_until_done`` ran out of steps with work still pending."""
-
-    def __init__(self, max_steps, stuck, queued):
-        self.max_steps, self.stuck, self.queued = max_steps, stuck, queued
-        super().__init__(
-            f"engine stalled after {max_steps} steps: {queued} queued, "
-            f"stuck slots (slot, rid, emitted, budget) = {stuck}")
+           "ContinuousEngine", "EngineStalledError", "EngineConfig",
+           "ResilienceConfig"]
 
 
 @dataclasses.dataclass
@@ -73,6 +86,12 @@ class Request:
     arrival_s: Optional[float] = None      # set by submit() if unset
     first_token_s: Optional[float] = None  # first output token materialized
     finish_s: Optional[float] = None       # budget filled
+    # resilience (DESIGN.md §12)
+    deadline_s: Optional[float] = None     # seconds from arrival; expiry is
+                                           # measured on the MONOTONIC clock
+    arrival_mono: Optional[float] = None   # monotonic arrival (deadline base)
+    dropped: bool = False                  # shed or deadline-expired
+    drop_reason: Optional[str] = None      # "shed-queue-full" | "deadline"
 
     @property
     def ttft_s(self) -> Optional[float]:
@@ -152,12 +171,13 @@ def _run_prefill(decode_fn, decode_chunk_fn, params, cache,
 
 
 class _EngineBase:
-    """Construction and observability shared by both engines.
+    """Construction, observability and resilience shared by both engines.
 
     ``_format_bytes`` lazily caches the tree's per-format stored bytes
     (the ``quant.leaf_inventory`` grouping) so each device dispatch can be
     charged its modeled weight read; every obs hook is one
-    ``obs.enabled()`` test when disabled."""
+    ``obs.enabled()`` test when disabled, every resilience branch one
+    ``is None`` test."""
 
     _obs_engine = "?"
     _fmt_bytes = None
@@ -167,41 +187,23 @@ class _EngineBase:
             self._fmt_bytes = weight_format_bytes(self.params)
         return self._fmt_bytes
 
-    def _obs_arrival(self, req: "Request") -> None:
-        if obs.enabled():
-            obs.instant("serve.request.arrival", rid=req.rid,
-                        engine=self._obs_engine)
-            obs.gauge("repro_serve_queue_depth",
-                      engine=self._obs_engine).set(len(self.queue))
-
-    def _obs_request_done(self, req: "Request", slot=None) -> None:
-        kw = {} if slot is None else {"slot": int(slot)}
-        obs.instant("serve.request.finish", rid=req.rid,
-                    engine=self._obs_engine, **kw)
-        obs.counter("repro_serve_finished_total",
-                    engine=self._obs_engine).inc()
-        if req.ttft_s is not None:
-            obs.histogram("repro_serve_ttft_seconds",
-                          engine=self._obs_engine).observe(req.ttft_s)
-        if req.tpot_s is not None:
-            obs.histogram("repro_serve_tpot_seconds",
-                          engine=self._obs_engine).observe(req.tpot_s)
-
     def _setup(self, cfg: ArchConfig, params, config: EngineConfig):
         self.config = config
         self.cfg = cfg
         self.params = params
-        # per-layer views cut once, not on every decode step
-        self._step_params = split_layers(params)
         self.device = params["embed"]["w"].device
         self.n_slots = config.n_slots
         self.max_len = config.max_len
         self.cache_dtype = config.cache_dtype
         self.prefill_chunk = config.prefill_chunk
+        self._quality = config.quality   # optional serve.quality monitor
         self.queue: deque = deque()
+        self._init_resilience(config.resilience)  # may swap params to rung 0
+        # per-layer views cut once, not on every decode step
+        self._step_params = split_layers(self.params)
         # realized weight bytes vs bf16 and the per-leaf format mix
-        self.weight_bytes, self.weight_bytes_bf16 = qweight_bytes(params)
-        self.weight_formats = leaf_format_histogram(params)
+        self.weight_bytes, self.weight_bytes_bf16 = qweight_bytes(self.params)
+        self.weight_formats = leaf_format_histogram(self.params)
         self._decode = config.decode_fn or (
             lambda p, c, tok: decode_step(cfg, p, c, tok))
         self._decode_chunk = config.decode_chunk_fn or (
@@ -216,6 +218,269 @@ class _EngineBase:
                             self._step_params, cache, prompts,
                             self.prefill_chunk, self.device)
 
+    # -- resilience (DESIGN.md §12) ----------------------------------------
+
+    def _init_resilience(self, resilience: Optional[ResilienceConfig]):
+        """Wire the optional resilience layer; runs after ``self.params``
+        is set and BEFORE the weight accounting (a degradation ladder's
+        rung 0 replaces the constructor's params)."""
+        self.resilience = resilience
+        self.dropped: List[Request] = []    # shed + deadline-expired
+        self.slow_steps = 0                 # detector flags (host counter)
+        self._clock_skew_s = 0.0            # chaos clock-skew lands here
+        self._tick = 0                      # step/round index (1-based)
+        self._guard: Optional[PayloadGuard] = None
+        self._detector = None
+        self._rung = 0
+        self._streak_over = 0
+        self._streak_under = 0
+        self._degrade_cooldown = 0
+        self.rung_history: List[tuple] = []  # [(tick, rung name, direction)]
+        # hot-swap state (DESIGN.md §15): a staged tree applied at the next
+        # step boundary + an optional requant actuator bound afterwards
+        self._pending_swap: Optional[tuple] = None     # (tree, reason)
+        self.swap_history: List[tuple] = []            # [(tick, reason)]
+        self.requant = None
+        if resilience is None:
+            return
+        self._detector = resilience.make_detector()
+        if resilience.degrade is not None:
+            # the engine serves rung 0 of the ladder from the start
+            name, tree = resilience.degrade.ladder[0]
+            self.params = tree
+            self.rung_history.append((0, name, "init"))
+        if resilience.integrity_every:
+            self._guard = PayloadGuard(self.params)
+
+    def _now(self) -> float:
+        """Wall-clock stamp source for stats/latency accounting:
+        perf_counter plus the chaos clock-skew offset (skew-vulnerable BY
+        DESIGN, so the clock-skew fault visibly lands in the stats clock
+        while deadlines, which ride ``time.monotonic``, never see it)."""
+        return time.perf_counter() + self._clock_skew_s
+
+    def _submit_common(self, req: Request) -> bool:
+        """Arrival stamping + deadline default + load shedding.  Returns
+        False (and records the drop) when the bounded queue is full; the
+        caller must not enqueue in that case."""
+        if req.arrival_s is None:
+            req.arrival_s = self._now()
+        if req.arrival_mono is None:
+            req.arrival_mono = time.monotonic()
+        res = self.resilience
+        if res is not None:
+            if req.deadline_s is None:
+                req.deadline_s = res.default_deadline_s
+            if res.queue_cap is not None and len(self.queue) >= res.queue_cap:
+                self._drop(req, "shed-queue-full")
+                return False
+        return True
+
+    def _drop(self, req: Request, reason: str, slot=None) -> None:
+        """Record a shed/expired request — reported, never silent."""
+        req.dropped = True
+        req.drop_reason = reason
+        self.dropped.append(req)
+        if obs.enabled():
+            kw = {} if slot is None else {"slot": int(slot)}
+            obs.instant("serve.request.dropped", rid=req.rid, reason=reason,
+                        engine=self._obs_engine, **kw)
+            obs.counter("repro_serve_dropped_total", reason=reason,
+                        engine=self._obs_engine).inc()
+
+    def _deadline_expired(self, req: Request, now_mono: float) -> bool:
+        return (req.deadline_s is not None
+                and req.arrival_mono is not None
+                and now_mono - req.arrival_mono > req.deadline_s)
+
+    def _expire_queue(self) -> None:
+        """Drop queued requests whose deadline passed (before admission:
+        prefilling a request that can no longer finish in time is the
+        worst way to spend a dispatch)."""
+        if self.resilience is None or not self.queue:
+            return
+        now_mono = time.monotonic()
+        keep: deque = deque()
+        for r in self.queue:
+            if self._deadline_expired(r, now_mono):
+                self._drop(r, "deadline")
+            else:
+                keep.append(r)
+        self.queue = keep
+
+    def _retry(self, site: str, fn):
+        """Run ``fn`` under the transient-retry policy (fail fast if none).
+        Only the configured transient types (``chaos.InjectedFault`` plus
+        ``ResilienceConfig.transient``) are retried; anything else — and
+        transient faults past the restart budget — propagates."""
+        res = self.resilience
+        if res is None or res.retry is None:
+            return fn()
+        policy = res.retry
+        transient = res.transient_types()
+        failures = 0
+        while True:
+            try:
+                out = fn()
+            except transient as e:
+                delay = policy.next_delay()
+                if delay is None:
+                    raise
+                failures += 1
+                if obs.enabled():
+                    obs.instant("resilience.retry", site=site,
+                                engine=self._obs_engine, delay_s=delay,
+                                error=type(e).__name__)
+                    obs.counter("repro_serve_retries_total", site=site,
+                                engine=self._obs_engine).inc()
+                res.retry_sleep(delay)
+            else:
+                policy.record_success()
+                if failures and obs.enabled():
+                    obs.counter("repro_serve_recovered_total", site=site,
+                                engine=self._obs_engine).inc()
+                return out
+
+    def _verify_integrity(self) -> None:
+        """Checksum the serving payloads; heal exact bytes on mismatch."""
+        res = self.resilience
+        if self._guard is None or self._tick % res.integrity_every != 0:
+            return
+        corrupted = self._guard.verify(self.params)
+        if not corrupted:
+            return
+        t0 = time.perf_counter()
+        self.params = self._guard.heal(self.params, corrupted)
+        t1 = time.perf_counter()
+        if obs.enabled():
+            obs.complete("resilience.heal", t0, t1, engine=self._obs_engine,
+                         paths=list(corrupted))
+            obs.counter("repro_serve_integrity_corrupt_total",
+                        engine=self._obs_engine).inc(len(corrupted))
+            obs.counter("repro_serve_integrity_healed_total",
+                        engine=self._obs_engine).inc(len(corrupted))
+
+    def _maybe_degrade(self) -> None:
+        """Watermark ladder walk: sustained overload → one rung down,
+        sustained calm → one rung up (never past either end)."""
+        res = self.resilience
+        pol = res.degrade if res is not None else None
+        if pol is None:
+            return
+        depth = len(self.queue)
+        if depth >= pol.high_watermark:
+            self._streak_over += 1
+            self._streak_under = 0
+        elif depth <= pol.low_watermark:
+            self._streak_under += 1
+            self._streak_over = 0
+        else:
+            self._streak_over = self._streak_under = 0
+        if self._degrade_cooldown > 0:
+            self._degrade_cooldown -= 1
+            return
+        if self._streak_over >= pol.streak and self._rung < len(pol.ladder) - 1:
+            self._set_rung(self._rung + 1, "down", depth)
+        elif self._streak_under >= pol.streak and self._rung > 0:
+            self._set_rung(self._rung - 1, "up", depth)
+
+    def _set_rung(self, rung: int, direction: str, depth: int) -> None:
+        """Hot-swap the tree to ladder rung ``rung`` at a step boundary
+        (the KV cache is weight-format-independent: in-flight slots keep
+        decoding)."""
+        pol = self.resilience.degrade
+        name, tree = pol.ladder[rung]
+        self._rung = rung
+        self._swap_tree(tree, reason=f"degrade:{name}")
+        self._degrade_cooldown = pol.cooldown_steps
+        self._streak_over = self._streak_under = 0
+        self.rung_history.append((self._tick, name, direction))
+        if obs.enabled():
+            obs.instant("resilience.degrade", engine=self._obs_engine,
+                        rung=name, direction=direction, queue_depth=depth)
+            obs.counter("repro_serve_degrade_total", engine=self._obs_engine,
+                        direction=direction).inc()
+
+    # -- generic hot-swap (DESIGN.md §15) -----------------------------------
+
+    def request_swap(self, tree, *, reason: str = "requant") -> None:
+        """Stage a new served tree, applied at the NEXT step boundary —
+        never mid-step.  A second request before the boundary replaces
+        the first (last writer wins)."""
+        self._pending_swap = (tree, reason)
+
+    def _apply_pending_swap(self) -> None:
+        if self._pending_swap is None:
+            return
+        tree, reason = self._pending_swap
+        self._pending_swap = None
+        self._swap_tree(tree, reason=reason)
+
+    def _swap_tree(self, tree, *, reason: str) -> None:
+        """Swap the served tree (degradation and requant): rebuilds the
+        per-layer views the decode reads, refreshes byte/format
+        accounting, REBASELINES the integrity guard on the new pristine
+        payloads and tells the quality monitor, whose cached expected
+        distortions belong to the old codes."""
+        self.params = tree
+        self._step_params = split_layers(tree)
+        self._fmt_bytes = None
+        self.weight_bytes, self.weight_bytes_bf16 = qweight_bytes(tree)
+        self.weight_formats = leaf_format_histogram(tree)
+        if self._guard is not None:
+            self._guard = PayloadGuard(tree)
+        self.swap_history.append((self._tick, reason))
+        if self._quality is not None:
+            hook = getattr(self._quality, "on_swap", None)
+            if hook is not None:
+                hook(reason=reason)
+        if obs.enabled():
+            obs.instant("serve.swap", engine=self._obs_engine, reason=reason,
+                        tick=self._tick)
+            obs.counter("repro_serve_swaps_total",
+                        engine=self._obs_engine).inc()
+
+    def attach_requant(self, actuator) -> None:
+        """Bind a ``serve.requant`` actuator; the engine polls it once
+        per step after quality sampling, behind the same obs gate."""
+        self.requant = actuator
+
+    def _poll_requant(self) -> None:
+        if self.requant is not None and self._quality is not None \
+                and obs.enabled():
+            self.requant.poll(self)
+
+    def _observe_step_time(self, dt: float) -> None:
+        if self._detector is not None and self._detector.observe(dt):
+            self.slow_steps += 1
+            if obs.enabled():
+                obs.instant("resilience.slow_step", engine=self._obs_engine,
+                            step_s=dt)
+                obs.counter("repro_serve_slow_steps_total",
+                            engine=self._obs_engine).inc()
+
+    # -- observability (DESIGN.md §11) --------------------------------------
+
+    def _obs_arrival(self, req: Request) -> None:
+        if obs.enabled():
+            obs.instant("serve.request.arrival", rid=req.rid,
+                        engine=self._obs_engine)
+            obs.gauge("repro_serve_queue_depth",
+                      engine=self._obs_engine).set(len(self.queue))
+
+    def _obs_request_done(self, req: Request, slot=None) -> None:
+        kw = {} if slot is None else {"slot": int(slot)}
+        obs.instant("serve.request.finish", rid=req.rid,
+                    engine=self._obs_engine, **kw)
+        obs.counter("repro_serve_finished_total",
+                    engine=self._obs_engine).inc()
+        if req.ttft_s is not None:
+            obs.histogram("repro_serve_ttft_seconds",
+                          engine=self._obs_engine).observe(req.ttft_s)
+        if req.tpot_s is not None:
+            obs.histogram("repro_serve_tpot_seconds",
+                          engine=self._obs_engine).observe(req.tpot_s)
+
 
 class ServeEngine(_EngineBase):
     """Static-batching rounds — the reference scheduler."""
@@ -229,8 +494,8 @@ class ServeEngine(_EngineBase):
         self.round_stats: List[RoundStats] = []
 
     def submit(self, req: Request) -> bool:
-        if req.arrival_s is None:
-            req.arrival_s = time.perf_counter()
+        if not self._submit_common(req):
+            return False
         self.queue.append(req)
         self._obs_arrival(req)
         return True
@@ -253,6 +518,17 @@ class ServeEngine(_EngineBase):
 
     def run_round(self) -> List[Request]:
         """One static-batching round; returns the finished requests."""
+        self._tick += 1
+        self._apply_pending_swap()      # round boundary: a staged tree lands
+        if chaos.enabled():
+            # the static engine's one hook site; nothing is admitted yet,
+            # so a retry is trivially safe
+            self._retry("serve.round",
+                        lambda: chaos.fire("serve.round", engine=self))
+        if self.resilience is not None:
+            self._verify_integrity()
+            self._expire_queue()
+            self._maybe_degrade()
         batch = self._admit()
         if not batch:
             return []
@@ -264,16 +540,16 @@ class ServeEngine(_EngineBase):
                              f"cache holds {self.max_len}")
         cache = self._fresh_cache(b)
         prompts = np.stack([r.prompt for r in batch]).astype(np.int32)
-        t0 = time.perf_counter()
+        t0 = self._now()
         logits, cache, prefill_calls = self._prefill(cache, prompts)
         _sync(logits)
-        t1 = time.perf_counter()
+        t1 = self._now()
         last = _greedy(logits)
         # budget-exact generation: each request stops at its own budget,
         # and the round issues exactly max(budget) - 1 decode calls
         decode_steps = 0
         while True:
-            t_tok = time.perf_counter()
+            t_tok = self._now()
             for i, r in enumerate(batch):
                 if len(r.out_tokens) < r.max_new_tokens:
                     r.out_tokens.append(int(last[i]))
@@ -288,7 +564,7 @@ class ServeEngine(_EngineBase):
                                   device=self.device)
             logits, cache = self._decode(self._step_params, cache, tok)
             last = _greedy(logits)
-        t2 = time.perf_counter()
+        t2 = self._now()
         st = RoundStats(
             batch=b, prompt_len=plen, prefill_calls=prefill_calls,
             prefill_s=t1 - t0, decode_calls=decode_steps, decode_s=t2 - t1,
@@ -315,6 +591,12 @@ class ServeEngine(_EngineBase):
                                   st.prefill_calls + st.decode_calls)
         for r in batch:
             r.done = True
+        self._observe_step_time(t2 - t0)
+        if self._quality is not None and obs.enabled():
+            # quality sampling (DESIGN.md §14): only with obs on AND a
+            # monitor attached, so the default path is unchanged
+            self._quality.observe_step(self, t2 - t0, batch)
+        self._poll_requant()
         return batch
 
     def run_until_done(self, max_rounds: int = 1000) -> List[Request]:
@@ -356,8 +638,8 @@ class ContinuousEngine(_EngineBase):
         if len(req.prompt) + req.max_new_tokens > self.max_len:
             raise ValueError(f"request {req.rid} exceeds cache length "
                              f"{self.max_len}")
-        if req.arrival_s is None:
-            req.arrival_s = time.perf_counter()
+        if not self._submit_common(req):
+            return False
         self.queue.append(req)
         self._obs_arrival(req)
         return True
@@ -375,13 +657,13 @@ class ContinuousEngine(_EngineBase):
         g = len(pairs)
         reqs = [r for _, r in pairs]
         common = min(len(r.prompt) for r in reqs)
-        t0 = time.perf_counter()
+        t0 = self._now()
         sub = self._fresh_cache(g)
         toks = np.stack([np.asarray(r.prompt[:common], np.int32)
                          for r in reqs])
         logits, sub, calls = self._prefill(sub, toks)
         _sync(logits)
-        t1 = time.perf_counter()
+        t1 = self._now()
         self.prefill_s += t1 - t0
         obs.complete("serve.prefill", t0, t1, engine="continuous",
                      slots=[s for s, _ in pairs], calls=calls,
@@ -390,15 +672,14 @@ class ContinuousEngine(_EngineBase):
             if g == 1:
                 sub_i, log_i = sub, logits
             else:
-                sub_i = sub._replace(kv=type(sub.kv)(
-                    *(t[:, i:i + 1] for t in sub.kv)))
+                sub_i = cache_rows(sub, i)
                 log_i = logits[i:i + 1]
             tail = np.asarray(req.prompt[common:], np.int32)
             if tail.size:
-                t_tail = time.perf_counter()
+                t_tail = self._now()
                 log_i, sub_i, c_tail = self._prefill(sub_i, tail[None, :])
                 _sync(log_i)
-                t_tail_end = time.perf_counter()
+                t_tail_end = self._now()
                 self.prefill_s += t_tail_end - t_tail
                 obs.complete("serve.prefill", t_tail, t_tail_end,
                              engine="continuous", slot=slot, rid=req.rid,
@@ -406,7 +687,7 @@ class ContinuousEngine(_EngineBase):
                 calls += c_tail
             first = int(_greedy(log_i)[0])
             self.cache = cache_write_slot(self.cache, sub_i, slot)
-            t_tok = time.perf_counter()
+            t_tok = self._now()
             req.first_token_s = t_tok
             req.out_tokens.append(first)
             self.slots[slot] = req
@@ -428,26 +709,73 @@ class ContinuousEngine(_EngineBase):
                         engine="continuous").inc(g)
             record_weight_traffic(self._format_bytes(), calls)
 
-    def _finish(self, slot: int, req: Request, t: float,
-                finished: List[Request]) -> None:
-        req.done = True
-        req.finish_s = t
+    def _free_slot(self, slot: int) -> None:
         self.slots[slot] = None
         self._last[slot] = 0
         if self.reset_on_evict:
             # optional hygiene: the next graft overwrites the row anyway
             self.cache = cache_reset_slot(self.cache, slot)
+
+    def _finish(self, slot: int, req: Request, t: float,
+                finished: List[Request]) -> None:
+        req.done = True
+        req.finish_s = t
+        self._free_slot(slot)
         self.finished.append(req)
         finished.append(req)
         if obs.enabled():
             obs.counter("repro_serve_evicted_total").inc()
             self._obs_request_done(req, slot=slot)
 
+    def _expire_slots(self) -> None:
+        """Cancel in-flight requests whose deadline passed; free the slot
+        (its stale row is handled exactly like an eviction's)."""
+        now_mono = time.monotonic()
+        for i, r in enumerate(self.slots):
+            if r is not None and self._deadline_expired(r, now_mono):
+                self._free_slot(i)
+                self._drop(r, "deadline", slot=i)
+
+    def _admit_burst(self, pairs, finished: List[Request]) -> None:
+        """Chaos-hooked admission entry: the admission-failure fault fires
+        here, BEFORE any prefill/graft state write, so a retry replays the
+        identical burst."""
+        if chaos.enabled():
+            chaos.fire("serve.admit", engine=self)
+        self._admit_many(pairs, finished)
+
+    def _decode_dispatch(self):
+        """Chaos-hooked decode entry (device-loss / slow-step site).
+
+        The fault fires before the decode writes this step's K/V rows into
+        the cache; a retried decode recomputes from the same params,
+        tokens and positions and rewrites the same rows with the same
+        values, so the retry is exact."""
+        if chaos.enabled():
+            chaos.fire("serve.decode", engine=self)
+        tok = torch.as_tensor(self._last[:, None], dtype=torch.long,
+                              device=self.device)
+        return self._decode(self._step_params, self.cache, tok)
+
     def step(self) -> List[Request]:
         """One scheduler iteration: admit → lockstep decode → evict.
-        Returns the requests that finished during this step."""
+
+        Returns the requests that finished during this step.  With
+        resilience configured the step also fires the serve.step chaos
+        hook, heals corrupted payloads, expires deadlined requests
+        (queued and in-flight), walks the degradation ladder, retries
+        transient admission/decode faults and snapshots periodically."""
         finished: List[Request] = []
-        t0 = time.perf_counter()
+        self._tick += 1
+        self._apply_pending_swap()      # step boundary: a staged tree lands
+        t0 = self._now()
+        if chaos.enabled():
+            chaos.fire("serve.step", engine=self)
+        if self.resilience is not None:
+            self._verify_integrity()
+            self._expire_queue()
+            self._expire_slots()
+            self._maybe_degrade()
         pairs = []
         while self.queue and None in self.slots:
             slot = self.slots.index(None)
@@ -456,17 +784,29 @@ class ContinuousEngine(_EngineBase):
             pairs.append((slot, req))
         admitted = len(pairs)
         if pairs:
-            self._admit_many(pairs, finished)
+            try:
+                self._retry("serve.admit",
+                            lambda: self._admit_burst(pairs, finished))
+            except BaseException:
+                # retry budget exhausted (or not transient): un-reserve the
+                # untouched requests and put them back at the FRONT of the
+                # queue in arrival order, so nothing is silently lost (an
+                # injected fault fires before _admit_many writes anything)
+                for slot, req in pairs:
+                    if self.slots[slot] is req and not req.out_tokens:
+                        self.slots[slot] = None
+                for slot, req in reversed(pairs):
+                    if not req.out_tokens and not req.dropped:
+                        self.queue.appendleft(req)
+                raise
         active = [i for i, r in enumerate(self.slots) if r is not None]
         decoded = 0
         if active:
-            td = time.perf_counter()
-            tok = torch.as_tensor(self._last[:, None], dtype=torch.long,
-                                  device=self.device)
-            logits, self.cache = self._decode(self._step_params, self.cache,
-                                              tok)
+            td = self._now()
+            logits, self.cache = self._retry("serve.decode",
+                                             self._decode_dispatch)
             last = _greedy(logits)
-            t_tok = time.perf_counter()
+            t_tok = self._now()
             self.decode_calls += 1
             self.decode_s += t_tok - td
             obs.complete("serve.decode", td, t_tok, engine="continuous",
@@ -478,7 +818,7 @@ class ContinuousEngine(_EngineBase):
                 decoded += 1
                 if len(r.out_tokens) >= r.max_new_tokens:
                     self._finish(i, r, t_tok, finished)
-        t_end = time.perf_counter()
+        t_end = self._now()
         self.step_stats.append(StepStats(
             active=len(active), admitted=admitted, finished=len(finished),
             new_tokens=admitted + decoded, step_s=t_end - t0))
@@ -494,11 +834,141 @@ class ContinuousEngine(_EngineBase):
                       engine="continuous").set(len(self.queue))
             if active:
                 record_weight_traffic(self._format_bytes(), 1)
+        self._observe_step_time(t_end - t0)
+        if self._quality is not None and obs.enabled():
+            # quality sampling (DESIGN.md §14): only with obs on AND a
+            # monitor attached, so the default path is unchanged
+            self._quality.observe_step(self, t_end - t0, self.slots)
+        self._poll_requant()
+        res = self.resilience
+        if (res is not None and res.snapshot_every and res.snapshot_dir
+                and self._tick % res.snapshot_every == 0):
+            self.snapshot(res.snapshot_dir)
         return finished
 
+    # -- snapshot / resume (DESIGN.md §12) ----------------------------------
+
+    @staticmethod
+    def _req_record(r: Request) -> dict:
+        """JSON-portable request record for the snapshot manifest."""
+        return {"rid": r.rid,
+                "prompt": np.asarray(r.prompt).tolist(),
+                "max_new_tokens": r.max_new_tokens,
+                "out_tokens": list(r.out_tokens),
+                "deadline_s": r.deadline_s,
+                "arrival_s": r.arrival_s,
+                "first_token_s": r.first_token_s}
+
+    def snapshot(self, ckpt_dir: str, *, keep: Optional[int] = None) -> str:
+        """Write a crash-consistent engine snapshot via ``dist.checkpoint``.
+
+        Device state (slot cache, int8 scales included, and the next-token
+        vector) is brought to the host into the checkpoint payload; host
+        scheduler state (slot/queue request records, tick, rung) rides the
+        manifest's ``extra_meta`` JSON.  The write is atomic, so a kill at
+        any moment leaves the last committed snapshot restorable."""
+        from repro_torch.dist.checkpoint import save_checkpoint
+        res = self.resilience
+        if keep is None:
+            keep = res.snapshot_keep if res is not None else 3
+        state = {"cache": self.cache, "last": np.asarray(self._last)}
+        meta = {
+            "engine": {"n_slots": self.n_slots, "max_len": self.max_len,
+                       "prefill_chunk": self.prefill_chunk,
+                       "reset_on_evict": self.reset_on_evict,
+                       "tick": self._tick, "rung": self._rung},
+            "slots": [None if r is None else self._req_record(r)
+                      for r in self.slots],
+            "queue": [self._req_record(r) for r in self.queue],
+        }
+        t0 = time.perf_counter()
+        path = save_checkpoint(ckpt_dir, self._tick, state, keep=keep,
+                               extra_meta=meta)
+        t1 = time.perf_counter()
+        if obs.enabled():
+            obs.complete("resilience.snapshot", t0, t1, engine="continuous",
+                         step=self._tick, path=str(path))
+            obs.counter("repro_serve_snapshots_total",
+                        engine="continuous").inc()
+        return str(path)
+
+    @classmethod
+    def resume(cls, ckpt_dir: str, cfg: ArchConfig, params, *,
+               step: Optional[int] = None,
+               config: Optional[EngineConfig] = None,
+               **kwargs) -> "ContinuousEngine":
+        """Rebuild an engine from the latest (or ``step``-th) snapshot.
+
+        ``params`` must be the serving tree the snapshotting engine held
+        (weights are not in the snapshot).  Scheduler state — slot
+        assignments, partial token streams, queue order, tick — and the
+        cache come back exactly: the fresh engine's cache is the restore
+        template, so every leaf lands in a new buffer of its dtype on the
+        engine's device.
+        Deadline clocks restart at resume (``time.monotonic`` is
+        process-local)."""
+        from repro_torch.dist.checkpoint import (read_manifest,
+                                                 restore_checkpoint)
+        manifest = read_manifest(ckpt_dir, step=step)
+        meta = manifest["meta"]
+        em = meta["engine"]
+        if config is not None:
+            if kwargs:
+                raise TypeError("resume: pass either config=EngineConfig"
+                                "(...) or legacy kwargs, not both "
+                                f"(got {sorted(kwargs)})")
+        else:
+            # legacy-kwarg path: the snapshot's geometry fills the gaps
+            kwargs.setdefault("n_slots", em["n_slots"])
+            kwargs.setdefault("max_len", em["max_len"])
+            kwargs.setdefault("prefill_chunk", em.get("prefill_chunk"))
+            kwargs.setdefault("reset_on_evict",
+                              em.get("reset_on_evict", False))
+            config = EngineConfig(**kwargs)
+        eng = cls(cfg, params, config=config)
+        if eng.n_slots != em["n_slots"] or eng.max_len != em["max_len"]:
+            raise ValueError(
+                f"snapshot geometry (n_slots={em['n_slots']}, "
+                f"max_len={em['max_len']}) does not match the engine "
+                f"(n_slots={eng.n_slots}, max_len={eng.max_len})")
+        template = {"cache": eng.cache, "last": np.asarray(eng._last)}
+        state, _ = restore_checkpoint(ckpt_dir, template,
+                                      step=manifest["step"])
+        eng.cache = state["cache"]
+        eng._last = np.asarray(state["last"]).astype(np.int32)
+
+        now_mono = time.monotonic()
+
+        def revive(rec: dict) -> Request:
+            req = Request(rid=rec["rid"],
+                          prompt=np.asarray(rec["prompt"], np.int32),
+                          max_new_tokens=rec["max_new_tokens"],
+                          out_tokens=list(rec["out_tokens"]),
+                          deadline_s=rec.get("deadline_s"))
+            req.arrival_s = rec.get("arrival_s")
+            req.first_token_s = rec.get("first_token_s")
+            req.arrival_mono = now_mono
+            return req
+
+        eng.slots = [None if rec is None else revive(rec)
+                     for rec in meta["slots"]]
+        eng.queue = deque(revive(rec) for rec in meta["queue"])
+        eng._tick = em["tick"]
+        rung = em.get("rung", 0)
+        if rung and eng.resilience is not None \
+                and eng.resilience.degrade is not None:
+            eng._set_rung(rung, "resume", len(eng.queue))
+        if obs.enabled():
+            obs.instant("resilience.resume", engine="continuous",
+                        step=em["tick"], slots=sum(
+                            1 for r in eng.slots if r is not None),
+                        queued=len(eng.queue))
+        return eng
+
     def run_until_done(self, max_steps: int = 100_000) -> List[Request]:
-        """Step until idle; raise :class:`EngineStalledError` if
-        ``max_steps`` runs out with work pending."""
+        """Step until idle; raise :class:`EngineStalledError` (naming the
+        stuck slots and queue depth) if ``max_steps`` runs out with work
+        pending."""
         done: List[Request] = []
         for _ in range(max_steps):
             if not self.queue and self.active_slots == 0:
@@ -509,3 +979,4 @@ class ContinuousEngine(_EngineBase):
                      for i, r in enumerate(self.slots) if r is not None]
             raise EngineStalledError(max_steps, stuck, len(self.queue))
         return done
+

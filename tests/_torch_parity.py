@@ -8,6 +8,12 @@ import numpy as np
 import pytest
 import torch
 
+# The suite runs in several pytest-xdist worker processes at once; a torch
+# intra-op pool as wide as the machine in every worker oversubscribes the
+# cores, slows every file several times over and makes the host-timed
+# cells flaky; the tests' small shapes gain nothing from more threads.
+torch.set_num_threads(1)
+
 
 def require_cuda() -> torch.device:
     """Skip the calling test unless a CUDA card is present; set the f32

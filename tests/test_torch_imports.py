@@ -32,7 +32,13 @@ def test_importing_every_module_loads_no_jax():
             "repro_torch.dist.fault", "repro_torch.launch.plan",
             "repro_torch.obs", "repro_torch.obs.metrics",
             "repro_torch.obs.trace", "repro_torch.core.gptq",
-            "repro_torch.core.rans"} <= set(mods)
+            "repro_torch.core.rans", "repro_torch.opts",
+            "repro_torch.chaos", "repro_torch.chaos.plan",
+            "repro_torch.dist.checkpoint", "repro_torch.launch.chaos",
+            "repro_torch.obs.drift", "repro_torch.obs.slo",
+            "repro_torch.obs.streamsig", "repro_torch.serve.quality",
+            "repro_torch.serve.requant",
+            "repro_torch.serve.resilience"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "

@@ -138,9 +138,20 @@ def test_continuous_matches_static_in_the_port(fmt):
     assert out == ref
 
 
-def test_engine_config_rejects_later_slices_and_bad_kwargs():
-    with pytest.raises(NotImplementedError, match="resilience"):
-        EngineConfig(resilience=object())
+def test_engine_config_rejects_later_slices_and_bad_kwargs(tmp_path):
+    """The item-10 subsystems are accepted now (the engine carries them);
+    the multi-device slice's mesh re-layout (item 11) still raises."""
+    from repro_torch.dist.checkpoint import (restore_checkpoint,
+                                             save_checkpoint)
+    from repro_torch.serve import ResilienceConfig
+    res = ResilienceConfig(queue_cap=3)
+    eng = ServeEngine(TArchConfig(**CFG), from_jax_params(_tree("fp"), "cpu"),
+                      config=EngineConfig(n_slots=2, resilience=res))
+    assert eng.resilience is res and eng.config.resilience is res
+    save_checkpoint(str(tmp_path), 1, {"x": np.zeros(2)})
+    with pytest.raises(NotImplementedError, match="item 11"):
+        restore_checkpoint(str(tmp_path), {"x": np.zeros(2)},
+                           shardings={"x": None})
     with pytest.raises(TypeError, match="unknown engine option"):
         ServeEngine(TArchConfig(**CFG), from_jax_params(_tree("fp"), "cpu"),
                     n_slot=2)
