@@ -1,7 +1,8 @@
-"""repro_torch.configs — the dense architectures the port serves."""
+"""repro_torch.configs — the dense and MoE architectures the port serves."""
 import importlib
 
-_MODULES = ["minicpm_2b", "qwen1_5_32b", "qwen2_5_32b", "minitron_8b"]
+_MODULES = ["minicpm_2b", "qwen1_5_32b", "qwen2_5_32b", "minitron_8b",
+            "phi3_5_moe", "moonshot_v1_16b"]
 _loaded = False
 
 

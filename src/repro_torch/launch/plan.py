@@ -53,16 +53,17 @@ def _parse_bound(items):
 
 
 def _numpy_weights(params, seed: int):
-    """``params`` with every weight ``w`` redrawn from
-    ``numpy.random.default_rng(seed)`` (normal, std 1/sqrt(in_features);
-    the embedding std 0.02), leaves in sorted-key order: the same values on
-    every device."""
+    """``params`` with every weight ``w`` and every MoE expert tensor
+    redrawn from ``numpy.random.default_rng(seed)`` (normal, std
+    1/sqrt(in_features); the embedding std 0.02), leaves in sorted-key
+    order: the same values on every device."""
+    from repro_torch.quant.qlinear import _EXPERT_KEYS
     rng = np.random.default_rng(seed)
 
     def draw(node, path):
         if isinstance(node, dict):
             return {k: draw(node[k], path + (k,)) for k in sorted(node)}
-        if path[-1] != "w":
+        if path[-1] != "w" and path[-1] not in _EXPERT_KEYS:
             return node
         std = 0.02 if path[0] == "embed" else node.shape[-2] ** -0.5
         vals = rng.standard_normal(tuple(node.shape), dtype=np.float32)

@@ -1,4 +1,5 @@
-"""Model building blocks, dense family (port of ``repro/models/layers.py``).
+"""Model building blocks of the dense and MoE families (port of
+``repro/models/layers.py``).
 
 Plain functions on tensors over the reference's nested-dict param tree
 (same keys, layer-stacked leaves sliced per layer by the caller).  The
@@ -17,8 +18,8 @@ import torch.nn.functional as F
 from repro_torch.kernels import flash
 
 __all__ = ["rmsnorm", "layernorm", "dense", "rope", "KVCache", "kv_tensors",
-           "q8", "attention_train", "attention_decode", "mlp", "embed",
-           "unembed"]
+           "q8", "attention_train", "attention_decode", "mlp", "moe",
+           "moe_experts", "embed", "unembed"]
 
 
 # ---------------------------------------------------------------------------
@@ -292,6 +293,157 @@ def mlp(p, x, *, activation="silu"):
     else:
         h = act(dense(p["w_in"], x))
     return dense(p["w_out"], h)
+
+
+# ---------------------------------------------------------------------------
+# MoE
+# ---------------------------------------------------------------------------
+
+
+def _moe_router_logits(p_router, xt):
+    """Router logits (T, E) in f32.  A raw router weight is a plain f32
+    product, as in the reference; a quantized one (a code leaf: with 64
+    experts the (d, E) router passes ``min_dim``) goes through ``dense``
+    and so through the dequant kernel.  The reference multiplies the leaf
+    dict itself there and raises (ROADMAP queue C)."""
+    w = p_router["w"]
+    if isinstance(w, dict):
+        return dense({"w": w}, xt.to(torch.float32)).to(torch.float32)
+    return xt.to(torch.float32) @ w.to(torch.float32)
+
+
+def _moe_top_k(logits, top_k: int):
+    """Softmax gates in f32, then the top ``top_k`` per token with equal
+    gates ordered toward the lower expert index (``jax.lax.top_k``'s order;
+    ``torch.topk`` promises none), renormalized to sum 1."""
+    gates = torch.softmax(logits.to(torch.float32), dim=-1)
+    top_g, top_e = torch.sort(gates, dim=-1, descending=True, stable=True)
+    top_g, top_e = top_g[:, :top_k], top_e[:, :top_k]
+    top_g = top_g / torch.clamp_min(top_g.sum(-1, keepdim=True), 1e-9)
+    return top_g, top_e
+
+
+class MoEDispatch(NamedTuple):
+    """Where each routed (token, expert) pair went, in expert-sorted order:
+    ``dest`` its flat buffer slot e·C + pos (0 for a dropped pair),
+    ``keep`` whether it fit the capacity, ``weights`` its renormalized
+    gate; ``pairs`` (T, k) holds each token's sorted positions in
+    ascending order (ascending expert)."""
+
+    dest: torch.Tensor
+    keep: torch.Tensor
+    weights: torch.Tensor
+    pairs: torch.Tensor
+
+
+def _moe_local_pack(xt, top_e, top_g, n_experts: int, capacity: int,
+                    top_k: int):
+    """Sort-based local dispatch: xt (T, d) → buf (E, C, d) + the pairs'
+    :class:`MoEDispatch` (the reference's ``_moe_local_pack``).
+
+    Pairs are sorted by expert with a stable sort (ties keep token order);
+    a pair's position in its expert's segment comes from
+    ``searchsorted(side="left")``; pairs past ``capacity`` are dropped.  A
+    kept slot has exactly one writer, so the buffer is a plain indexed
+    copy (dropped pairs write a scratch row past the buffer, cut off)
+    instead of the reference's scatter-add of zeros: no atomics."""
+    t, d = xt.shape
+    flat_e = top_e.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    idx = torch.arange(t * top_k, device=xt.device)
+    pos_in_e = idx - torch.searchsorted(sorted_e, sorted_e, side="left")
+    keep = pos_in_e < capacity
+    dest = sorted_e * capacity + torch.where(keep, pos_in_e,
+                                             torch.zeros_like(pos_in_e))
+    slot = torch.where(keep, dest, torch.full_like(dest,
+                                                   n_experts * capacity))
+    buf = xt.new_zeros((n_experts * capacity + 1, d))
+    buf[slot] = xt[order // top_k]
+    inv = torch.empty_like(order)
+    inv[order] = idx
+    pairs = inv.reshape(t, top_k).sort(dim=1).values
+    return (buf[:-1].reshape(n_experts, capacity, d),
+            MoEDispatch(dest, keep, top_g.reshape(-1)[order], pairs))
+
+
+def _moe_combine(out_buf, disp: MoEDispatch):
+    """out_buf (E, C, d) → (T, d): each token's kept pairs weighted by
+    their gates and summed one pair at a time in ascending expert order
+    (the order the reference's scatter-add meets them), by gathering
+    through the inverse permutation: a fixed order, no atomics."""
+    d = out_buf.shape[-1]
+    dt = out_buf.dtype
+    gathered = out_buf.reshape(-1, d)[disp.dest] * disp.keep[:, None].to(dt)
+    contrib = gathered * disp.weights[:, None].to(dt)
+    per_token = contrib[disp.pairs]                          # (T, k, d)
+    out = per_token[:, 0]
+    for j in range(1, per_token.shape[1]):
+        out = out + per_token[:, j]
+    return out
+
+
+def _expert_matmul(inp, w):
+    """(E, C, din) × one expert leaf → (E, C, dout): a raw (E, din, dout)
+    weight, an int8 code leaf (codes (E, din, dout), s (E, din), t (E,
+    dout)) or a packed-int4 leaf (payload (E, dout, ceil(din/2)),
+    escape-free), unpacked and multiplied by a batched product; the
+    reference computes these outside any kernel, through XLA's einsum."""
+    if not (isinstance(w, dict) and "codes" in w):
+        return torch.bmm(inp, w.to(inp.dtype))
+    codes = w["codes"]
+    scaled = inp * w["s"].to(inp.dtype)[:, None, :]
+    if codes.dtype == torch.uint8:
+        if codes.ndim >= 3 and codes.shape[-2] in (1, 3):
+            raise ValueError("int2/int3 expert leaves unsupported — serve "
+                             "experts ≥ 4b (quantize_params_tree promotes "
+                             "them automatically)")
+        if w["esc_row"].shape[-1] != 0:
+            raise ValueError("packed MoE escapes unsupported; use "
+                             "escape_capacity=0")
+        from repro_torch.core.packing import unpack_int4_planar
+        z = unpack_int4_planar(codes)[..., :inp.shape[-1]]    # (E, dout, din)
+        out = torch.bmm(scaled, z.to(inp.dtype).transpose(1, 2))
+    else:
+        out = torch.bmm(scaled, codes.to(inp.dtype))
+    return out * w["t"].to(inp.dtype)[:, None, :]
+
+
+def moe_experts(p, xt, *, n_experts, top_k, capacity, activation="silu"):
+    """Route ``xt`` (T, d) and run the experts at ``capacity`` slots each:
+    (out (T, d), buf (E, C, d), hidden (E, C, ff), :class:`MoEDispatch`).
+    ``moe``'s body; calibration calls it at its drop-free capacity and
+    taps the buffers."""
+    top_g, top_e = _moe_top_k(_moe_router_logits(p["router"], xt), top_k)
+    buf, disp = _moe_local_pack(xt, top_e, top_g, n_experts, capacity, top_k)
+    act = _ACTIVATIONS[activation]
+    if "w_gate" in p:
+        h = act(_expert_matmul(buf, p["w_gate"])) \
+            * _expert_matmul(buf, p["w_up"])
+    else:
+        h = act(_expert_matmul(buf, p["w_in"]))
+    return _moe_combine(_expert_matmul(h, p["w_out"]), disp), buf, h, disp
+
+
+def moe(p, x, *, n_experts, top_k, capacity_factor=1.25, activation="silu"):
+    """Top-k token-choice MoE with a sort-based capacity buffer (the local
+    path of the reference's ``moe``).
+
+    Tokens are flattened, routed, sorted by expert and packed into an (E,
+    C, d) buffer, pushed through the experts' FFNs as batched products and
+    combined back with their gates.  Over-capacity pairs are dropped
+    (GShard semantics), so the rows of one call share each expert's
+    capacity.  With one device there is no expert-parallel exchange: the
+    reference's ``moe_a2a`` path needs a mesh (ROADMAP item 11) and its
+    ``moe_dispatch_shard`` is a sharding annotation, a no-op here.
+    """
+    b, s, d = x.shape
+    t = b * s
+    capacity = max(int(math.ceil(t * top_k / n_experts * capacity_factor)),
+                   top_k)
+    out = moe_experts(p, x.reshape(t, d), n_experts=n_experts, top_k=top_k,
+                      capacity=capacity, activation=activation)[0]
+    return out.reshape(b, s, d)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,7 @@
-"""Dense decoder: init, full-sequence forward, slot KV cache and decode
-(port of the dense family of ``repro/models/transformer.py``).
+"""Decoder of the dense and MoE families: init, full-sequence forward,
+slot KV cache and decode (port of those families of
+``repro/models/transformer.py``; a MoE layer runs ``layers.moe`` where a
+dense one runs ``layers.mlp``).
 
 API (plain functions of (cfg, params, ...)):
   init_params(cfg, seed, device)             -> param tree (reference keys)
@@ -29,7 +31,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.opts import enabled as _opt
 from .layers import (KVCache, attention_decode, attention_train, embed,
-                     kv_tensors, layernorm, mlp, q8, rmsnorm, unembed)
+                     kv_tensors, layernorm, mlp, moe, q8, rmsnorm, unembed)
 
 __all__ = ["init_params", "forward_train", "loss_fn", "init_cache",
            "decode_step", "decode_chunk", "prefill", "cache_write_slot",
@@ -38,9 +40,21 @@ __all__ = ["init_params", "forward_train", "loss_fn", "init_cache",
 
 
 def _check_family(cfg: ArchConfig):
-    if cfg.family != "dense" or cfg.n_experts or cfg.block_pattern:
+    if cfg.family not in ("dense", "moe") or cfg.block_pattern \
+            or (cfg.family == "moe") != bool(cfg.n_experts):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense family is ported (ROADMAP item 12)")
+            f"{cfg.name}: only the dense and MoE families are ported "
+            "(ROADMAP item 12)")
+
+
+def _ffn(cfg, lp, x):
+    """The layer's feed-forward block: the experts of a MoE layer, else
+    the MLP."""
+    if cfg.n_experts:
+        return moe(lp["moe"], x, n_experts=cfg.n_experts, top_k=cfg.top_k,
+                   capacity_factor=cfg.capacity_factor,
+                   activation=cfg.activation)
+    return mlp(lp["mlp"], x, activation=cfg.activation)
 
 
 def _norm(cfg, p, x):
@@ -54,12 +68,15 @@ def _norm(cfg, p, x):
 
 def init_params(cfg: ArchConfig, seed: int = 0, *, device=None,
                 dtype=torch.float32):
-    """Random dense-decoder params on ``device`` from a ``torch.Generator``.
+    """Random decoder params on ``device`` from a ``torch.Generator``.
 
     Same tree and shapes as the reference's ``init_params`` (after
     ``split_tree``); the values differ by design.  Weights are normal with
     std 1/sqrt(in_features), biases 0, norm scales 1, the embedding normal
-    with std 0.02.
+    with std 0.02.  A MoE layer holds ``moe = {router: {w: (L, d, E)},
+    w_gate, w_up: (L, E, d, ff), w_out: (L, E, ff, d)}`` (``w_in`` in
+    place of the gate and up weights when the MLP is not gated) where a
+    dense one holds ``mlp``.
     """
     _check_family(cfg)
     dev = resolve_device(device)
@@ -68,8 +85,9 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device=None,
     L, d, hd = cfg.n_layers, cfg.d_model, cfg.resolved_head_dim
 
     def normal(shape, std):
-        return (torch.randn(shape, generator=gen, device=dev,
-                            dtype=torch.float32) * std).to(dtype)
+        # scaled in place: a full-width expert stack is 13 GB of f32
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.float32).mul_(std).to(dtype)
 
     def lin(n_in, n_out, bias):
         p = {"w": normal((L, n_in, n_out), n_in ** -0.5)}
@@ -87,18 +105,25 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device=None,
             "wk": lin(d, cfg.n_kv * hd, cfg.qkv_bias),
             "wv": lin(d, cfg.n_kv * hd, cfg.qkv_bias),
             "wo": lin(cfg.n_heads * hd, d, cfg.out_bias)}
-    mlp_p = {"w_out": lin(cfg.d_ff, d, cfg.out_bias)}
-    if cfg.gated_mlp:
-        mlp_p["w_gate"] = lin(d, cfg.d_ff, cfg.out_bias)
-        mlp_p["w_up"] = lin(d, cfg.d_ff, cfg.out_bias)
+    if cfg.n_experts:
+        E, ff = cfg.n_experts, cfg.d_ff
+        ffn = {"router": lin(d, E, False),
+               "w_out": normal((L, E, ff, d), ff ** -0.5)}
+        for key in (("w_gate", "w_up") if cfg.gated_mlp else ("w_in",)):
+            ffn[key] = normal((L, E, d, ff), d ** -0.5)
     else:
-        mlp_p["w_in"] = lin(d, cfg.d_ff, cfg.out_bias)
+        ffn = {"w_out": lin(cfg.d_ff, d, cfg.out_bias)}
+        if cfg.gated_mlp:
+            ffn["w_gate"] = lin(d, cfg.d_ff, cfg.out_bias)
+            ffn["w_up"] = lin(d, cfg.d_ff, cfg.out_bias)
+        else:
+            ffn["w_in"] = lin(d, cfg.d_ff, cfg.out_bias)
     ln_f = {"scale": torch.ones((d,), dtype=torch.float32, device=dev)}
     if cfg.norm == "layernorm":
         ln_f["bias"] = torch.zeros((d,), dtype=torch.float32, device=dev)
     return {"embed": {"w": normal((cfg.padded_vocab, d), 0.02)},
             "layers": {"ln_attn": norm(), "attn": attn, "ln_mlp": norm(),
-                       "mlp": mlp_p},
+                       "moe" if cfg.n_experts else "mlp": ffn},
             "ln_f": ln_f}
 
 
@@ -129,8 +154,7 @@ def forward_train(cfg: ArchConfig, params, batch) -> torch.Tensor:
                                 causal=True,
                                 window=cfg.local_window or None,
                                 **_attn_kwargs(cfg))
-        x = x + mlp(lp["mlp"], _norm(cfg, lp["ln_mlp"], x),
-                    activation=cfg.activation)
+        x = x + _ffn(cfg, lp, _norm(cfg, lp["ln_mlp"], x))
     x = _norm(cfg, params["ln_f"], x)
     return unembed(params["embed"], x, cfg.vocab)
 
@@ -278,8 +302,7 @@ def decode_step(cfg: ArchConfig, params, cache: DecodeCache, token):
         a_out, _ = attention_decode(
             lp["attn"], a_in, layer_kv(cache.kv, i), pos, **ak)
         x = x + a_out
-        x = x + mlp(lp["mlp"], _norm(cfg, lp["ln_mlp"], x),
-                    activation=cfg.activation)
+        x = x + _ffn(cfg, lp, _norm(cfg, lp["ln_mlp"], x))
     x = _norm(cfg, params["ln_f"], x)
     logits = unembed(params["embed"], x, cfg.vocab)[:, 0, :]
     return logits, DecodeCache(cache.kv, pos + 1, cache.extras)
@@ -310,7 +333,11 @@ def prefill(cfg: ArchConfig, params, batch, max_len: int,
     ``_capture_kv`` projects the raw embeddings instead; ROADMAP queue C).
     A windowed cache holds the last ``buf`` positions at slot p mod buf.
     An int8 cache (``int8_kv``) takes ``q8`` of each position's K/V with
-    its scale, as a decode step writes them.
+    its scale, as a decode step writes them.  A MoE layer routes all B·S
+    tokens in one call, as the reference's full-sequence forward does, so
+    experts' capacities drop pairs differently from B-token decode steps:
+    the cache equals ``decode_chunk``'s only where no pair is dropped
+    (``capacity_factor`` ≥ E/k guarantees it).
     """
     _check_family(cfg)
     tokens = batch["tokens"]
@@ -339,8 +366,7 @@ def prefill(cfg: ArchConfig, params, batch, max_len: int,
             kv_i.k[:, slots] = k[:, keep].to(cache_dtype)
             kv_i.v[:, slots] = v[:, keep].to(cache_dtype)
         x = x + a_out
-        x = x + mlp(lp["mlp"], _norm(cfg, lp["ln_mlp"], x),
-                    activation=cfg.activation)
+        x = x + _ffn(cfg, lp, _norm(cfg, lp["ln_mlp"], x))
     x = _norm(cfg, params["ln_f"], x[:, -1:])
     logits = unembed(params["embed"], x, cfg.vocab)[:, 0, :]
     return logits, DecodeCache(cache.kv,

@@ -239,23 +239,36 @@ def execute_plan(plan: QuantPlan,
 
 def plan_inputs_for_model(cfg, params, calib_batches
                           ) -> Tuple[Dict[str, Any], Dict[str, CalibStats]]:
-    """(weights, stats) dicts covering every plan entry of a dense model,
-    from one fp calibration pass on the params' device (no drift
-    statistics: plan execution is the independent-layer path)."""
+    """(weights, stats) dicts covering every plan entry of a dense or MoE
+    model, from one fp calibration pass on the params' device (no drift
+    statistics: plan execution is the independent-layer path).  An expert
+    matrix's Σ_X is that of the tokens routed to it."""
     from repro_torch.quant import pipeline as _pl
     from .sensitivity import collect_sigma_x
-    if cfg.n_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE plan inputs belong to the MoE family's slice "
-            "(ROADMAP queue A item 12)")
     acc = collect_sigma_x(cfg, params, calib_batches)
     weights: Dict[str, Any] = {}
     stats: Dict[str, CalibStats] = {}
-    for rec in _pl.matrix_tap_map(cfg, params):
-        weights[rec["name"]] = _pl._get_w(params, rec["layer"], rec["path"]).T
-        stats[rec["name"]] = CalibStats(
-            sigma_x=acc.get(rec["sigma_key"]).to(torch.float32))
+    recs = _pl.matrix_tap_map(cfg, params)
+    for l in range(_pl._layer_count(params)):
+        for rec in (r for r in recs if r["layer"] == l):
+            weights[rec["name"]] = _pl._get_w(params, l, rec["path"]).T
+            stats[rec["name"]] = CalibStats(
+                sigma_x=acc.get(rec["sigma_key"]).to(torch.float32))
+        # a layer's experts follow its block matrices, as in the reference
+        for name, key, e in _expert_entries(cfg, params, l):
+            weights[name] = params["layers"]["moe"][key][l, e].T
+            stats[name] = CalibStats(sigma_x=acc.get(
+                f"L{l}/e{e}/{_pl._expert_tap(key)}/xx").to(torch.float32))
     return weights, stats
+
+
+def _expert_entries(cfg, params, l: int):
+    """(name, key, expert) of layer ``l``'s expert matrices (none for a
+    dense model)."""
+    from repro_torch.quant import pipeline as _pl
+    return [(f"L{l}/moe/{key}/e{e}", key, e)
+            for key in _pl._expert_keys(cfg, params)
+            for e in range(cfg.n_experts)]
 
 
 def quantize_model_with_plan(cfg, params, calib_batches, plan: QuantPlan, *,
@@ -288,4 +301,8 @@ def quantize_model_with_plan(cfg, params, calib_batches, plan: QuantPlan, *,
     for rec in _pl.matrix_tap_map(cfg, params):
         _pl._set_w(qparams, rec["layer"], rec["path"],
                    qlinears[rec["name"]].dequant().T)
+    for l in range(_pl._layer_count(params)):
+        for name, key, e in _expert_entries(cfg, params, l):
+            leaf = qparams["layers"]["moe"][key]
+            leaf[l, e] = qlinears[name].dequant().T.to(leaf.dtype)
     return qparams, qlinears, plan, report

@@ -261,20 +261,24 @@ def model_sensitivities(cfg, params, calib_batches, *,
                         floors: Optional[Dict[str, float]] = None,
                         ceils: Optional[Dict[str, float]] = None,
                         ) -> List[MatrixSensitivity]:
-    """Per-matrix sensitivities of a dense model, on the params' device.
+    """Per-matrix sensitivities of a dense or MoE model, on the params'
+    device.
 
-    Names match ``quant.pipeline``'s budget keys ("L{l}/attn/wq"), so a
-    plan built here drives either execution path.  ``weighting`` ∈
-    {"uniform", "output", "probe"}; ``probe`` draws each matrix's
-    perturbation from ``numpy.random.default_rng(seed)`` in the
-    reference's order.
+    Names match ``quant.pipeline``'s budget keys ("L{l}/attn/wq",
+    "L{l}/moe/w_up/e{e}"), so a plan built here drives either execution
+    path.  ``weighting`` ∈ {"uniform", "output", "probe"}; ``probe``
+    draws each matrix's perturbation from ``numpy.random.default_rng(seed)``
+    in the reference's order, and is refused for a MoE model.  An expert
+    matrix's curve comes from the Σ_X of the tokens routed to it.
     """
     from repro_torch.quant import pipeline as _pl
     from repro_torch.quant.calibrate import forward_with_taps
-    if cfg.n_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE sensitivities belong to the MoE family's slice "
-            "(ROADMAP queue A item 12)")
+    if weighting == "probe" and cfg.n_experts:
+        # probe coefficients (logits MSE per unit distortion) and any
+        # fallback scale for experts are incomparable units inside one
+        # waterfilling objective — refuse instead of silently mixing them
+        raise ValueError("weighting='probe' is dense-only; use 'uniform' "
+                         "or 'output' for moe models")
     if weighting not in ("uniform", "output", "probe"):
         raise ValueError(f"unknown weighting {weighting!r}")
     acc = collect_sigma_x(cfg, params, calib_batches)
@@ -319,4 +323,18 @@ def model_sensitivities(cfg, params, calib_batches, *,
                 name, w, spectra[key], weight=weight, floor_bits=0.0,
                 ceil_bits=16.0,
                 provenance=f"calib:{len(calib_batches)}b/{weighting}"))
+        for key in _pl._expert_keys(cfg, params):
+            tap = _pl._expert_tap(key)
+            for e in range(cfg.n_experts):
+                w = params["layers"]["moe"][key][l, e].T.to(torch.float64)
+                skey = f"L{l}/e{e}/{tap}/xx"
+                sigma = acc.get(skey)
+                if skey not in spectra:      # w_gate and w_up share "in"
+                    spectra[skey] = _spectrum(sigma)
+                weight = (_output_weight(w, sigma) if weighting == "output"
+                          else 1.0)
+                out.append(_sensitivity(
+                    f"L{l}/moe/{key}/e{e}", w, spectra[skey], weight=weight,
+                    floor_bits=0.0, ceil_bits=16.0,
+                    provenance=f"calib:{len(calib_batches)}b/routed"))
     return apply_constraints(out, floors, ceils)

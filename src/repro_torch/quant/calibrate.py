@@ -1,5 +1,5 @@
 """Calibration statistics for sequential model PTQ (paper §4, App. C; port
-of the dense family of ``repro/quant/calibrate.py``).
+of ``repro/quant/calibrate.py``, dense and MoE families).
 
 Instrumented forward for the dense decoder family taps, per layer:
 
@@ -16,6 +16,14 @@ Running the same taps on the fp model (X, R) and the quantized-so-far model
 
     Σ_X = E[XXᵀ], Σ_X̂, Σ_{X,X̂} = E[XX̂ᵀ], Σ_{Δ,X̂} = W-free E[(R−R̂)X̂ᵀ]
 
+A MoE layer taps, in place of ``hidden``, each expert's routed-token
+buffers: ``expert_in`` (E, C, d), ``expert_hidden`` (E, C, ff) and the
+slot occupancy ``expert_occ`` (E, C), routed with the drop-free capacity
+max(⌈T·k/E⌉, k) of one calibration batch; ``accumulate_stats`` turns
+them into one occupancy-weighted Σ_X per expert and input
+(``L{l}/e{e}/in/xx``, ``L{l}/e{e}/hid/xx``) from the quantized-so-far
+model's routing.
+
 The sums are float64, as in the reference, and stay on the device of the
 taps.  The attention of the tapped forward is the plain masked softmax:
 eq. (19) needs the probabilities, which the flash kernel never forms.
@@ -30,8 +38,8 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import CalibStats
 from repro_torch.models.layers import (_ACTIVATIONS, _attn_scores,
-                                       _split_heads, dense, embed, rope,
-                                       unembed)
+                                       _split_heads, dense, embed,
+                                       moe_experts, rope, unembed)
 from repro_torch.models.transformer import (_attn_kwargs, _check_family,
                                             _norm, split_layers)
 
@@ -41,8 +49,8 @@ __all__ = ["forward_with_taps", "StatsAccumulator", "accumulate_stats",
 
 def forward_with_taps(cfg: ArchConfig, params, tokens
                       ) -> Tuple[torch.Tensor, List[Dict]]:
-    """Layer-by-layer forward capturing per-layer tap tensors (dense
-    family).  ``tokens`` (B, S) is an int array or tensor.  Returns
+    """Layer-by-layer forward capturing per-layer tap tensors (dense and
+    MoE families).  ``tokens`` (B, S) is an int array or tensor.  Returns
     (logits, taps list of dicts of tensors)."""
     _check_family(cfg)
     ak = _attn_kwargs(cfg)
@@ -63,16 +71,41 @@ def forward_with_taps(cfg: ArchConfig, params, tokens
         t["r_mlp"] = x
         m_in = _norm(cfg, lp["ln_mlp"], x)
         t["x_mlp"] = m_in
-        if "w_gate" in lp["mlp"]:
-            h = act(dense(lp["mlp"]["w_gate"], m_in)) \
-                * dense(lp["mlp"]["w_up"], m_in)
+        if cfg.n_experts:
+            m_out, ex = _moe_with_taps(lp["moe"], m_in, cfg)
+            t.update(ex)
+            x = x + m_out
         else:
-            h = act(dense(lp["mlp"]["w_in"], m_in))
-        t["hidden"] = h
-        x = x + dense(lp["mlp"]["w_out"], h)
+            if "w_gate" in lp["mlp"]:
+                h = act(dense(lp["mlp"]["w_gate"], m_in)) \
+                    * dense(lp["mlp"]["w_up"], m_in)
+            else:
+                h = act(dense(lp["mlp"]["w_in"], m_in))
+            t["hidden"] = h
+            x = x + dense(lp["mlp"]["w_out"], h)
         taps.append(t)
     x = _norm(cfg, params["ln_f"], x)
     return unembed(params["embed"], x, cfg.vocab), taps
+
+
+def _moe_with_taps(p, x, cfg: ArchConfig):
+    """MoE forward capturing the per-expert routed buffers (``layers.moe``
+    at the drop-free capacity)."""
+    b, s, d = x.shape
+    t = b * s
+    e, k = cfg.n_experts, cfg.top_k
+    capacity = max(-(-t * k // e), k)  # drop-free for calibration fidelity
+    out, buf, h, disp = moe_experts(p, x.reshape(t, d), n_experts=e,
+                                    top_k=k, capacity=capacity,
+                                    activation=cfg.activation)
+    # per-slot occupancy: slot (e, c) used iff some kept pair landed there
+    occ = torch.zeros(e * capacity, dtype=x.dtype, device=x.device)
+    occ[disp.dest[disp.keep]] = 1.0
+    return out.reshape(b, s, d), {
+        "expert_in": buf,                           # (E, C, d), 0 at holes
+        "expert_hidden": h,                         # (E, C, ff)
+        "expert_occ": occ.reshape(e, capacity),     # (E, C) 0/1
+    }
 
 
 def _attention_with_probs(p, x, *, n_q, n_kv, head_dim, rope_theta):
@@ -146,6 +179,8 @@ def accumulate_stats(acc: StatsAccumulator, layer: int,
     pw = taps_fp["attn_p"].to(torch.float64)                # (S,)
     pw_tokens = pw.repeat(taps_fp["x_attn"].shape[0])
     for name in ("x_attn", "ctx", "x_mlp", "hidden"):
+        if name not in taps_fp:
+            continue  # MoE layers expose per-expert buffers instead
         x = _flat(taps_fp[name])
         xh = _flat(taps_q[name])
         acc.add(f"L{layer}/{name}/xx", x)
@@ -157,8 +192,19 @@ def accumulate_stats(acc: StatsAccumulator, layer: int,
             acc.add(f"L{layer}/{name}/xh_w", x, xh, weights=pw_tokens)
     # residual-stream deltas for the two down-projections (eq. (18))
     for name, rname in (("ctx", "r_attn"), ("hidden", "r_mlp")):
+        if name not in taps_fp:
+            continue
         dr = _flat(taps_fp[rname]) - _flat(taps_q[rname])
         acc.add(f"L{layer}/{name}/dr_h", dr, _flat(taps_q[name]))
+    # per-expert routed-token covariances (MoE family; quantized-model
+    # routing — App. D practice of calibrating on X̂)
+    if "expert_in" in taps_q:
+        buf = taps_q["expert_in"].to(torch.float64)          # (E, C, d)
+        hid = taps_q["expert_hidden"].to(torch.float64)      # (E, C, ff)
+        occ = taps_q["expert_occ"].to(torch.float64)         # (E, C)
+        for e in range(buf.shape[0]):
+            acc.add(f"L{layer}/e{e}/in/xx", buf[e], weights=occ[e])
+            acc.add(f"L{layer}/e{e}/hid/xx", hid[e], weights=occ[e])
 
 
 def stats_for_matrix(acc: StatsAccumulator, layer: int, tap: str, *,

@@ -1,7 +1,7 @@
-"""Sequential model PTQ pipeline (paper §4 + App. C/D; port of the dense
-family of ``repro/quant/pipeline.py``).
+"""Sequential model PTQ pipeline (paper §4 + App. C/D; port of
+``repro/quant/pipeline.py``, dense and MoE families).
 
-Quantizes a dense-family LM layer by layer:
+Quantizes a dense- or MoE-family LM layer by layer:
 
   for each layer l (first → last):
     1. run fp and quantized-so-far models over the calibration batches,
@@ -20,9 +20,11 @@ through the in-block kernel on the card.
 
 Rate allocation is the even-spread ``RateBudget``, or with ``plan=`` the
 per-matrix targets of a ``repro_torch.plan.QuantPlan`` (``PlanBudget``,
-achieved bits written back into the plan).  MoE models wait for their
-family (ROADMAP queue A item 12).  Everything runs on the device of
-``params``.
+achieved bits written back into the plan).  A MoE layer quantizes its
+attention matrices with the full machinery, then every expert's FFN
+matrices (budget keys ``L{l}/moe/{key}/e{e}``) from Σ_X of exactly the
+tokens routed to that expert, with the same method.  Everything runs on
+the device of ``params``.
 
 Returns (quantized params, per-matrix QuantizedLinear dict, budget
 controller, report rows); ``from_watersic`` turns entries into serving
@@ -42,6 +44,7 @@ from repro_torch.core import (CalibStats, PlanBudget, QuantizedLinear,
                               RateBudget, quantize_at_rate, rtn_absmax)
 from repro_torch.models.transformer import (_attn_kwargs, _check_family,
                                             loss_fn)
+from repro_torch.quant.qlinear import _EXPERT_KEYS
 from .calibrate import (StatsAccumulator, _attention_with_probs,
                         accumulate_stats, forward_with_taps,
                         stats_for_matrix)
@@ -99,6 +102,8 @@ def _set_w(params, l, path, w_new):
 
 def _mats_for(cfg, params):
     mats = list(_BLOCK_MATS)
+    if cfg.n_experts:
+        return [m for m in mats if m[0][0] == "attn"]
     if "w_gate" not in params["layers"]["mlp"]:
         mats = [m for m in mats if m[0][1] not in ("w_gate", "w_up")]
         mats.append((("mlp", "w_in"), "x_mlp", False))
@@ -118,7 +123,8 @@ def matrix_tap_map(cfg, params) -> List[Dict]:
     per (layer, block matrix) with the budget ``name`` ("L{l}/attn/wq"),
     the param ``path`` inside a layer, the calibration ``tap`` feeding it,
     the ``sigma_key`` of its Σ_X in a StatsAccumulator and whether it is a
-    down-projection."""
+    down-projection.  A MoE layer lists its attention matrices only (its
+    experts' Σ_X are per-expert buffers, keyed by :func:`_expert_keys`)."""
     out: List[Dict] = []
     for l in range(_layer_count(params)):
         for path, tap, is_down in _mats_for(cfg, params):
@@ -152,25 +158,32 @@ def _rtn_matrix(w_alg, target_bits: float) -> Tuple[np.ndarray, float]:
 
 def quantize_model(cfg: ArchConfig, params, calib_batches: List[np.ndarray],
                    ptq: PTQConfig, plan=None):
-    """Sequential PTQ of a dense-family model on the device of ``params``.
-    calib_batches: token arrays (B, S).  Returns (qparams, qlinears,
-    budget, rows).
+    """Sequential PTQ of a dense- or MoE-family model on the device of
+    ``params``.  calib_batches: token arrays (B, S).  Returns (qparams,
+    qlinears, budget, rows).
 
     ``plan``: an optional ``repro_torch.plan.QuantPlan`` — per-matrix
     targets come from the plan instead of the even spread, and achieved
     bits are written back into its entries.  It must cover every budget
-    key of this model ("L0/attn/wq", ...)."""
-    if cfg.n_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE PTQ belongs to the MoE family's slice "
-            "(ROADMAP queue A item 12)")
+    key of this model ("L0/attn/wq", "L0/moe/w_up/e3", ...).
+
+    MoE: attention matrices get the full machinery; each expert's FFN
+    matrices are calibrated on exactly its routed tokens (per-expert Σ_X
+    from the quantized-model routing; the drift/residual corrections are
+    per-token-set and hence dense-only, DESIGN.md §5)."""
     _check_family(cfg)
     L = _layer_count(params)
     qparams = _clone(params)
     mats = _mats_for(cfg, params)
-    layer_params = {f"L{l}/{'/'.join(path)}":
-                    int(np.prod(_get_w(params, l, path).shape))
-                    for l in range(L) for path, _, _ in mats}
+    layer_params = {}
+    for l in range(L):
+        for path, _, _ in mats:
+            layer_params[f"L{l}/{'/'.join(path)}"] = \
+                int(np.prod(_get_w(params, l, path).shape))
+        for key in _expert_keys(cfg, params):
+            per = int(np.prod(params["layers"]["moe"][key].shape[2:]))
+            for e in range(cfg.n_experts):
+                layer_params[f"L{l}/moe/{key}/e{e}"] = per
     if plan is not None:
         missing = sorted(set(layer_params) - set(plan.names()))
         if missing:
@@ -227,7 +240,48 @@ def quantize_model(cfg: ArchConfig, params, calib_batches: List[np.ndarray],
             rows.append({"layer": l, "matrix": "/".join(path),
                          "rate": q.rate_eff, "entropy": q.entropy_bits,
                          "dead": int(q.dead_mask.sum())})
+        if cfg.n_experts:
+            _quantize_layer_experts(cfg, params, qparams, l, acc, budget,
+                                    ptq, qlinears, rows)
     return qparams, qlinears, budget, rows
+
+
+def _expert_keys(cfg, params) -> List[str]:
+    """The expert weight names of a MoE model's layers (none for dense)."""
+    if not cfg.n_experts:
+        return []
+    return [k for k in _EXPERT_KEYS if k in params["layers"]["moe"]]
+
+
+def _expert_tap(key: str) -> str:
+    """The routed buffer feeding an expert matrix: ``hid`` for w_out."""
+    return "hid" if key == "w_out" else "in"
+
+
+def _quantize_layer_experts(cfg, params, qparams, l, acc, budget, ptq,
+                            qlinears, rows):
+    """Per-expert FFN quantization from routed-token covariances, written
+    back dequantized into layer ``l`` of ``qparams``."""
+    for key in _expert_keys(cfg, params):
+        leaf = qparams["layers"]["moe"][key]
+        for e in range(cfg.n_experts):
+            name = f"L{l}/moe/{key}/e{e}"
+            w_alg = params["layers"]["moe"][key][l, e].T   # (dout, din)
+            target = budget.next_target(name)
+            if ptq.method == "rtn":
+                w_hat, rate = _rtn_matrix(w_alg, target)
+                budget.record(name, rate)
+                leaf[l, e] = torch.as_tensor(w_hat).T.to(leaf)
+                continue
+            stats = CalibStats(sigma_x=acc.get(
+                f"L{l}/e{e}/{_expert_tap(key)}/xx").to(torch.float32))
+            q = _quantize_matrix(ptq, w_alg, stats, target)
+            budget.record(name, q.entropy_bits)
+            qlinears[name] = q
+            leaf[l, e] = q.dequant().T.to(leaf.dtype)
+            rows.append({"layer": l, "matrix": f"moe/{key}/e{e}",
+                         "rate": q.rate_eff, "entropy": q.entropy_bits,
+                         "dead": int(q.dead_mask.sum())})
 
 
 # ---------------------------------------------------------------------------

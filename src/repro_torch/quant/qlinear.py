@@ -16,6 +16,11 @@ orientation plus an escape COO (DESIGN.md §8/§10):
 
 ``quantize_params_tree`` makes symmetric absmax codes (escape-free,
 cap = 0), the same bytes the reference produces from the same weights.
+MoE expert tensors (``w_gate``/``w_up``/``w_in``/``w_out``, raw leaves of
+a ``moe`` node) qualify only unstacked, as 3-D (E, in, out) leaves, as in
+the reference: a layer-stacked (L, E, in, out) expert leaf stays as it is,
+and an int2/int3 request for an expert leaf is served as packed int4
+(``layers.moe`` unpacks only the nibble format).
 ``from_watersic`` turns a quantizer result (``core.QuantizedLinear``, real
 WaterSIC codes, which do escape the narrow ranges) into one leaf.
 """
@@ -35,9 +40,10 @@ __all__ = ["quantize_params_tree", "from_watersic", "is_qweight",
            "leaf_format", "leaf_format_histogram", "leaf_inventory",
            "serving_formats_from_plan"]
 
-#: param-dict keys eligible for weight quantization (the big matmuls; the
-#: reference's raw MoE expert tensors come with the MoE family, item 12)
+#: param-dict keys eligible for weight quantization (the big matmuls)
 _WEIGHT_KEYS = ("w",)
+#: MoE expert tensors are raw leaves under these names
+_EXPERT_KEYS = ("w_gate", "w_up", "w_in", "w_out")
 
 
 def is_qweight(x) -> bool:
@@ -131,7 +137,8 @@ def _leaf_for_nbits(node: torch.Tensor, nbits: int, packed: bool):
 def _eligible(path_keys: Tuple[str, ...], leaf, min_dim: int) -> bool:
     if not path_keys or not isinstance(leaf, torch.Tensor) or leaf.ndim < 2:
         return False
-    if path_keys[-1] not in _WEIGHT_KEYS:
+    name = path_keys[-1]
+    if not (name in _WEIGHT_KEYS or (name in _EXPERT_KEYS and leaf.ndim == 3)):
         return False
     return min(leaf.shape[-1], leaf.shape[-2]) >= min_dim
 
@@ -177,6 +184,8 @@ def quantize_params_tree(params, *, min_dim: int = 64,
             b, pk = fmt_for(path)
             if b is None:
                 return node
+            if b in (2, 3) and path[-1] in _EXPERT_KEYS:
+                b, pk = 4, True         # experts unpack only the nibbles
             return _leaf_for_nbits(node, b, pk)
         return node
 
@@ -338,16 +347,22 @@ def serving_formats_from_plan(plan, *, default: Optional[int] = None
 
     Serving leaves stack every layer of one matrix type, so the per-layer
     payloads of the plan aggregate to per-leaf formats: each group takes
-    the MAX payload bits across its layers (never serve a matrix below its
-    planned format).  A leaf with no matching plan entries gets
-    ``default`` (None = leave full precision).
+    the MAX payload bits across its layers and experts (never serve a
+    matrix below its planned format).  A leaf with no matching plan entries
+    gets ``default`` (None = leave full precision).
     """
     groups: Dict[str, int] = {}
     for e in plan:
-        groups[e.matrix] = max(groups.get(e.matrix, 0), int(e.payload_bits))
+        key = e.matrix
+        if key.startswith("moe/"):
+            key = "/".join(key.split("/")[:2])      # strip the /e{i} suffix
+        groups[key] = max(groups.get(key, 0), int(e.payload_bits))
 
     def nbits_by_path(path: Tuple[str, ...]) -> Optional[int]:
-        # (…, "attn", "wq", "w") → "attn/wq"
-        return groups.get("/".join(path[-3:-1]), default)
+        # dense leaves: (…, "attn", "wq", "w") → "attn/wq";
+        # expert leaves: (…, "moe", "w_up") → "moe/w_up"
+        key = "/".join(path[-2:]) if path[-1] in _EXPERT_KEYS \
+            else "/".join(path[-3:-1])
+        return groups.get(key, default)
 
     return nbits_by_path

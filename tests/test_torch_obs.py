@@ -270,8 +270,12 @@ def test_weight_format_bytes_and_traffic_match_reference():
             jrecord(want, 3)
             assert obs.counters_snapshot("repro_kernel_") \
                 == jobs.counters_snapshot("repro_kernel_")
-    record_weight_traffic(got, 3)              # obs off: nothing recorded
-    assert obs.counters_snapshot("repro_kernel_") == {}
+    # obs off: nothing recorded (in a fresh registry, so counters another
+    # test left in this process's global one do not count)
+    with obs.scoped(enable_obs=False):
+        obs.disable()                  # restored when the scope exits
+        record_weight_traffic(got, 3)
+        assert obs.counters_snapshot("repro_kernel_") == {}
 
 
 def test_executor_spans_and_counters():

@@ -175,13 +175,14 @@ def test_adaptive_mixing_matches_reference():
 
 
 def test_quantize_model_raises_on_unported_options():
-    """MoE models wait for their family's slice (the planner's ``plan=``,
-    which this test used to check, is ported: tests/test_torch_plan.py)."""
+    """Families still to be ported (here the recurrent ``ssm``) wait for
+    their slice.  The planner's ``plan=`` and the MoE family, which this
+    test checked before, are ported: tests/test_torch_plan.py and
+    tests/test_torch_moe_ptq.py."""
     base, calib, _ = _setup()
-    moe = TArchConfig(**{**CFG, "family": "moe", "n_experts": 2,
-                         "top_k": 1})
+    ssm = TArchConfig(**{**CFG, "family": "ssm"})
     with pytest.raises(NotImplementedError, match="item 12"):
-        quantize_model(moe, from_jax_params(base, "cpu"), calib,
+        quantize_model(ssm, from_jax_params(base, "cpu"), calib,
                        PTQConfig())
 
 
