@@ -184,8 +184,48 @@ The MoE family (phi3.5-moe-42b-a6.6b at full width: d 4096, 32/8 heads,
    4.0 bits), executed through B4: realized bits within 0.05 of planned;
    ``probe`` weighting refused.
 
+The recurrent families (rwkv6-7b: ssm, d 4096, d_ff 14336, 64 heads of
+64, decay LoRA 64; recurrentgemma-2b: hybrid, d 2560, RG-LRU width 2560,
+10 query heads over 1 KV head of 256, window 2048, d_ff 7680), after the
+MoE phases, on the serve phase's traffic:
+
+13. recurrent kernels: B1 (packed int4) and B2 against their twins at
+   m = 8 at every (k, n) of the two families, rwkv's (4096, 4096), (4096,
+   64), (64, 4096), (4096, 14336), (14336, 4096) and recurrentgemma's
+   (2560, 5120), (2560, 2560), (2560, 256), (2560, 7680), (7680, 2560),
+   each run twice with equal bits, timed as in the kernel phase;
+13b. rwkv6-7b at full width and depth (32 layers), every dense packed
+   int4: init time and peak memory; the first decode step against the
+   dequantized-weight model layer by layer (``models.decode_layers``:
+   each layer of both trees gets the oracle's input x to it; its block's
+   contribution y − x, its state and the logits within LOGIT_TOL of the
+   largest value; the end-to-end logits reported, with the float model's
+   own rounding amplification, which must exceed LOGIT_TOL); the
+   continuous engine's streams (B1 10 ×
+   32 times per decode step), the step's breakdown (its CUDA graph holds
+   one B1 node per packed dense), B1's and the WKV recurrence's device
+   time per step; a rerun and ``ServeEngine`` with equal streams; one
+   decode step of an int8 copy through B2 (320 launches, held the same
+   way); ``prefill`` of 8 × 32 stepped and parallel
+   (``REPRO_OPTS=parallel_prefill``), both timed, held to each other
+   layer by layer (``models.prefill_layers`` against each layer's decode
+   steps), end to end reported;
+13c. recurrentgemma-2b at full width and depth (26 layers: 8 groups and
+   the 2-layer tail): the same, B1 7 × 26 times per decode step, the
+   RG-LRU update and scan timed, and its first steps (int4 and int8) and
+   prefill also held end to end;
+13d. windowed hybrid: recurrentgemma at full width, 5 layers (one group
+   and the tail), window 16 under 32-token prompts: parallel prefill
+   against stepped layer by layer and end to end (the ring's slots among
+   the state leaves, the next step's logits), continuous
+   against static streams with an f32 and an int8 KV cache, and under
+   ``int8_kv`` the parallel prefill's codes and scales ``q8`` of the f32
+   parallel prefill's K/V bit for bit, the stepped prefill's codes within
+   one of them.
+
 The second-to-last line is the kernel summary JSON (six entries: the
-packed kernel per payload, the int8 kernel, ZSIC and flash), the last
+packed kernel per payload, the int8 kernel, ZSIC and flash; B1 int4's and
+B2's launches include the recurrent serve runs and int8 steps), the last
 line ``{"ok": true, "device": {...}}``.  Per-case numbers also go to
 ``chiprun_out/chip_smoke_detail.json``.  Tolerances:
 
@@ -198,13 +238,19 @@ line ``{"ok": true, "device": {...}}``.  Per-case numbers also go to
   terms in another order: online against materialized softmax);
 * ``model_ppl`` through the kernel vs through the twin: 1e-5 relative;
 * logits vs the float-weight model: max|Δ| ≤ 1e-3 · max|logits|
-  (f32 sums in another order over 40 layers).
+  (f32 sums in another order over 40 layers); the recurrent families
+  also hold each layer's contribution so (layer by layer, above);
+  rwkv6-7b only so, since its random 32 layers amplify f32 rounding: the
+  float model fed its own embedding moved by 1e-7 of itself moves its
+  logits by about 0.6 of max, as far as the kernel path is from it,
+  while every layer agrees within 1e-5.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -247,11 +293,15 @@ from repro_torch.kernels.dequant import (LAUNCHES, PLANE_GROUPS,  # noqa: E402
                                          unpack_payload_ref)
 from repro_torch.launch import plan as launch_plan  # noqa: E402
 from repro_torch.launch.serve import quantize_for_wbits  # noqa: E402
-from repro_torch.models import (decode_chunk, decode_step,  # noqa: E402
-                                loss_fn, prefill)
+from repro_torch.models import (decode_chunk, decode_layers,  # noqa: E402
+                                decode_step, loss_fn, prefill,
+                                prefill_layers)
+from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.models import (init_cache, init_params,  # noqa: E402
                                 split_layers)
-from repro_torch.models.layers import kv_tensors, moe, unembed  # noqa: E402
+from repro_torch.models import rglru as rg  # noqa: E402
+from repro_torch.models import rwkv6 as rk  # noqa: E402
+from repro_torch.models.layers import moe, q8, unembed  # noqa: E402
 from repro_torch.plan import (QuantPlan, build_plan, even_plan,  # noqa: E402
                               execute_plan, model_sensitivities,
                               plan_inputs_for_model)
@@ -576,6 +626,8 @@ def dequantized_model(params):
                             for i in range(stack)])
     if isinstance(params, dict):
         return {k: dequantized_model(v) for k, v in params.items()}
+    if isinstance(params, list):                 # the hybrid's tail
+        return [dequantized_model(v) for v in params]
     return params
 
 
@@ -588,31 +640,137 @@ def serve_path(cfg, wbits, dev, **kw):
                       **kw), params
 
 
-def launches_per_step(params, n_layers):
+def _stacked(leaf) -> int:
+    """Layers a quantized leaf holds: its scales ``s`` are (L, in) when it
+    is layer-stacked, (in,) for one layer (the hybrid's tail)."""
+    return leaf["s"].shape[0] if leaf["s"].ndim == 2 else 1
+
+
+def launches_per_step(params):
     """Dequant-kernel launches one decode step makes, by nbits (8: the int8
-    kernel): one per layer of every quantized layer-stacked leaf."""
+    kernel): one per layer of every quantized leaf (the stacked ``layers``
+    or ``groups`` and the hybrid's unstacked ``tail``)."""
     want = {}
 
     def walk(node):
         if is_qweight(node):
             c = node["codes"]
             nb = 8 if c.dtype == torch.int8 else payload_nbits(c)
-            want[nb] = want.get(nb, 0) + n_layers
+            want[nb] = want.get(nb, 0) + _stacked(node)
         elif isinstance(node, dict):
             for v in node.values():
                 walk(v)
-    walk(params["layers"])
+        elif isinstance(node, list):
+            for v in node:
+                walk(v)
+    walk({k: v for k, v in params.items() if k != "embed"})
     return want
 
 
+def _rel_check(got, ref, what):
+    """``check`` at LOGIT_TOL of ``ref``'s largest value; the relative
+    error."""
+    scale = max(float(ref.abs().max()), 1e-30)
+    return check(got, ref, what, atol=LOGIT_TOL * scale, rtol=0.0) / scale
+
+
+def layerwise_decode_check(cfg, tree, oracle, tok, dev, max_len, what):
+    """One decode step of ``tree`` held against ``oracle`` layer by layer
+    (``models.decode_layers``): both trees' layer l get the oracle's input
+    x to it, and its contribution y − x (the residual taken out, so a
+    large residual cannot hide a wrong block), the state it writes and
+    the logits of the last layer's outputs are held within LOGIT_TOL of
+    the oracle's largest value.  Errors then do not compound over the
+    depth, which at full width amplifies f32 rounding on rwkv6-7b's
+    random weights (``rounding_amplification``).  Returns the largest
+    relative error."""
+    b = tok.shape[0]
+    caches = [init_cache(cfg, b, max_len, torch.float32, device=dev)
+              for _ in range(2)]
+    layers = [decode_layers(cfg, split_layers(p), c)
+              for p, c in zip((tree, oracle), caches)]
+    x = tfm._embed_tokens(cfg, oracle, tok)
+    errs = []
+    for i, (fa, fb) in enumerate(zip(*layers)):
+        ya, yb = fa(x), fb(x)
+        errs.append(_rel_check(ya - x, yb - x, f"{what} layer {i} block"))
+        x = yb
+    errs.append(_rel_check(tfm._logits(cfg, tree, ya),
+                           tfm._logits(cfg, oracle, yb), f"{what} logits"))
+    for i, (sa, sb) in enumerate(zip(*(tfm._tree_tensors(c.kv)
+                                       for c in caches))):
+        errs.append(_rel_check(sa, sb, f"{what} state leaf {i}"))
+    return max(errs)
+
+
+def rounding_amplification(cfg, oracle, tok, dev, max_len, rel=1e-7):
+    """The float-weight model against itself: one decode step of
+    ``oracle`` from the tokens' embedding and from that embedding with
+    each entry moved by ``rel`` of itself (f32 rounding's size, Gaussian
+    from a fixed seed); the logits' largest difference over their largest
+    value.  Above LOGIT_TOL the depth amplifies rounding past the
+    tolerance, and no other f32 implementation of the same model (a
+    kernel summing in another order) can be held to it end to end."""
+    split = split_layers(oracle)
+    x = tfm._embed_tokens(cfg, oracle, tok)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    noise = torch.randn(x.shape, generator=gen, device=dev, dtype=x.dtype)
+    out = []
+    for xi in (x, x + rel * x.abs() * noise):
+        cache = init_cache(cfg, tok.shape[0], max_len, torch.float32,
+                           device=dev)
+        for layer in decode_layers(cfg, split, cache):
+            xi = layer(xi)
+        out.append(tfm._logits(cfg, oracle, xi))
+    return float((out[1] - out[0]).abs().max()) / float(out[0].abs().max())
+
+
+def layerwise_prefill_check(cfg, tree, toks, dev, max_len, what):
+    """The parallel prefill held against the stepped one layer by layer:
+    each layer's full-sequence form (``models.prefill_layers``) and its
+    decode steps over the same input (``models.decode_layers`` at each
+    position) get the parallel pass's input x to the layer; the
+    contributions y − x at every position and the state each form leaves
+    are held within LOGIT_TOL of the stepped form's largest value.
+    Returns the largest relative error."""
+    b, s = toks.shape
+    split = split_layers(tree)
+    c_par = init_cache(cfg, b, max_len, torch.float32, device=dev)
+    c_step = init_cache(cfg, b, max_len, torch.float32, device=dev)
+    par = prefill_layers(cfg, split, c_par, torch.float32)
+    steps = [decode_layers(cfg, split, c_step._replace(
+        pos=torch.tensor(t, dtype=torch.int32, device=dev)))
+        for t in range(s)]
+    x = tfm._embed_tokens(cfg, split, toks)
+    errs = []
+    for i, layer in enumerate(par):
+        y_step = torch.cat([steps[t][i](x[:, t:t + 1]) for t in range(s)],
+                           dim=1)
+        y = layer(x)
+        errs.append(_rel_check(y - x, y_step - x, f"{what} layer {i} block"))
+        x = y
+    for i, (sa, sb) in enumerate(zip(tfm._tree_tensors(c_par.kv),
+                                     tfm._tree_tensors(c_step.kv))):
+        errs.append(_rel_check(sa, sb, f"{what} state leaf {i}"))
+    return max(errs)
+
+
 def serve_tree(cfg, params, oracle_of, label, dev, *, n_req, prompt_len,
-               new_tokens, max_len, slots, chunk, per_layer=7):
+               new_tokens, max_len, slots, chunk, per_layer=7,
+               layerwise=False, end_to_end=True):
     """First-step logits of the quantized tree against
     ``oracle_of(params)`` (the same model with float weights), then
     ``ContinuousEngine`` serves ``n_req`` requests; each dequant kernel
     must run once per layer of each of its leaves per decode step
     (``per_layer`` × n_layers in all: 7 for a dense tree of one format, 4
-    for a MoE tree, whose stacked experts stay f32).  Returns a record."""
+    for a MoE tree, whose stacked experts stay f32).  With ``layerwise``
+    the first step is also held layer by layer
+    (``layerwise_decode_check``).  Without ``end_to_end`` the end-to-end
+    logits are only reported, and only where the float model itself
+    moves past LOGIT_TOL under a perturbation of f32 rounding's size
+    (``rounding_amplification``, held above LOGIT_TOL): a depth that
+    amplifies rounding so far cannot be held end to end.  Returns a
+    record."""
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab, prompt_len).astype(np.int32)
                for _ in range(n_req)]
@@ -624,13 +782,32 @@ def serve_tree(cfg, params, oracle_of, label, dev, *, n_req, prompt_len,
     oracle = oracle_of(params)
     want, _ = decode_step(cfg, oracle, init_cache(
         cfg, n_req, max_len, torch.float32, device=dev), tok)
-    del oracle
-    torch.cuda.empty_cache()
     if got.shape != (n_req, cfg.vocab):
         raise AssertionError(f"logits shape {tuple(got.shape)}")
     scale = float(want.abs().max())
-    logit_err = check(got, want, f"{cfg.name} {label} first-step logits",
-                      atol=LOGIT_TOL * scale, rtol=0.0) / scale
+    first = {"held": end_to_end,
+             "greedy_equal": float((got.argmax(-1) == want.argmax(-1))
+                                   .float().mean())}
+    if end_to_end:
+        first["rel_err"] = check(got, want, f"{cfg.name} {label} first-step "
+                                 "logits", atol=LOGIT_TOL * scale,
+                                 rtol=0.0) / scale
+    else:
+        first["rel_err"] = float((got - want).abs().max()) / scale
+        first["oracle_amplification"] = rounding_amplification(
+            cfg, oracle, tok, dev, max_len)
+        if first["oracle_amplification"] <= LOGIT_TOL:
+            raise AssertionError(
+                f"{cfg.name} {label}: the float model moves its logits by "
+                f"{first['oracle_amplification']:.3e} under a 1e-7 "
+                "perturbation, within LOGIT_TOL: hold it end to end")
+    logit_err = first["rel_err"]
+    if layerwise:
+        logit_err = layerwise_decode_check(
+            cfg, params, oracle, tok, dev, max_len,
+            f"{cfg.name} {label} first step")
+    del oracle
+    torch.cuda.empty_cache()
 
     steps = {"n": 0}
 
@@ -654,7 +831,7 @@ def serve_tree(cfg, params, oracle_of, label, dev, *, n_req, prompt_len,
     torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t0
     launches = {nb: c for nb, c in LAUNCHES.items() if c}
-    per_step = launches_per_step(params, cfg.n_layers)
+    per_step = launches_per_step(params)
     want_launches = {nb: c * steps["n"] for nb, c in per_step.items()}
     if launches != want_launches or sum(per_step.values()) != \
             per_layer * cfg.n_layers:
@@ -678,6 +855,8 @@ def serve_tree(cfg, params, oracle_of, label, dev, *, n_req, prompt_len,
            "weight_bytes": eng.weight_bytes,
            "weight_bytes_bf16": eng.weight_bytes_bf16,
            "first_step_logit_rel_err": logit_err, "streams": streams}
+    if layerwise:
+        rec["first_step_end_to_end"] = first
     print(f"serve {cfg.name} L={cfg.n_layers} {label}: {tokens} tokens in "
           f"{wall:.3f}s = {rec['tokens_per_s']:.2f} tok/s, decode step "
           f"{rec['decode_step_ms']:.3f} ms (wall), {steps['n']} decode steps,"
@@ -789,7 +968,7 @@ def step_breakdown(cfg, params, dev, slots, max_len, cases):
     # a CUDA graph of one step (the profiler now and then drops the record
     # of a kernel launched as a thread-block cluster, as both dequant
     # kernels are)
-    per_step = launches_per_step(params, cfg.n_layers)
+    per_step = launches_per_step(params)
     want = {"packed_kernels": sum(c for nb, c in per_step.items() if nb != 8),
             "int8_kernels": per_step.get(8, 0)}
     names = graph_kernel_names(lambda: decode_step(cfg, split, cache, tok))
@@ -1448,7 +1627,7 @@ def prefill_phase(cfg, tree, label, dev, *, n_req=8, prompt_len=32,
     wall = time.perf_counter() - t0
     launches = {nb: c for nb, c in LAUNCHES.items() if c}
     flash_launches = flash_attention_cuda.launches
-    want_launches = launches_per_step(tree, cfg.n_layers)
+    want_launches = launches_per_step(tree)
     hd = cfg.resolved_head_dim
     want_flash = cfg.n_layers if cfg.n_heads == cfg.n_kv \
         and hd in flash.HEAD_DIMS else 0
@@ -1695,9 +1874,20 @@ def engine_run(cfg, tree, prompts, new_tokens, dev, *, slots, max_len,
             "step_ms_mean": 1e3 * statistics.mean(steps),
             "step_ms_median": 1e3 * statistics.median(steps),
             "kv_bytes": sum(t.numel() * t.element_size()
-                            for t in kv_tensors(eng.cache.kv)),
+                            for t in tfm._tree_tensors(eng.cache.kv)),
             "launches": dict(LAUNCHES), "engine": eng,
             "streams": {r.rid: list(r.out_tokens) for r in done}}
+
+
+def static_streams(cfg, tree, prompts, new_tokens, *, slots, max_len,
+                   chunk):
+    """``ServeEngine``'s greedy streams of the prompts: {rid: tokens}."""
+    eng = ServeEngine(cfg, tree, config=EngineConfig(
+        n_slots=slots, max_len=max_len, cache_dtype=torch.float32,
+        prefill_chunk=chunk))
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, prompt=p.copy(), max_new_tokens=new_tokens))
+    return {r.rid: list(r.out_tokens) for r in eng.run_until_done()}
 
 
 def obs_serve_phase(cfg, params, dev, out, *, n_req, prompt_len, new_tokens,
@@ -2621,12 +2811,8 @@ def moe_serve_phase(dev, gen, *, n_req, prompt_len, new_tokens, max_len,
         raise AssertionError("MoE serve: a rerun of the continuous engine "
                              "gave other streams")
     rec["rerun_step_ms_median"] = rerun["step_ms_median"]
-    eng = ServeEngine(cfg, params, config=EngineConfig(
-        n_slots=slots, max_len=max_len, cache_dtype=torch.float32,
-        prefill_chunk=chunk))
-    for i, p in enumerate(prompts):
-        eng.submit(Request(rid=i, prompt=p.copy(), max_new_tokens=new_tokens))
-    static = {r.rid: list(r.out_tokens) for r in eng.run_until_done()}
+    static = static_streams(cfg, params, prompts, new_tokens, slots=slots,
+                            max_len=max_len, chunk=chunk)
     rec["static_equals_continuous"] = static == rec["streams"]
     rec["static_continuous_tokens_equal"] = sum(
         a == b for rid in static for a, b in zip(static[rid],
@@ -2880,6 +3066,448 @@ def moe_phases(dev, out, gen) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# the recurrent families: rwkv6-7b (ssm) and recurrentgemma-2b (hybrid)
+# ---------------------------------------------------------------------------
+
+RWKV_ARCH = "rwkv6-7b"
+RG_ARCH = "recurrentgemma-2b"
+#: packed denses one layer runs per decode step: RWKV6's w_r w_k w_v w_g
+#: w_o decay_a decay_b and channel-mix w_k w_v w_r; a recurrentgemma
+#: layer's w_in w_a w_x w_out (recurrent) or wq wk wv wo (attention) and
+#: its 3 MLP denses
+RECURRENT_PER_LAYER = {RWKV_ARCH: 10, RG_ARCH: 7}
+#: whether a family's full-depth first step and prefill are held end to
+#: end at LOGIT_TOL: rwkv6-7b's random 32 layers amplify f32 rounding
+#: past it (``rounding_amplification`` must show so, or the run fails),
+#: so it is held layer by layer only
+RECURRENT_END_TO_END = {RWKV_ARCH: False, RG_ARCH: True}
+#: the (k, n) of every dense of the two families at full width
+RECURRENT_SHAPES = {
+    RWKV_ARCH: [(4096, 4096), (4096, 64), (64, 4096), (4096, 14336),
+                (14336, 4096)],
+    RG_ARCH: [(2560, 5120), (2560, 2560), (2560, 256), (2560, 7680),
+              (7680, 2560)]}
+#: the windowed hybrid: recurrentgemma at full width, one group and the
+#: 2-layer tail, a 16-token window that 32-token prompts wrap
+RG_WINDOW_LAYERS = 5
+RG_WINDOW = 16
+
+
+def recurrent_kernel_phase(dev, gen, flush) -> dict:
+    """B1 (packed int4) and B2 against their twins at every (k, n) of the
+    two families, m = 8 (the 8-slot decode batch), each run twice with
+    equal bits, with the kernel, twin and ``F.linear`` times and the bound
+    by the kernel phase's formulas: {(k, n): {"int4": case, "int8":
+    case}}."""
+    cases = {}
+    for arch, shapes in RECURRENT_SHAPES.items():
+        for k, n in shapes:
+            c4 = kernel_case(4, 8, k, n, dev, gen, flush)
+            c8 = int8_case(8, k, n, "kn", dev, gen, flush, timed=True)
+            cases[(k, n)] = {"arch": arch, "int4": c4, "int8": c8}
+            print(f"recurrent kernels {arch} m=8 k={k} n={n}: B1 int4 ms="
+                  f"{c4['ms']:.5f} plain_ms={c4['plain_ms']:.5f} library_ms="
+                  f"{c4['library_ms']:.5f} bound_ms={c4['bound_ms']:.5f} "
+                  f"({c4['bound_by']}) err={c4['max_abs_err']:.3e}; B2 ms="
+                  f"{c8['ms']:.5f} plain_ms={c8['plain_ms']:.5f} library_ms="
+                  f"{c8['library_ms']:.5f} bound_ms={c8['bound_ms']:.5f} "
+                  f"({c8['bound_by']}) err={c8['max_abs_err']:.3e} [{CARD}]",
+                  flush=True)
+    return cases
+
+
+def kernel_ms_per_step(params, kcases, fmt):
+    """Device time of one decode step's dequant launches from the kernel
+    cases (m = 8): each quantized leaf's (k, n) case once per layer."""
+    total = 0.0
+
+    def walk(node):
+        nonlocal total
+        if is_qweight(node):
+            k, n = node["s"].shape[-1], node["t"].shape[-1]
+            total += _stacked(node) * kcases[(k, n)][fmt]["ms"]
+        elif isinstance(node, dict):
+            for v in node.values():
+                walk(v)
+        elif isinstance(node, list):
+            for v in node:
+                walk(v)
+    walk(params)
+    return total
+
+
+def scan_times(cfg, dev, slots, prompt_len) -> dict:
+    """Device time (CUDA events, median) of the recurrences that run as
+    plain PyTorch ops, the reference's XLA programs with no compiled
+    counterpart here, at full width: per decode step (``slots`` rows) and
+    per parallel prefill of ``prompt_len`` tokens, over the model's
+    recurrent layers.  RWKV6: the WKV update of ``rwkv_time_mix_decode``
+    and the time loop of ``rwkv_time_mix_train``; RG-LRU: the h update of
+    ``rglru_decode`` and the doubling scan of ``rglru_train``."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+    if cfg.family == "ssm":
+        hd = cfg.wkv_head_dim
+        h = cfg.d_model // hd
+        n_rec = cfg.n_layers
+        r, k, v = rnd(slots, h, hd), rnd(slots, h, hd), rnd(slots, h, hd)
+        w = torch.rand((slots, h, hd), generator=g, device=dev)
+        u, state = rnd(h, hd), rnd(slots, h, hd, hd)
+        seq = [rnd(slots, prompt_len, h, hd) for _ in range(3)]
+        wseq = torch.rand((slots, prompt_len, h, hd), generator=g,
+                          device=dev)
+
+        def decode():
+            out, kv = rk._wkv_out(r, k, v, state, u)
+            return out, w[..., None] * state + kv
+
+        def train():
+            st = torch.zeros_like(state)
+            outs = []
+            for t in range(prompt_len):
+                out, kv = rk._wkv_out(seq[0][:, t], seq[1][:, t],
+                                      seq[2][:, t], st, u)
+                st = wseq[:, t, ..., None] * st + kv
+                outs.append(out)
+            return torch.stack(outs, dim=1), st
+    else:
+        lru = cfg.lru_width or cfg.d_model
+        n_rec = sum(1 for t in cfg._layer_types() if t != "attn")
+        a = torch.rand((slots, lru), generator=g, device=dev)
+        gx, hst = rnd(slots, lru), rnd(slots, lru)
+        a_s = torch.rand((slots, prompt_len, lru), generator=g, device=dev)
+        gx_s = rnd(slots, prompt_len, lru)
+
+        def decode():
+            return a * hst + gx
+
+        def train():
+            return rg._linear_scan(a_s, gx_s)
+    dec = device_ms(decode, dev, reps=10)
+    tr = device_ms(train, dev, reps=5)
+    return {"recurrent_layers": n_rec, "decode_ms_per_layer": dec,
+            "decode_ms_per_step": dec * n_rec,
+            "prefill_ms_per_layer": tr, "prefill_ms": tr * n_rec}
+
+
+def _with_opts(value, fn):
+    """``fn()`` with ``REPRO_OPTS`` set to ``value`` (restored after)."""
+    old = os.environ.get("REPRO_OPTS")
+    os.environ["REPRO_OPTS"] = value
+    try:
+        return fn()
+    finally:
+        if old is None:
+            os.environ.pop("REPRO_OPTS", None)
+        else:
+            os.environ["REPRO_OPTS"] = old
+
+
+def recurrent_prefill_phase(cfg, params, label, dev, *, n_req, prompt_len,
+                            max_len, end_to_end=False) -> dict:
+    """``prefill`` of ``n_req`` prompts stepped (``decode_chunk``, the
+    reference's baseline) and parallel (``REPRO_OPTS=parallel_prefill``),
+    both timed; each dequant kernel once per layer of each of its leaves
+    in the parallel pass (m = B·S), ``prompt_len`` times in the stepped
+    one.  The two forms are held to each other layer by layer
+    (``layerwise_prefill_check``); the end-to-end last logits, every state
+    leaf and the next step's logits are reported, and held within
+    LOGIT_TOL of the largest value with ``end_to_end`` (a depth that does
+    not amplify rounding past it)."""
+    rng = np.random.default_rng(21)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (n_req, prompt_len)),
+                           device=dev)
+    split = split_layers(params)
+    per_step = launches_per_step(params)
+    runs = {}
+    for mode, opts in (("stepped", ""), ("parallel", "parallel_prefill")):
+        def run():
+            prefill(cfg, split, {"tokens": toks[:, :2]}, max_len,
+                    torch.float32)
+            _sync(dev)
+            reset_launches()
+            t0 = time.perf_counter()
+            out = prefill(cfg, split, {"tokens": toks}, max_len,
+                          torch.float32)
+            _sync(dev)
+            return out, time.perf_counter() - t0
+        (logits, cache), wall = _with_opts(opts, run)
+        launches = {nb: c for nb, c in LAUNCHES.items() if c}
+        times = prompt_len if mode == "stepped" else 1
+        if dev.type == "cuda" and launches != {
+                nb: c * times for nb, c in per_step.items()}:
+            raise AssertionError(f"prefill {label} {mode}: dequant launches "
+                                 f"{launches}, expected {per_step} x {times}")
+        if int(cache.pos) != prompt_len or logits.shape != (n_req,
+                                                            cfg.vocab):
+            raise AssertionError(f"prefill {label} {mode}: pos "
+                                 f"{int(cache.pos)}, logits "
+                                 f"{tuple(logits.shape)}")
+        runs[mode] = (logits, cache, wall, launches)
+    (lg_s, c_s, wall_s, _), (lg_p, c_p, wall_p, launches) = \
+        runs["stepped"], runs["parallel"]
+    layer_err = layerwise_prefill_check(cfg, params, toks, dev, max_len,
+                                        f"prefill {label} parallel vs "
+                                        "stepped")
+    nxt = torch.as_tensor(rng.integers(0, cfg.vocab, (n_req, 1)), device=dev)
+    n_s, _ = decode_step(cfg, split, c_s, nxt)
+    n_p, _ = decode_step(cfg, split, c_p, nxt)
+    pairs = [(f"state{i}", a, b) for i, (a, b) in enumerate(zip(
+        tfm._tree_tensors(c_p.kv), tfm._tree_tensors(c_s.kv)))]
+    pairs += [("logits", lg_p, lg_s), ("next_logits", n_p, n_s)]
+    errs = {}
+    for name, got, ref in pairs:
+        if end_to_end:
+            errs[name] = _rel_check(got, ref, f"prefill {label} parallel "
+                                    f"{name} vs stepped")
+        else:
+            errs[name] = float((got - ref).abs().max()) / max(
+                float(ref.abs().max()), 1e-30)
+    rec = {"format": label, "batch": n_req, "prompt_len": prompt_len,
+           "stepped_ms": 1e3 * wall_s, "parallel_ms": 1e3 * wall_p,
+           "parallel_launches": launches, "layerwise_rel_err": layer_err,
+           "end_to_end_held": end_to_end, "end_to_end_rel_err": errs,
+           "max_end_to_end_rel_err": max(errs.values()),
+           "greedy_equal": float((lg_p.argmax(-1) == lg_s.argmax(-1))
+                                 .float().mean())}
+    print(f"prefill {cfg.name} L={cfg.n_layers} {label}: {n_req} x "
+          f"{prompt_len} tokens parallel {rec['parallel_ms']:.2f} ms, stepped "
+          f"{rec['stepped_ms']:.2f} ms; parallel launches {launches}; "
+          f"parallel vs stepped layer by layer max rel err "
+          f"{layer_err:.3e}; end to end ("
+          + ("held" if end_to_end else "reported")
+          + f") max rel err {rec['max_end_to_end_rel_err']:.3e} over "
+          f"{len(pairs) - 2} state leaves, last and next logits, greedy "
+          f"equal {rec['greedy_equal']:.3f} [{CARD}]", flush=True)
+    return rec
+
+
+def recurrent_serve_phase(arch, dev, kcases, *, n_req, prompt_len,
+                          new_tokens, max_len, slots, chunk) -> dict:
+    """One recurrent family at full width and depth, packed int4 (B1 on
+    every dense): init time and peak memory; first-step logits against
+    the dequantized-weight model and the serve traffic on the continuous
+    engine (B1 RECURRENT_PER_LAYER × layers per decode step); the step's
+    breakdown (one B1 node per packed dense in its CUDA graph) with B1's
+    and the recurrences' device time per step; a rerun and the static
+    engine with equal streams; one decode step of an int8 copy through
+    B2; the stepped and parallel prefill."""
+    cfg = get_config(arch)
+    per_layer = RECURRENT_PER_LAYER[arch]
+    end_to_end = RECURRENT_END_TO_END[arch]
+    torch.empty(1, device=dev)          # the allocator exists before reset
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = quantize_for_wbits(init_params(cfg, 0, device=dev), 4)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    formats = leaf_format_histogram(params)
+    traffic = dict(n_req=n_req, prompt_len=prompt_len, new_tokens=new_tokens,
+                   max_len=max_len, slots=slots, chunk=chunk)
+    rec = serve_tree(cfg, params, dequantized_model, "int4", dev,
+                     per_layer=per_layer, layerwise=True,
+                     end_to_end=end_to_end, **traffic)
+    rec.update(init_s=init_s, formats=formats,
+               peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    rec.update(step_breakdown(cfg, params, dev, slots, max_len, ()))
+    rec["b1_ms_per_step"] = kernel_ms_per_step(params, kcases, "int4")
+    rec["scan"] = scan_times(cfg, dev, slots, prompt_len)
+    prompts = moe_prompts(cfg, n_req, prompt_len)
+    rerun = engine_run(cfg, params, prompts, new_tokens, dev, slots=slots,
+                       max_len=max_len, chunk=chunk)
+    if rerun["streams"] != rec["streams"]:
+        raise AssertionError(f"{arch}: a rerun of the continuous engine gave "
+                             "other streams")
+    rec["rerun_step_ms_median"] = rerun["step_ms_median"]
+    static = static_streams(cfg, params, prompts, new_tokens, slots=slots,
+                            max_len=max_len, chunk=chunk)
+    if static != rec["streams"]:
+        raise AssertionError(f"{arch}: ServeEngine's streams differ from "
+                             "ContinuousEngine's")
+    # int8 (B2): the dequantized model requantized to int8 codes
+    deq = dequantized_model(params)
+    int8 = quantize_params_tree(deq)
+    del deq
+    tok = torch.as_tensor(np.stack([p[:1] for p in prompts]),
+                          dtype=torch.long, device=dev)
+    reset_launches()
+    got, _ = decode_step(cfg, int8, init_cache(cfg, n_req, max_len,
+                                               torch.float32, device=dev),
+                         tok)
+    torch.cuda.synchronize(dev)
+    int8_launches = {nb: c for nb, c in LAUNCHES.items() if c}
+    if int8_launches != {8: per_layer * cfg.n_layers}:
+        raise AssertionError(f"{arch} int8 decode step launches "
+                             f"{int8_launches}")
+    oracle = dequantized_model(int8)
+    want, _ = decode_step(cfg, oracle, init_cache(
+        cfg, n_req, max_len, torch.float32, device=dev), tok)
+    scale = float(want.abs().max())
+    rec["int8_step"] = {
+        "launches": int8_launches,
+        "b2_ms_per_step": kernel_ms_per_step(int8, kcases, "int8"),
+        "logit_rel_err": layerwise_decode_check(
+            cfg, int8, oracle, tok, dev, max_len, f"{arch} int8 first step"),
+        "end_to_end_held": end_to_end,
+        "end_to_end_rel_err": (check(
+            got, want, f"{arch} int8 first-step logits",
+            atol=LOGIT_TOL * scale, rtol=0.0) if end_to_end
+            else float((got - want).abs().max())) / scale}
+    del oracle
+    del int8
+    torch.cuda.empty_cache()
+    rec["prefill"] = recurrent_prefill_phase(
+        cfg, params, "int4", dev, n_req=n_req, prompt_len=prompt_len,
+        max_len=max_len, end_to_end=end_to_end)
+    rec["peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    busy = rec.get("device_busy_ms_per_step")
+    scan = rec["scan"]
+    first = rec["first_step_end_to_end"]
+    print(f"recurrent serve {arch} L={cfg.n_layers}: {rec['tokens']} tokens "
+          f"{rec['tokens_per_s']:.2f} tok/s, decode step "
+          f"{rec['decode_step_ms']:.3f} ms (engine), step wall "
+          f"{rec['decode_step_wall_ms']:.3f} ms, traced step "
+          f"{rec['traced_step_wall_ms']:.3f} ms, device busy "
+          + ("not measured" if busy is None else
+             f"{busy:.3f} ms, idle share {rec['device_idle_share']:.4f}, "
+             f"{rec['device_activities_per_step']:.0f} activities")
+          + f"; B1 {rec['b1_ms_per_step']:.3f} ms per step (kernel cases), "
+          f"{rec['launches_per_step']} per step, "
+          f"{rec['graph_packed_kernels_per_step']} in a CUDA graph of one "
+          f"step ({rec['graph_kernels_per_step']} kernels in all); "
+          f"recurrence {scan['decode_ms_per_step']:.3f} ms per step, "
+          f"{scan['prefill_ms']:.3f} ms per prefill; unembed "
+          f"{rec['unembed_ms']:.5f} ms; rerun equal, static == continuous; "
+          f"int8 step B2 {int8_launches} "
+          f"({rec['int8_step']['b2_ms_per_step']:.3f} ms); first step "
+          f"layer by layer rel err int4 "
+          f"{rec['first_step_logit_rel_err']:.3e} int8 "
+          f"{rec['int8_step']['logit_rel_err']:.3e}, end to end ("
+          + ("held" if end_to_end else "reported, float model moves "
+             f"{first['oracle_amplification']:.3e} under a 1e-7 "
+             "perturbation")
+          + f") int4 {first['rel_err']:.3e} (greedy equal "
+          f"{first['greedy_equal']:.3f}) int8 "
+          f"{rec['int8_step']['end_to_end_rel_err']:.3e}; init {init_s:.1f} s, "
+          f"peak {rec['peak_memory_gb']:.1f} GB [{CARD}]", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return rec
+
+
+def windowed_hybrid_phase(dev, *, n_req, prompt_len, new_tokens, max_len,
+                          slots, chunk) -> dict:
+    """recurrentgemma at full width, RG_WINDOW_LAYERS layers (one group
+    and the 2-layer tail), window RG_WINDOW that the prompts wrap, packed
+    int4: parallel prefill against stepped (the ring's slots, every state
+    leaf, the next step's logits) and continuous against static streams;
+    then under ``int8_kv``: the parallel prefill's int8 codes and scales
+    are ``q8`` of the f32 parallel prefill's K/V bit for bit, its logits
+    the f32 pass's, the stepped int8 cache's codes within one step of
+    them, and the two engines' streams equal."""
+    cfg = dataclasses.replace(get_config(RG_ARCH),
+                              n_layers=RG_WINDOW_LAYERS,
+                              local_window=RG_WINDOW)
+    params = quantize_for_wbits(init_params(cfg, 0, device=dev), 4)
+    split = split_layers(params)
+    rec = {"prefill": recurrent_prefill_phase(
+        cfg, params, f"int4 window {RG_WINDOW}", dev, n_req=n_req,
+        prompt_len=prompt_len, max_len=max_len, end_to_end=True)}
+    prompts = moe_prompts(cfg, n_req, prompt_len)
+    kw = dict(slots=slots, max_len=max_len, chunk=chunk)
+    for kv in ("f32", "int8"):
+        opts = "int8_kv" if kv == "int8" else ""
+        cont = _with_opts(opts, lambda: engine_run(
+            cfg, params, prompts, new_tokens, dev, **kw))
+        static = _with_opts(opts, lambda: static_streams(
+            cfg, params, prompts, new_tokens, **kw))
+        if static != cont["streams"]:
+            raise AssertionError(f"windowed hybrid {kv} KV: static and "
+                                 "continuous streams differ")
+        rec[f"{kv}_streams"] = cont["streams"]
+        rec[f"{kv}_step_ms_median"] = cont["step_ms_median"]
+    toks = torch.as_tensor(np.stack(prompts), dtype=torch.long, device=dev)
+    batch = {"tokens": toks}
+    lg8, c8 = _with_opts("int8_kv,parallel_prefill", lambda: prefill(
+        cfg, split, batch, max_len, torch.float32))
+    lg32, c32 = _with_opts("parallel_prefill", lambda: prefill(
+        cfg, split, batch, max_len, torch.float32))
+    _, c8s = _with_opts("int8_kv", lambda: prefill(
+        cfg, split, batch, max_len, torch.float32))
+    kv8, kv32, kv8s = c8.kv["kv"], c32.kv["kv"], c8s.kv["kv"]
+    if kv8.k.dtype != torch.int8 or kv8s.k.dtype != torch.int8:
+        raise AssertionError("int8_kv prefill: the cache is not int8")
+    for name, codes, scale, f32 in (("k", kv8.k, kv8.k_scale, kv32.k),
+                                    ("v", kv8.v, kv8.v_scale, kv32.v)):
+        want_c, want_s = q8(f32)
+        if not (torch.equal(codes, want_c) and torch.equal(scale, want_s)):
+            raise AssertionError(f"int8_kv parallel prefill {name}: not q8 "
+                                 "of the f32 parallel prefill's cache")
+    scale = float(lg32.abs().max())
+    lg_err = check(lg8, lg32, "int8_kv parallel prefill logits",
+                   atol=LOGIT_TOL * scale, rtol=0.0) / scale
+    code_diff = max(int((a.int() - b.int()).abs().max())
+                    for a, b in ((kv8.k, kv8s.k), (kv8.v, kv8s.v)))
+    if code_diff > 1:
+        raise AssertionError(f"int8_kv prefill: parallel and stepped codes "
+                             f"{code_diff} apart")
+    rec["int8_kv"] = {
+        "logits_rel_err": lg_err, "logits_bit_equal": bool(
+            torch.equal(lg8, lg32)),
+        "stepped_code_max_diff": code_diff,
+        "stepped_codes_differing": float(torch.cat([
+            (kv8.k != kv8s.k).flatten(), (kv8.v != kv8s.v).flatten()])
+            .float().mean())}
+    print(f"windowed hybrid {cfg.name} L={cfg.n_layers} window "
+          f"{cfg.local_window}: prefill parallel "
+          f"{rec['prefill']['parallel_ms']:.2f} ms vs stepped "
+          f"{rec['prefill']['stepped_ms']:.2f} ms (max rel err "
+          f"{rec['prefill']['max_end_to_end_rel_err']:.3e}, ring of "
+          f"{kv32.k.shape[2]} slots); static == continuous with f32 and "
+          f"int8 KV (median step {rec['f32_step_ms_median']:.2f} / "
+          f"{rec['int8_step_ms_median']:.2f} ms); int8_kv parallel prefill "
+          f"= q8 of the f32 cache, logits rel err {lg_err:.3e}, stepped "
+          f"codes within {code_diff} "
+          f"({rec['int8_kv']['stepped_codes_differing']:.4%} differ) "
+          f"[{CARD}]", flush=True)
+    return rec
+
+
+def recurrent_phases(dev, gen) -> dict:
+    """The recurrent cells, in order: B1/B2 at the families' shapes,
+    rwkv6-7b and recurrentgemma-2b at full width and depth, the windowed
+    hybrid; each one's wall time."""
+    traffic = dict(n_req=8, prompt_len=32, new_tokens=16, max_len=64,
+                   slots=8, chunk=16)
+    rec, took = {}, {}
+    t0 = time.perf_counter()
+    flush = torch.ones(16 << 20, dtype=torch.float32, device=dev)  # 64 MB
+    kcases = recurrent_kernel_phase(dev, gen, flush)
+    del flush
+    took["kernels"] = time.perf_counter() - t0
+    rec["kernels"] = [dict(k=k, n=n, **v) for (k, n), v in kcases.items()]
+    for name, fn in (
+            (RWKV_ARCH, lambda: recurrent_serve_phase(
+                RWKV_ARCH, dev, kcases, **traffic)),
+            (RG_ARCH, lambda: recurrent_serve_phase(
+                RG_ARCH, dev, kcases, **traffic)),
+            ("window", lambda: windowed_hybrid_phase(dev, **traffic))):
+        t0 = time.perf_counter()
+        rec[name] = fn()
+        torch.cuda.empty_cache()
+        took[name] = time.perf_counter() - t0
+    rec["phase_s"] = took
+    rec["total_s"] = sum(took.values())
+    print("recurrent phases (s): " + ", ".join(f"{k} {v:.1f}"
+                                               for k, v in took.items())
+          + f"; total {rec['total_s']:.1f} [{CARD}]", flush=True)
+    return rec
+
+
 T_START = time.perf_counter()
 #: ``nvidia-smi``'s name and power limit of the card, set by ``main``;
 #: every report line of the slice-7 phases carries it
@@ -3020,6 +3648,15 @@ def main() -> int:
           f"{time.perf_counter() - T_START:.1f}s", flush=True)
     moe_rec = moe_phases(dev, out, gen)
     print(f"smoke so far {time.perf_counter() - T_START:.1f}s", flush=True)
+    recurrent = recurrent_phases(dev, gen)
+    print(f"smoke so far {time.perf_counter() - T_START:.1f}s", flush=True)
+    rec_cases = [v["int4"] for v in recurrent["kernels"]]
+    rec_int8 = [v["int8"] for v in recurrent["kernels"]]
+    # the recurrent serve runs' B1 launches and their int8 steps' B2
+    rec_b1 = sum(recurrent[a]["launches"].get(4, 0)
+                 for a in (RWKV_ARCH, RG_ARCH))
+    rec_b2 = sum(recurrent[a]["int8_step"]["launches"].get(8, 0)
+                 for a in (RWKV_ARCH, RG_ARCH))
 
     kernels, detail_mix = [], {}
     for nbits in (4, 3, 2):
@@ -3034,9 +3671,9 @@ def main() -> int:
         kernels.append({
             "name": f"dequant_matmul_packed_int{nbits}", "route": "cuda",
             "source": SOURCE, "replaces": REPLACES,
-            "launches": serve["launches"][4] if nbits == 4
+            "launches": serve["launches"][4] + rec_b1 if nbits == 4
             else ladder[nbits]["launches"][nbits],
-            "max_abs_err": max(c["max_abs_err"] for c in cases
+            "max_abs_err": max(c["max_abs_err"] for c in cases + rec_cases
                                if c["nbits"] == nbits),
             "ms": per_launch["ms"], "plain_ms": per_launch["plain_ms"],
             "bound_ms": per_launch["bound_ms"],
@@ -3055,8 +3692,8 @@ def main() -> int:
     kernels.append({
         "name": "dequant_matmul_int8", "route": "cuda",
         "source": INT8_SOURCE, "replaces": INT8_REPLACES,
-        "launches": planned["serve"]["launches"][8],
-        "max_abs_err": max(c["max_abs_err"] for c in int8_cases),
+        "launches": planned["serve"]["launches"][8] + rec_b2,
+        "max_abs_err": max(c["max_abs_err"] for c in int8_cases + rec_int8),
         "ms": int8_mix["ms"], "plain_ms": int8_mix["plain_ms"],
         "bound_ms": int8_mix["bound_ms"],
         "bound_by": "bytes" if int8_mix["bytes_ms"]
@@ -3101,7 +3738,7 @@ def main() -> int:
               "resilience_serve": resilience, "int8_kv": int8kv,
               "chaos": chaos_rows, "degrade": degrade, "quality": quality,
               "requant_full": requant_full, "slice7_phase_s": phase_s,
-              "moe": moe_rec,
+              "moe": moe_rec, "recurrent": recurrent,
               "total_s": time.perf_counter() - T_START}
     (out / "chip_smoke_detail.json").write_text(json.dumps(detail, indent=1,
                                                            default=float))

@@ -1,8 +1,10 @@
-"""repro_torch.configs — the dense and MoE architectures the port serves."""
+"""repro_torch.configs — the dense, MoE, ssm (RWKV6) and hybrid (RG-LRU)
+architectures the port serves."""
 import importlib
 
 _MODULES = ["minicpm_2b", "qwen1_5_32b", "qwen2_5_32b", "minitron_8b",
-            "phi3_5_moe", "moonshot_v1_16b"]
+            "phi3_5_moe", "moonshot_v1_16b", "rwkv6_7b",
+            "recurrentgemma_2b"]
 _loaded = False
 
 

@@ -65,6 +65,14 @@ class ArchConfig:
         back to the true vocab)."""
         return ((self.vocab + 255) // 256) * 256
 
+    def _layer_types(self) -> Tuple[str, ...]:
+        """Each layer's block kind in order: ``attn`` for every layer of a
+        config without a block pattern, else the pattern repeated."""
+        if not self.block_pattern:
+            return ("attn",) * self.n_layers
+        reps = self.n_layers // len(self.block_pattern) + 1
+        return (self.block_pattern * reps)[: self.n_layers]
+
     def reduced(self) -> "ArchConfig":
         """Tiny same-family config for CPU smoke tests (the reference's
         exact reduction, so both packages build the same shapes)."""

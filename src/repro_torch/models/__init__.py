@@ -1,14 +1,17 @@
-"""repro_torch.models — the dense decoder: serving and evaluation paths."""
+"""repro_torch.models — the decoders of the dense, MoE, ssm (RWKV6) and
+hybrid (RG-LRU) families: serving and evaluation paths."""
+from . import rglru, rwkv6
 from .convert import (from_jax_calib_stats, from_jax_params,
                       from_jax_quantized_linear)
 from .transformer import (DecodeCache, cache_reset_slot, cache_rows,
-                          cache_write_slot, decode_chunk, decode_step,
-                          forward_train, init_cache, init_params, layer_kv,
-                          loss_fn, prefill, split_layers)
+                          cache_write_slot, decode_chunk, decode_layers,
+                          decode_step, forward_train, init_cache,
+                          init_params, layer_kv, loss_fn, prefill,
+                          prefill_layers, split_layers)
 
 __all__ = ["DecodeCache", "cache_reset_slot", "cache_rows", "cache_write_slot",
-           "decode_chunk", "decode_step", "forward_train",
+           "decode_chunk", "decode_layers", "decode_step", "forward_train",
            "from_jax_calib_stats", "from_jax_params",
            "from_jax_quantized_linear",
            "init_cache", "init_params", "layer_kv", "loss_fn", "prefill",
-           "split_layers"]
+           "prefill_layers", "rglru", "rwkv6", "split_layers"]

@@ -17,7 +17,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import flash
 
-__all__ = ["rmsnorm", "layernorm", "dense", "rope", "KVCache", "kv_tensors",
+__all__ = ["rmsnorm", "layernorm", "dense", "rope", "KVCache",
            "q8", "attention_train", "attention_decode", "mlp", "moe",
            "moe_experts", "embed", "unembed"]
 
@@ -112,11 +112,6 @@ class KVCache(NamedTuple):
     v: torch.Tensor
     k_scale: Any = ()
     v_scale: Any = ()
-
-
-def kv_tensors(kv: KVCache):
-    """The cache's tensor fields (the int8 scales only when present)."""
-    return [t for t in kv if torch.is_tensor(t)]
 
 
 def q8(x: torch.Tensor):

@@ -1,7 +1,7 @@
-"""Decoder of the dense and MoE families: init, full-sequence forward,
-slot KV cache and decode (port of those families of
-``repro/models/transformer.py``; a MoE layer runs ``layers.moe`` where a
-dense one runs ``layers.mlp``).
+"""Decoder of the dense, MoE, ssm (RWKV6) and hybrid (RG-LRU + local
+attention) families: init, full-sequence forward, decode caches, decode
+and prefill (port of those families of ``repro/models/transformer.py``;
+a MoE layer runs ``layers.moe`` where a dense one runs ``layers.mlp``).
 
 API (plain functions of (cfg, params, ...)):
   init_params(cfg, seed, device)             -> param tree (reference keys)
@@ -15,14 +15,19 @@ API (plain functions of (cfg, params, ...)):
   split_layers(params)                       -> params with per-layer views
 
 The reference's ``jax.lax.scan`` over layers is a Python loop over the
-first axis of the stacked leaves.  The decode functions take either the
-stacked tree or one that :func:`split_layers` already cut into per-layer
-views; a caller that steps many times (the engines) splits once.  K/V
-buffers are updated in place; the returned cache shares them with the
-input cache and carries a new position tensor.
+first axis of the stacked leaves (``layers``, or the hybrid's ``groups``
+of one block pattern each, followed by its unstacked ``tail`` list).
+The decode functions take either the stacked tree or one that
+:func:`split_layers` already cut into per-layer views; a caller that steps
+many times (the engines) splits once.  Every cache leaf (K/V buffers,
+int8 scales, RWKV shift and WKV states, RG-LRU h and conv states) carries
+the layer on axis 0 and the batch on axis 1, and is updated IN PLACE: the
+returned cache shares its tensors with the input cache and carries a new
+position tensor.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, NamedTuple
 
 import torch
@@ -30,21 +35,27 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.opts import enabled as _opt
+from . import rglru as rg
+from . import rwkv6 as rk
 from .layers import (KVCache, attention_decode, attention_train, embed,
-                     kv_tensors, layernorm, mlp, moe, q8, rmsnorm, unembed)
+                     layernorm, mlp, moe, q8, rmsnorm, unembed)
 
 __all__ = ["init_params", "forward_train", "loss_fn", "init_cache",
            "decode_step", "decode_chunk", "prefill", "cache_write_slot",
            "cache_reset_slot", "cache_rows", "layer_kv", "split_layers",
-           "DecodeCache"]
+           "decode_layers", "prefill_layers", "DecodeCache"]
+
+_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def _check_family(cfg: ArchConfig):
-    if cfg.family not in ("dense", "moe") or cfg.block_pattern \
-            or (cfg.family == "moe") != bool(cfg.n_experts):
+    if cfg.family not in _FAMILIES \
+            or (cfg.family == "moe") != bool(cfg.n_experts) \
+            or (cfg.family == "hybrid") != bool(cfg.block_pattern):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense and MoE families are ported "
-            "(ROADMAP item 12)")
+            f"{cfg.name}: the {cfg.family} family is not ported; the port "
+            "serves the dense, MoE, ssm and hybrid families (ROADMAP item "
+            "12)")
 
 
 def _ffn(cfg, lp, x):
@@ -68,7 +79,7 @@ def _norm(cfg, p, x):
 
 def init_params(cfg: ArchConfig, seed: int = 0, *, device=None,
                 dtype=torch.float32):
-    """Random decoder params on ``device`` from a ``torch.Generator``.
+    """Random params on ``device`` from a ``torch.Generator``.
 
     Same tree and shapes as the reference's ``init_params`` (after
     ``split_tree``); the values differ by design.  Weights are normal with
@@ -76,7 +87,12 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device=None,
     with std 0.02.  A MoE layer holds ``moe = {router: {w: (L, d, E)},
     w_gate, w_up: (L, E, d, ff), w_out: (L, E, ff, d)}`` (``w_in`` in
     place of the gate and up weights when the MLP is not gated) where a
-    dense one holds ``mlp``.
+    dense one holds ``mlp``.  The ssm family stacks ``ln_tm``, ``ln_cm``
+    and the RWKV6 ``tm``/``cm`` blocks (``rwkv6.rwkv6_init``) over its
+    layers; the hybrid family stacks one block pattern per group under
+    ``groups.b{i}`` (``ln_t``, ``ln_mlp``, ``mlp`` and ``attn`` or
+    ``rec``) and keeps the ``n_layers mod len(pattern)`` last layers
+    unstacked in the ``tail`` list.
     """
     _check_family(cfg)
     dev = resolve_device(device)
@@ -89,166 +105,82 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device=None,
         return torch.randn(shape, generator=gen, device=dev,
                            dtype=torch.float32).mul_(std).to(dtype)
 
-    def lin(n_in, n_out, bias):
-        p = {"w": normal((L, n_in, n_out), n_in ** -0.5)}
+    def lin(n_in, n_out, bias, lead=(L,)):
+        p = {"w": normal(lead + (n_in, n_out), n_in ** -0.5)}
         if bias:
-            p["b"] = torch.zeros((L, n_out), dtype=dtype, device=dev)
+            p["b"] = torch.zeros(lead + (n_out,), dtype=dtype, device=dev)
         return p
 
-    def norm():
-        p = {"scale": torch.ones((L, d), dtype=torch.float32, device=dev)}
+    def norm(lead=(L,)):
+        p = {"scale": torch.ones(lead + (d,), dtype=torch.float32,
+                                 device=dev)}
         if cfg.norm == "layernorm":
-            p["bias"] = torch.zeros((L, d), dtype=torch.float32, device=dev)
+            p["bias"] = torch.zeros(lead + (d,), dtype=torch.float32,
+                                    device=dev)
         return p
 
-    attn = {"wq": lin(d, cfg.n_heads * hd, cfg.qkv_bias),
-            "wk": lin(d, cfg.n_kv * hd, cfg.qkv_bias),
-            "wv": lin(d, cfg.n_kv * hd, cfg.qkv_bias),
-            "wo": lin(cfg.n_heads * hd, d, cfg.out_bias)}
-    if cfg.n_experts:
+    def attn(lead=(L,), qkv_bias=cfg.qkv_bias, out_bias=cfg.out_bias):
+        return {"wq": lin(d, cfg.n_heads * hd, qkv_bias, lead),
+                "wk": lin(d, cfg.n_kv * hd, qkv_bias, lead),
+                "wv": lin(d, cfg.n_kv * hd, qkv_bias, lead),
+                "wo": lin(cfg.n_heads * hd, d, out_bias, lead)}
+
+    def mlp_p(lead=(L,), bias=cfg.out_bias):
+        p = {"w_out": lin(cfg.d_ff, d, bias, lead)}
+        if cfg.gated_mlp:
+            p["w_gate"] = lin(d, cfg.d_ff, bias, lead)
+            p["w_up"] = lin(d, cfg.d_ff, bias, lead)
+        else:
+            p["w_in"] = lin(d, cfg.d_ff, bias, lead)
+        return p
+
+    params = {"embed": {"w": normal((cfg.padded_vocab, d), 0.02)}}
+    if cfg.family == "ssm":
+        params["layers"] = {
+            "ln_tm": norm(), "ln_cm": norm(),
+            **rk.rwkv6_init(normal, d, cfg.d_ff, head_dim=cfg.wkv_head_dim,
+                            decay_lora=cfg.decay_lora, dtype=dtype, stack=L,
+                            device=dev)}
+    elif cfg.family == "hybrid":
+        pat = cfg.block_pattern
+        n_groups = L // len(pat)
+        lru = cfg.lru_width or d
+
+        def block(kind, lead):
+            sub = {"ln_t": norm(lead), "ln_mlp": norm(lead),
+                   "mlp": mlp_p(lead, bias=False)}
+            if kind == "attn":
+                sub["attn"] = attn(lead, qkv_bias=False, out_bias=False)
+            else:
+                sub["rec"] = rg.rglru_init(
+                    normal, d, lru, conv_width=cfg.conv_width, dtype=dtype,
+                    stack=lead[0] if lead else None, device=dev)
+            return sub
+
+        params["groups"] = {f"b{i}": block(kind, (n_groups,))
+                            for i, kind in enumerate(pat)}
+        params["tail"] = [block(pat[k], ())
+                          for k in range(L - n_groups * len(pat))]
+    elif cfg.n_experts:
         E, ff = cfg.n_experts, cfg.d_ff
         ffn = {"router": lin(d, E, False),
                "w_out": normal((L, E, ff, d), ff ** -0.5)}
         for key in (("w_gate", "w_up") if cfg.gated_mlp else ("w_in",)):
             ffn[key] = normal((L, E, d, ff), d ** -0.5)
+        params["layers"] = {"ln_attn": norm(), "attn": attn(),
+                            "ln_mlp": norm(), "moe": ffn}
     else:
-        ffn = {"w_out": lin(cfg.d_ff, d, cfg.out_bias)}
-        if cfg.gated_mlp:
-            ffn["w_gate"] = lin(d, cfg.d_ff, cfg.out_bias)
-            ffn["w_up"] = lin(d, cfg.d_ff, cfg.out_bias)
-        else:
-            ffn["w_in"] = lin(d, cfg.d_ff, cfg.out_bias)
+        params["layers"] = {"ln_attn": norm(), "attn": attn(),
+                            "ln_mlp": norm(), "mlp": mlp_p()}
     ln_f = {"scale": torch.ones((d,), dtype=torch.float32, device=dev)}
     if cfg.norm == "layernorm":
         ln_f["bias"] = torch.zeros((d,), dtype=torch.float32, device=dev)
-    return {"embed": {"w": normal((cfg.padded_vocab, d), 0.02)},
-            "layers": {"ln_attn": norm(), "attn": attn, "ln_mlp": norm(),
-                       "moe" if cfg.n_experts else "mlp": ffn},
-            "ln_f": ln_f}
+    params["ln_f"] = ln_f
+    return params
 
 
 # ---------------------------------------------------------------------------
-# full-sequence forward
-# ---------------------------------------------------------------------------
-
-
-def _attn_kwargs(cfg):
-    return dict(n_q=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.resolved_head_dim,
-                rope_theta=cfg.rope_theta)
-
-
-def _embed_tokens(cfg, params, tokens):
-    x = embed(params["embed"], tokens)
-    if cfg.embed_scale:
-        x = x * cfg.d_model ** 0.5
-    return x
-
-
-def forward_train(cfg: ArchConfig, params, batch) -> torch.Tensor:
-    """Full-sequence logits (B, S, vocab) of ``batch["tokens"]`` (B, S),
-    causal, every layer's attention through ``attention_train``."""
-    _check_family(cfg)
-    x = _embed_tokens(cfg, params, batch["tokens"])
-    for lp in split_layers(params)["layers"]:
-        x = x + attention_train(lp["attn"], _norm(cfg, lp["ln_attn"], x),
-                                causal=True,
-                                window=cfg.local_window or None,
-                                **_attn_kwargs(cfg))
-        x = x + _ffn(cfg, lp, _norm(cfg, lp["ln_mlp"], x))
-    x = _norm(cfg, params["ln_f"], x)
-    return unembed(params["embed"], x, cfg.vocab)
-
-
-def loss_fn(cfg: ArchConfig, params, batch) -> torch.Tensor:
-    """Mean next-token negative log-likelihood of ``batch["targets"]``."""
-    logits = forward_train(cfg, params, batch).to(torch.float32)
-    logp = torch.log_softmax(logits, dim=-1)
-    ll = torch.gather(logp, -1, batch["targets"][..., None].long())[..., 0]
-    return -ll.mean()
-
-
-# ---------------------------------------------------------------------------
-# caches
-# ---------------------------------------------------------------------------
-
-
-class DecodeCache(NamedTuple):
-    kv: Any                   # KVCache, each (L, B, buf, n_kv, hd) (+ the
-                              # int8 scales (L, B, buf, n_kv, 1))
-    pos: torch.Tensor         # int32: 0-d (lockstep) or (B,) per slot
-    extras: Any = ()
-
-
-def init_cache(cfg: ArchConfig, batch: int, max_len: int,
-               dtype=torch.bfloat16, *, per_slot: bool = False,
-               device=None) -> DecodeCache:
-    """Fresh decode cache; ``per_slot=True`` makes ``pos`` a (batch,)
-    vector, one position counter per serving slot.  With ``REPRO_OPTS``
-    holding ``int8_kv`` the K/V buffers are int8 with f32 scales (the
-    reference's ``_kv_buf``) and ``dtype`` is not used."""
-    _check_family(cfg)
-    dev = resolve_device(device)
-    buf = min(max_len, cfg.local_window) if cfg.local_window else max_len
-    shape = (cfg.n_layers, batch, buf, cfg.n_kv, cfg.resolved_head_dim)
-    if _opt("int8_kv"):
-        sshape = shape[:-1] + (1,)
-        kv = KVCache(k=torch.zeros(shape, dtype=torch.int8, device=dev),
-                     v=torch.zeros(shape, dtype=torch.int8, device=dev),
-                     k_scale=torch.zeros(sshape, dtype=torch.float32,
-                                         device=dev),
-                     v_scale=torch.zeros(sshape, dtype=torch.float32,
-                                         device=dev))
-    else:
-        kv = KVCache(k=torch.zeros(shape, dtype=dtype, device=dev),
-                     v=torch.zeros(shape, dtype=dtype, device=dev))
-    pos = torch.zeros((batch,) if per_slot else (), dtype=torch.int32,
-                      device=dev)
-    return DecodeCache(kv, pos)
-
-
-def layer_kv(kv: KVCache, i: int) -> KVCache:
-    """Layer ``i``'s views of a layer-stacked KV cache (scales included)."""
-    return KVCache(*(t[i] if torch.is_tensor(t) else t for t in kv))
-
-
-def cache_rows(cache: DecodeCache, i: int) -> DecodeCache:
-    """Batch row ``i`` of a cache as a batch-1 cache of views."""
-    return cache._replace(kv=KVCache(*(t[:, i:i + 1] if torch.is_tensor(t)
-                                       else t for t in cache.kv)))
-
-
-def _slot_index(slot, batch: int) -> int:
-    # dynamic_update_slice clamps the start into range; so does this
-    return min(max(int(slot), 0), batch - 1)
-
-
-def cache_write_slot(cache: DecodeCache, sub: DecodeCache,
-                     slot) -> DecodeCache:
-    """Graft a batch-1 ``sub`` cache into row ``slot`` of a per-slot cache
-    (in place): the admission primitive of the continuous engine."""
-    if cache.pos.ndim != 1:
-        raise ValueError("cache_write_slot needs a per-slot cache")
-    i = _slot_index(slot, cache.pos.shape[0])
-    for big, small in zip(kv_tensors(cache.kv), kv_tensors(sub.kv)):
-        big[:, i:i + 1] = small.to(big.dtype)
-    sub_pos = sub.pos if sub.pos.ndim == 0 else sub.pos[0]
-    cache.pos[i] = sub_pos.to(torch.int32)
-    return cache
-
-
-def cache_reset_slot(cache: DecodeCache, slot) -> DecodeCache:
-    """Zero row ``slot`` of a per-slot cache and its position (in place)."""
-    if cache.pos.ndim != 1:
-        raise ValueError("cache_reset_slot needs a per-slot cache")
-    i = _slot_index(slot, cache.pos.shape[0])
-    for big in kv_tensors(cache.kv):
-        big[:, i:i + 1] = 0
-    cache.pos[i] = 0
-    return cache
-
-
-# ---------------------------------------------------------------------------
-# decode
+# layer views
 # ---------------------------------------------------------------------------
 
 
@@ -280,32 +212,323 @@ def _leaves(node):
 
 
 def split_layers(params):
-    """``params`` with its stacked ``layers`` tree cut into a list of
-    per-layer trees of views (no copy); the other entries are shared."""
-    if isinstance(params["layers"], list):
+    """``params`` with its stacked ``layers`` tree (the hybrid's ``groups``
+    tree) cut into a list of per-layer (per-group) trees of views (no
+    copy); the other entries, the hybrid's ``tail`` list among them, are
+    shared."""
+    key = "groups" if "groups" in params else "layers"
+    if isinstance(params[key], list):
         return params
-    return {**params, "layers": _layer_params(params["layers"])}
+    return {**params, key: _layer_params(params[key])}
 
 
-def decode_step(cfg: ArchConfig, params, cache: DecodeCache, token):
-    """One decode step: token (B, 1) int → (logits (B, vocab), cache)."""
-    _check_family(cfg)
-    pos = cache.pos
-    x = _embed_tokens(cfg, params, token)
-    ak = dict(_attn_kwargs(cfg), window=cfg.local_window or None)
+def _hybrid_layers(cfg, params):
+    """(kind, layer tree) of every hybrid layer in order: each group's
+    pattern, then the tail."""
+    pat = cfg.block_pattern
+    split = split_layers(params)
+    out = [(kind, gp[f"b{i}"]) for gp in split["groups"]
+           for i, kind in enumerate(pat)]
+    out += [(pat[k], sub) for k, sub in enumerate(params["tail"])]
+    if len(out) != cfg.n_layers:
+        raise ValueError(f"params hold {len(out)} layers, {cfg.name} has "
+                         f"{cfg.n_layers}")
+    return out
+
+
+def _layers(cfg, params):
     layers = split_layers(params)["layers"]
     if len(layers) != cfg.n_layers:
         raise ValueError(f"params hold {len(layers)} layers, "
                          f"{cfg.name} has {cfg.n_layers}")
-    for i, lp in enumerate(layers):
-        a_in = _norm(cfg, lp["ln_attn"], x)
-        a_out, _ = attention_decode(
-            lp["attn"], a_in, layer_kv(cache.kv, i), pos, **ak)
-        x = x + a_out
-        x = x + _ffn(cfg, lp, _norm(cfg, lp["ln_mlp"], x))
+    return layers
+
+
+# ---------------------------------------------------------------------------
+# full-sequence forward
+# ---------------------------------------------------------------------------
+
+
+def _attn_kwargs(cfg):
+    return dict(n_q=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.resolved_head_dim,
+                rope_theta=cfg.rope_theta)
+
+
+def _embed_tokens(cfg, params, tokens):
+    x = embed(params["embed"], tokens)
+    if cfg.embed_scale:
+        x = x * cfg.d_model ** 0.5
+    return x
+
+
+def _logits(cfg, params, x):
     x = _norm(cfg, params["ln_f"], x)
-    logits = unembed(params["embed"], x, cfg.vocab)[:, 0, :]
-    return logits, DecodeCache(cache.kv, pos + 1, cache.extras)
+    return unembed(params["embed"], x, cfg.vocab)
+
+
+def forward_train(cfg: ArchConfig, params, batch) -> torch.Tensor:
+    """Full-sequence logits (B, S, vocab) of ``batch["tokens"]`` (B, S),
+    causal: every attention layer through ``attention_train``, the RWKV6
+    and RG-LRU blocks through their full-sequence forwards."""
+    _check_family(cfg)
+    x = _embed_tokens(cfg, params, batch["tokens"])
+    if cfg.family == "ssm":
+        for lp in _layers(cfg, params):
+            x = x + rk.rwkv_time_mix_train(
+                lp["tm"], _norm(cfg, lp["ln_tm"], x),
+                head_dim=cfg.wkv_head_dim)
+            x = x + rk.rwkv_channel_mix_train(lp["cm"],
+                                              _norm(cfg, lp["ln_cm"], x))
+        return _logits(cfg, params, x)
+    if cfg.family == "hybrid":
+        for kind, sub in _hybrid_layers(cfg, params):
+            t_in = _norm(cfg, sub["ln_t"], x)
+            if kind == "attn":
+                x = x + attention_train(sub["attn"], t_in, causal=True,
+                                        window=cfg.local_window or None,
+                                        **_attn_kwargs(cfg))
+            else:
+                x = x + rg.rglru_train(sub["rec"], t_in)
+            x = x + mlp(sub["mlp"], _norm(cfg, sub["ln_mlp"], x),
+                        activation=cfg.activation)
+        return _logits(cfg, params, x)
+    for lp in _layers(cfg, params):
+        x = x + attention_train(lp["attn"], _norm(cfg, lp["ln_attn"], x),
+                                causal=True,
+                                window=cfg.local_window or None,
+                                **_attn_kwargs(cfg))
+        x = x + _ffn(cfg, lp, _norm(cfg, lp["ln_mlp"], x))
+    return _logits(cfg, params, x)
+
+
+def loss_fn(cfg: ArchConfig, params, batch) -> torch.Tensor:
+    """Mean next-token negative log-likelihood of ``batch["targets"]``."""
+    logits = forward_train(cfg, params, batch).to(torch.float32)
+    logp = torch.log_softmax(logits, dim=-1)
+    ll = torch.gather(logp, -1, batch["targets"][..., None].long())[..., 0]
+    return -ll.mean()
+
+
+# ---------------------------------------------------------------------------
+# caches
+# ---------------------------------------------------------------------------
+
+
+class DecodeCache(NamedTuple):
+    kv: Any                   # per-family state, layer-stacked, batch on
+                              # axis 1: a KVCache (dense, MoE), an
+                              # RWKVState (ssm), {"kv": KVCache, "rec":
+                              # RGLRUState} (hybrid)
+    pos: torch.Tensor         # int32: 0-d (lockstep) or (B,) per slot
+    extras: Any = ()
+
+
+def _tree_tensors(tree):
+    """The tensors of a cache tree in a fixed order (dict keys sorted,
+    NamedTuple fields in order); the empty placeholders of a float KV
+    cache's scales are skipped."""
+    if torch.is_tensor(tree):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _tree_tensors(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _tree_tensors(v)]
+    return []
+
+
+def _tree_map(fn, tree):
+    """``tree`` with every tensor replaced by ``fn(tensor)``."""
+    if torch.is_tensor(tree):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_tree_map(fn, v) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return tree
+
+
+def _kv_buf(cfg, batch, buf, dtype, n_layers, dev) -> KVCache:
+    """Layer-stacked K/V buffers (n_layers, batch, buf, n_kv, hd); with
+    ``REPRO_OPTS`` holding ``int8_kv`` int8 with f32 scales (the
+    reference's ``_kv_buf``) and ``dtype`` not used."""
+    shape = (n_layers, batch, buf, cfg.n_kv, cfg.resolved_head_dim)
+    if _opt("int8_kv"):
+        sshape = shape[:-1] + (1,)
+        return KVCache(k=torch.zeros(shape, dtype=torch.int8, device=dev),
+                       v=torch.zeros(shape, dtype=torch.int8, device=dev),
+                       k_scale=torch.zeros(sshape, dtype=torch.float32,
+                                           device=dev),
+                       v_scale=torch.zeros(sshape, dtype=torch.float32,
+                                           device=dev))
+    return KVCache(k=torch.zeros(shape, dtype=dtype, device=dev),
+                   v=torch.zeros(shape, dtype=dtype, device=dev))
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, *, per_slot: bool = False,
+               device=None) -> DecodeCache:
+    """Fresh decode cache; ``per_slot=True`` makes ``pos`` a (batch,)
+    vector, one position counter per serving slot.  With ``REPRO_OPTS``
+    holding ``int8_kv`` the K/V buffers are int8 with f32 scales.  The
+    ssm cache is an ``RWKVState`` (shift states in ``dtype``, the WKV
+    state f32); the hybrid's is ``{"kv": K/V of its attention layers,
+    "rec": RGLRUState of its recurrent layers}``, the window's buffer
+    ``min(max_len, local_window)`` long."""
+    _check_family(cfg)
+    dev = resolve_device(device)
+    pos = torch.zeros((batch,) if per_slot else (), dtype=torch.int32,
+                      device=dev)
+    L, d = cfg.n_layers, cfg.d_model
+    if cfg.family == "ssm":
+        hd = cfg.wkv_head_dim
+        st = rk.RWKVState(
+            tm_shift=torch.zeros((L, batch, d), dtype=dtype, device=dev),
+            cm_shift=torch.zeros((L, batch, d), dtype=dtype, device=dev),
+            wkv=torch.zeros((L, batch, d // hd, hd, hd),
+                            dtype=torch.float32, device=dev))
+        return DecodeCache(st, pos)
+    buf = min(max_len, cfg.local_window) if cfg.local_window else max_len
+    if cfg.family == "hybrid":
+        n_attn = sum(1 for t in cfg._layer_types() if t == "attn")
+        lru = cfg.lru_width or d
+        rec = rg.RGLRUState(
+            h=torch.zeros((L - n_attn, batch, lru), dtype=dtype, device=dev),
+            conv=torch.zeros((L - n_attn, batch, cfg.conv_width - 1, lru),
+                             dtype=dtype, device=dev))
+        return DecodeCache({"kv": _kv_buf(cfg, batch, buf, dtype, n_attn,
+                                          dev), "rec": rec}, pos)
+    return DecodeCache(_kv_buf(cfg, batch, buf, dtype, L, dev), pos)
+
+
+def layer_kv(kv: KVCache, i: int) -> KVCache:
+    """Layer ``i``'s views of a layer-stacked KV cache (scales included)."""
+    return KVCache(*(t[i] if torch.is_tensor(t) else t for t in kv))
+
+
+def cache_rows(cache: DecodeCache, i: int) -> DecodeCache:
+    """Batch row ``i`` of a cache as a batch-1 cache of views."""
+    return cache._replace(kv=_tree_map(lambda t: t[:, i:i + 1], cache.kv))
+
+
+def _slot_index(slot, batch: int) -> int:
+    # dynamic_update_slice clamps the start into range; so does this
+    return min(max(int(slot), 0), batch - 1)
+
+
+def cache_write_slot(cache: DecodeCache, sub: DecodeCache,
+                     slot) -> DecodeCache:
+    """Graft a batch-1 ``sub`` cache into row ``slot`` of a per-slot cache
+    (in place): the admission primitive of the continuous engine.  Every
+    state leaf carries the batch on axis 1."""
+    if cache.pos.ndim != 1:
+        raise ValueError("cache_write_slot needs a per-slot cache")
+    i = _slot_index(slot, cache.pos.shape[0])
+    for big, small in zip(_tree_tensors(cache.kv), _tree_tensors(sub.kv)):
+        big[:, i:i + 1] = small.to(big.dtype)
+    sub_pos = sub.pos if sub.pos.ndim == 0 else sub.pos[0]
+    cache.pos[i] = sub_pos.to(torch.int32)
+    return cache
+
+
+def cache_reset_slot(cache: DecodeCache, slot) -> DecodeCache:
+    """Zero row ``slot`` of a per-slot cache and its position (in place)."""
+    if cache.pos.ndim != 1:
+        raise ValueError("cache_reset_slot needs a per-slot cache")
+    i = _slot_index(slot, cache.pos.shape[0])
+    for big in _tree_tensors(cache.kv):
+        big[:, i:i + 1] = 0
+    cache.pos[i] = 0
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# decode
+# ---------------------------------------------------------------------------
+
+
+def _copy_state(dst, src):
+    """Write a recurrent block's new state into its cache views."""
+    for d_t, s_t in zip(dst, src):
+        d_t.copy_(s_t)
+
+
+def _rec_views(rec: rg.RGLRUState, i: int) -> rg.RGLRUState:
+    return rg.RGLRUState(h=rec.h[i], conv=rec.conv[i])
+
+
+def _layer_states(cfg, params, cache: DecodeCache):
+    """(kind, layer params, the layer's views of the cache state) of every
+    layer in order: kind ``dense`` (attention + FFN over a KV cache),
+    ``ssm`` (RWKV6 over an RWKVState) or the hybrid's ``attn``/``rec``."""
+    if cfg.family == "ssm":
+        st = cache.kv
+        return [("ssm", lp, rk.RWKVState(*(t[i] for t in st)))
+                for i, lp in enumerate(_layers(cfg, params))]
+    if cfg.family == "hybrid":
+        kv, rec = cache.kv["kv"], cache.kv["rec"]
+        out, a_i, r_i = [], 0, 0
+        for kind, sub in _hybrid_layers(cfg, params):
+            if kind == "attn":
+                out.append((kind, sub, layer_kv(kv, a_i)))
+                a_i += 1
+            else:
+                out.append((kind, sub, _rec_views(rec, r_i)))
+                r_i += 1
+        return out
+    return [("dense", lp, layer_kv(cache.kv, i))
+            for i, lp in enumerate(_layers(cfg, params))]
+
+
+def _decode_layer(cfg, kind, lp, state, pos, x):
+    """One layer of a decode step: x (B, 1, d) → its output; the layer's
+    new state (K/V row, RWKV or RG-LRU state) is written into ``state``'s
+    views in place."""
+    ak = dict(_attn_kwargs(cfg), window=cfg.local_window or None)
+    if kind == "ssm":
+        t_out, tm_new, wkv_new = rk.rwkv_time_mix_decode(
+            lp["tm"], _norm(cfg, lp["ln_tm"], x), state.tm_shift, state.wkv,
+            head_dim=cfg.wkv_head_dim)
+        x = x + t_out
+        c_out, cm_new = rk.rwkv_channel_mix_decode(
+            lp["cm"], _norm(cfg, lp["ln_cm"], x), state.cm_shift)
+        _copy_state(state, (tm_new, cm_new, wkv_new))
+        return x + c_out
+    if kind == "dense":
+        a_out, _ = attention_decode(lp["attn"], _norm(cfg, lp["ln_attn"], x),
+                                    state, pos, **ak)
+        x = x + a_out
+        return x + _ffn(cfg, lp, _norm(cfg, lp["ln_mlp"], x))
+    t_in = _norm(cfg, lp["ln_t"], x)
+    if kind == "attn":
+        h, _ = attention_decode(lp["attn"], t_in, state, pos, **ak)
+    else:
+        h, new = rg.rglru_decode(lp["rec"], t_in, state)
+        _copy_state(state, new)
+    x = x + h
+    return x + mlp(lp["mlp"], _norm(cfg, lp["ln_mlp"], x),
+                   activation=cfg.activation)
+
+
+def decode_layers(cfg: ArchConfig, params, cache: DecodeCache):
+    """The layers of one decode step at ``cache.pos``, in order, as
+    callables x (B, 1, d) → the layer's output that write the layer's new
+    state into ``cache`` in place.  :func:`decode_step` runs them in
+    turn; a caller can also feed each one an input of its own (a
+    layer-by-layer comparison of two weight trees)."""
+    _check_family(cfg)
+    return [functools.partial(_decode_layer, cfg, kind, lp, state, cache.pos)
+            for kind, lp, state in _layer_states(cfg, params, cache)]
+
+
+def decode_step(cfg: ArchConfig, params, cache: DecodeCache, token):
+    """One decode step: token (B, 1) int → (logits (B, vocab), cache)."""
+    x = _embed_tokens(cfg, params, token)
+    for layer in decode_layers(cfg, params, cache):
+        x = layer(x)
+    logits = _logits(cfg, params, x)[:, 0, :]
+    return logits, DecodeCache(cache.kv, cache.pos + 1, cache.extras)
 
 
 def decode_chunk(cfg: ArchConfig, params, cache: DecodeCache, tokens):
@@ -319,55 +542,113 @@ def decode_chunk(cfg: ArchConfig, params, cache: DecodeCache, tokens):
     return logits, cache
 
 
+# ---------------------------------------------------------------------------
+# prefill
+# ---------------------------------------------------------------------------
+
+
+def _write_kv(kv_i: KVCache, k, v, keep, slots, cache_dtype):
+    """One layer's full-sequence post-rope K/V into its cache buffers at
+    the kept positions' slots: ``q8`` codes with their scales into an
+    int8 cache, else the values in ``cache_dtype``."""
+    if kv_i.k.dtype == torch.int8:
+        for (codes, scale), new in (((kv_i.k, kv_i.k_scale), k),
+                                    ((kv_i.v, kv_i.v_scale), v)):
+            codes[:, slots], scale[:, slots] = q8(new[:, keep])
+    else:
+        kv_i.k[:, slots] = k[:, keep].to(cache_dtype)
+        kv_i.v[:, slots] = v[:, keep].to(cache_dtype)
+
+
+def _prefill_layer(cfg, kind, lp, state, cache_dtype, x):
+    """One layer of the full-sequence prefill: x (B, S, d) → its output;
+    what decode steps over the S tokens would leave in the layer's state
+    goes into ``state``'s views: the post-rope K/V of the last ``buf``
+    positions at slot p mod buf (``q8`` with scales in an int8 cache),
+    the RWKV shift states (each block's last normalized input) and final
+    WKV state, the RG-LRU's final h and conv lookback."""
+    ak = dict(_attn_kwargs(cfg), window=cfg.local_window or None)
+    if kind == "ssm":
+        tm_in = _norm(cfg, lp["ln_tm"], x)
+        t_out, wkv_f = rk.rwkv_time_mix_train(
+            lp["tm"], tm_in, head_dim=cfg.wkv_head_dim, return_state=True)
+        x = x + t_out
+        cm_in = _norm(cfg, lp["ln_cm"], x)
+        _copy_state(state, (tm_in[:, -1, :].to(cache_dtype),
+                            cm_in[:, -1, :].to(cache_dtype), wkv_f))
+        return x + rk.rwkv_channel_mix_train(lp["cm"], cm_in)
+    if kind in ("dense", "attn"):
+        s = x.shape[1]
+        buf = state.k.shape[1]
+        if s > buf and not cfg.local_window:
+            raise ValueError(f"prompt of {s} tokens exceeds the cache's "
+                             f"{buf} positions")
+        keep = torch.arange(max(0, s - buf), s, device=x.device)
+        norm_key = "ln_attn" if kind == "dense" else "ln_t"
+        h, (k, v) = attention_train(lp["attn"], _norm(cfg, lp[norm_key], x),
+                                    causal=True, return_kv=True, **ak)
+        _write_kv(state, k, v, keep, keep % buf, cache_dtype)
+        x = x + h
+        if kind == "dense":
+            return x + _ffn(cfg, lp, _norm(cfg, lp["ln_mlp"], x))
+    else:
+        h, st = rg.rglru_train(lp["rec"], _norm(cfg, lp["ln_t"], x),
+                               return_state=True)
+        _copy_state(state, st)
+        x = x + h
+    return x + mlp(lp["mlp"], _norm(cfg, lp["ln_mlp"], x),
+                   activation=cfg.activation)
+
+
+def prefill_layers(cfg: ArchConfig, params, cache: DecodeCache,
+                   cache_dtype=torch.bfloat16):
+    """The layers of the full-sequence prefill, in order, as callables
+    x (B, S, d) → the layer's output that fill the layer's state in
+    ``cache`` (a fresh cache of :func:`init_cache`) as S decode steps
+    would."""
+    _check_family(cfg)
+    return [functools.partial(_prefill_layer, cfg, kind, lp, state,
+                              cache_dtype)
+            for kind, lp, state in _layer_states(cfg, params, cache)]
+
+
 def prefill(cfg: ArchConfig, params, batch, max_len: int,
             cache_dtype=torch.bfloat16):
-    """Run the whole prompt in one full-sequence pass: (B, S) tokens →
-    (logits of the LAST token (B, vocab), a lockstep cache at position S).
+    """Run the whole prompt: (B, S) tokens → (logits of the LAST token
+    (B, vocab), a lockstep cache at position S).
 
-    Port of the dense family of the reference's ``prefill``
-    (``_prefill_attn``), made exact: each layer's post-norm, post-rope K/V
-    come out of the same ``attention_train`` that computes the layer (every
-    dense over B·S rows, flash attention where its conditions hold) and go
-    into the slot cache, so the cache is the one ``decode_chunk`` builds
-    over the same prompt, up to f32 rounding (the reference's
-    ``_capture_kv`` projects the raw embeddings instead; ROADMAP queue C).
-    A windowed cache holds the last ``buf`` positions at slot p mod buf.
-    An int8 cache (``int8_kv``) takes ``q8`` of each position's K/V with
-    its scale, as a decode step writes them.  A MoE layer routes all B·S
-    tokens in one call, as the reference's full-sequence forward does, so
-    experts' capacities drop pairs differently from B-token decode steps:
-    the cache equals ``decode_chunk``'s only where no pair is dropped
+    Dense and MoE: one full-sequence pass (:func:`prefill_layers`), the
+    port of the reference's ``_prefill_attn`` made exact: each layer's
+    post-norm, post-rope K/V come out of the same ``attention_train``
+    that computes the layer (every dense over B·S rows, flash attention
+    where its conditions hold) and go into the slot cache, so the cache
+    is the one ``decode_chunk`` builds over the same prompt, up to f32
+    rounding (the reference's ``_capture_kv`` projects the raw embeddings
+    instead; ROADMAP queue C).  A MoE layer routes all B·S tokens in one
+    call, as the reference's full-sequence forward does, so experts'
+    capacities drop pairs differently from B-token decode steps: the
+    cache equals ``decode_chunk``'s only where no pair is dropped
     (``capacity_factor`` ≥ E/k guarantees it).
+
+    ssm and hybrid: the reference's stepped baseline, :func:`decode_chunk`
+    over the prompt, or with ``REPRO_OPTS`` holding ``parallel_prefill``
+    the full-sequence pass (the reference's ``_prefill_ssm_parallel`` and
+    ``_prefill_hybrid_parallel``: the WKV loop over time, the RG-LRU
+    scan, the window's ring filled at slot p mod buf).  An int8 cache
+    (``int8_kv``) takes ``q8`` of each kept position's K/V with its scale
+    on either path; the reference's parallel hybrid path returns a float
+    cache there (ROADMAP queue C).
     """
     _check_family(cfg)
     tokens = batch["tokens"]
     b, s = tokens.shape
     dev = tokens.device
     cache = init_cache(cfg, b, max_len, cache_dtype, device=dev)
-    buf = cache.kv.k.shape[2]
-    if s > buf and not cfg.local_window:
-        raise ValueError(f"prompt of {s} tokens exceeds the cache's "
-                         f"{buf} positions")
-    keep = torch.arange(max(0, s - buf), s, device=dev)
-    slots = keep % buf
-    ak = dict(_attn_kwargs(cfg), window=cfg.local_window or None)
+    if cfg.family in ("ssm", "hybrid") and not _opt("parallel_prefill"):
+        return decode_chunk(cfg, params, cache, tokens)
     x = _embed_tokens(cfg, params, tokens)
-    layers = split_layers(params)["layers"]
-    for i, lp in enumerate(layers):
-        a_out, (k, v) = attention_train(lp["attn"],
-                                        _norm(cfg, lp["ln_attn"], x),
-                                        causal=True, return_kv=True, **ak)
-        kv_i = layer_kv(cache.kv, i)
-        if kv_i.k.dtype == torch.int8:
-            for (codes, scale), new in (((kv_i.k, kv_i.k_scale), k),
-                                        ((kv_i.v, kv_i.v_scale), v)):
-                codes[:, slots], scale[:, slots] = q8(new[:, keep])
-        else:
-            kv_i.k[:, slots] = k[:, keep].to(cache_dtype)
-            kv_i.v[:, slots] = v[:, keep].to(cache_dtype)
-        x = x + a_out
-        x = x + _ffn(cfg, lp, _norm(cfg, lp["ln_mlp"], x))
-    x = _norm(cfg, params["ln_f"], x[:, -1:])
-    logits = unembed(params["embed"], x, cfg.vocab)[:, 0, :]
+    for layer in prefill_layers(cfg, params, cache, cache_dtype):
+        x = layer(x)
+    logits = _logits(cfg, params, x[:, -1:])[:, 0, :]
     return logits, DecodeCache(cache.kv,
                                torch.tensor(s, dtype=torch.int32, device=dev))

@@ -7,13 +7,17 @@ packages the same way:
     REPRO_OPTS=int8_kv python -m repro_torch.launch.serve ...
 
 Flags the port reads:
-  int8_kv — decode KV caches stored int8 with exact per-(position, head)
-            scales (``models.init_cache``, ``layers.attention_decode``).
+  int8_kv          — decode KV caches stored int8 with exact
+                     per-(position, head) scales (``models.init_cache``,
+                     ``layers.attention_decode``).
+  parallel_prefill — the ssm and hybrid families prefill in one
+                     full-sequence pass instead of decode steps over the
+                     prompt (``models.prefill``).
 
-The reference's other flags (``parallel_prefill``, ``kv_seq_shard``,
-``flat_remat``, ``moe_bf16_dispatch``, ``seq_shard_train``) belong to
-families and the multi-device slice that the port has not reached; the
-parser accepts them and nothing reads them yet.
+The reference's other flags (``kv_seq_shard``, ``flat_remat``,
+``moe_bf16_dispatch``, ``seq_shard_train``) belong to the multi-device
+slice that the port has not reached; the parser accepts them and nothing
+reads them yet.
 """
 from __future__ import annotations
 

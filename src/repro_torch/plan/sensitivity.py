@@ -272,7 +272,9 @@ def model_sensitivities(cfg, params, calib_batches, *,
     matrix's curve comes from the Σ_X of the tokens routed to it.
     """
     from repro_torch.quant import pipeline as _pl
-    from repro_torch.quant.calibrate import forward_with_taps
+    from repro_torch.quant.calibrate import (check_ptq_family,
+                                             forward_with_taps)
+    check_ptq_family(cfg)
     if weighting == "probe" and cfg.n_experts:
         # probe coefficients (logits MSE per unit distortion) and any
         # fallback scale for experts are incomparable units inside one

@@ -44,7 +44,19 @@ from repro_torch.models.transformer import (_attn_kwargs, _check_family,
                                             _norm, split_layers)
 
 __all__ = ["forward_with_taps", "StatsAccumulator", "accumulate_stats",
-           "stats_for_matrix"]
+           "stats_for_matrix", "check_ptq_family"]
+
+
+def check_ptq_family(cfg: ArchConfig):
+    """PTQ, its calibration taps and the planner cover the dense and MoE
+    families only, as in the reference (which asserts ``cfg.family in
+    ("dense", "moe")``); the recurrent families are served, not
+    calibrated."""
+    _check_family(cfg)
+    if cfg.family not in ("dense", "moe"):
+        raise NotImplementedError(
+            f"{cfg.name}: PTQ covers the dense and MoE families only, as "
+            f"the reference's; the {cfg.family} family is not calibrated")
 
 
 def forward_with_taps(cfg: ArchConfig, params, tokens
@@ -52,7 +64,7 @@ def forward_with_taps(cfg: ArchConfig, params, tokens
     """Layer-by-layer forward capturing per-layer tap tensors (dense and
     MoE families).  ``tokens`` (B, S) is an int array or tensor.  Returns
     (logits, taps list of dicts of tensors)."""
-    _check_family(cfg)
+    check_ptq_family(cfg)
     ak = _attn_kwargs(cfg)
     dev = params["embed"]["w"].device
     # the reference's tapped forward embeds without the gemma-style scale

@@ -42,12 +42,11 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import (CalibStats, PlanBudget, QuantizedLinear,
                               RateBudget, quantize_at_rate, rtn_absmax)
-from repro_torch.models.transformer import (_attn_kwargs, _check_family,
-                                            loss_fn)
+from repro_torch.models.transformer import _attn_kwargs, loss_fn
 from repro_torch.quant.qlinear import _EXPERT_KEYS
 from .calibrate import (StatsAccumulator, _attention_with_probs,
-                        accumulate_stats, forward_with_taps,
-                        stats_for_matrix)
+                        accumulate_stats, check_ptq_family,
+                        forward_with_taps, stats_for_matrix)
 
 __all__ = ["PTQConfig", "quantize_model", "model_ppl", "matrix_tap_map"]
 
@@ -171,7 +170,7 @@ def quantize_model(cfg: ArchConfig, params, calib_batches: List[np.ndarray],
     matrices are calibrated on exactly its routed tokens (per-expert Σ_X
     from the quantized-model routing; the drift/residual corrections are
     per-token-set and hence dense-only, DESIGN.md §5)."""
-    _check_family(cfg)
+    check_ptq_family(cfg)
     L = _layer_count(params)
     qparams = _clone(params)
     mats = _mats_for(cfg, params)

@@ -612,9 +612,11 @@ class ContinuousEngine(_EngineBase):
     """Continuous-batching scheduler: per-slot decode streams with
     in-flight admission and eviction.
 
-    Token streams equal those of the static oracle for the dense family:
-    prefill is decode steps and decode is row-wise, so the mixed batch
-    never couples slots.
+    Token streams equal those of the static oracle for the dense, ssm and
+    hybrid families: prefill is decode steps and decode is row-wise (the
+    recurrent blocks' contractions included), so the mixed batch never
+    couples slots; an idle slot's recurrent rows step on a pad token,
+    isolated, until the next graft overwrites them.
     """
 
     _obs_engine = "continuous"

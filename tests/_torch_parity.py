@@ -25,11 +25,9 @@ def require_cuda() -> torch.device:
     return torch.device("cuda")
 
 
-def graph_kernel_nodes(fn) -> list:
-    """Node types of a CUDA graph that captures one call of ``fn`` (0 is a
-    kernel node): the device work a call enqueues, read through
-    ``cuGraphGetNodes`` (libcuda) rather than from a profiler's trace."""
-    import ctypes
+def _captured_graph(fn):
+    """A CUDA graph that captures one call of ``fn`` (its first-use work
+    done on a side stream first)."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -38,12 +36,27 @@ def graph_kernel_nodes(fn) -> list:
     graph = torch.cuda.CUDAGraph(keep_graph=True)
     with torch.cuda.graph(graph):
         fn()
+    return graph
+
+
+def _graph_nodes(graph):
+    import ctypes
     cuda = ctypes.CDLL("libcuda.so.1")
     handle = ctypes.c_void_p(graph.raw_cuda_graph())
     count = ctypes.c_size_t(0)
     assert cuda.cuGraphGetNodes(handle, None, ctypes.byref(count)) == 0
     nodes = (ctypes.c_void_p * count.value)()
     assert cuda.cuGraphGetNodes(handle, nodes, ctypes.byref(count)) == 0
+    return cuda, list(nodes)
+
+
+def graph_kernel_nodes(fn) -> list:
+    """Node types of a CUDA graph that captures one call of ``fn`` (0 is a
+    kernel node): the device work a call enqueues, read through
+    ``cuGraphGetNodes`` (libcuda) rather than from a profiler's trace."""
+    import ctypes
+    graph = _captured_graph(fn)
+    cuda, nodes = _graph_nodes(graph)
     types = []
     for node in nodes:
         kind = ctypes.c_int(-1)
@@ -53,10 +66,34 @@ def graph_kernel_nodes(fn) -> list:
     return types
 
 
+def graph_kernel_names(fn) -> list:
+    """Function names of the kernel nodes of a CUDA graph of one call of
+    ``fn`` (``cuGraphKernelNodeGetParams``, ``cuFuncGetName``)."""
+    import ctypes
+    graph = _captured_graph(fn)
+    cuda, nodes = _graph_nodes(graph)
+    names = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        cuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind))
+        if kind.value != 0:                    # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        params = (ctypes.c_byte * 256)()       # CUDA_KERNEL_NODE_PARAMS_v2
+        name = ctypes.c_char_p()
+        assert cuda.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node),
+                                                  params) == 0
+        assert cuda.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(
+            ctypes.c_void_p.from_buffer(params, 0).value)) == 0
+        names.append(name.value.decode())
+    return names
+
+
 def to_numpy(tree):
     """JAX / torch value tree → the same tree of numpy arrays."""
     if isinstance(tree, dict):
         return {k: to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(to_numpy(v) for v in tree))
     if isinstance(tree, (list, tuple)):
         return type(tree)(to_numpy(v) for v in tree)
     if isinstance(tree, torch.Tensor):
@@ -73,12 +110,18 @@ def assert_same_ints(a, b):
 
 
 def assert_trees_equal(a, b):
-    """Two value trees with the same keys and byte-identical leaves."""
+    """Two value trees with the same keys (and list lengths) and
+    byte-identical leaves."""
     a, b = to_numpy(a), to_numpy(b)
     if isinstance(a, dict):
         assert set(a) == set(b), (sorted(a), sorted(b))
         for k in a:
             assert_trees_equal(a[k], b[k])
+        return
+    if isinstance(a, list):
+        assert isinstance(b, list) and len(a) == len(b), (len(a), len(b))
+        for x, y in zip(a, b):
+            assert_trees_equal(x, y)
         return
     assert a.shape == b.shape and a.dtype == b.dtype, \
         (a.shape, b.shape, a.dtype, b.dtype)
@@ -88,3 +131,82 @@ def assert_trees_equal(a, b):
 def assert_close(a, b, *, tol):
     """f32 outputs within ``tol`` (rtol = atol = tol)."""
     np.testing.assert_allclose(to_numpy(a), to_numpy(b), rtol=tol, atol=tol)
+
+
+def tree_leaves(tree):
+    """Leaves of a numpy / JAX / torch value tree in ``jax.tree_util``'s
+    order: dict keys sorted, NamedTuple fields and sequences in order;
+    ``None`` and empty tuples hold no leaf (a float KV cache's scales)."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def assert_trees_close(a, b, *, tol, relative=False):
+    """Two value trees with leaves of equal shapes within ``tol`` (rtol =
+    atol = tol); ``relative`` scales atol by each leaf's largest |b|."""
+    la, lb = tree_leaves(a), tree_leaves(b)
+    assert len(la) == len(lb), (len(la), len(lb))
+    for x, y in zip(la, lb):
+        x, y = (to_numpy(t.float() if isinstance(t, torch.Tensor)
+                         and t.dtype == torch.bfloat16 else t)
+                .astype(np.float64) for t in (x, y))
+        assert x.shape == y.shape, (x.shape, y.shape)
+        atol = tol * max(float(np.abs(y).max(initial=0.0)), 1.0) \
+            if relative else tol
+        np.testing.assert_allclose(x, y, rtol=tol, atol=atol)
+
+
+def load_leaves(tree, leaves):
+    """Copy numpy ``leaves`` (``tree_leaves`` order) into the tensors of a
+    torch ``tree`` in place; returns the tree."""
+    from repro_torch.models import from_jax_params
+    dst = tree_leaves(tree)
+    assert len(dst) == len(leaves), (len(dst), len(leaves))
+    for t, a in zip(dst, leaves):
+        t.copy_(from_jax_params(np.asarray(a), t.device))
+    return tree
+
+
+def random_workload(seed, vocab, max_plen=8, max_budget=5):
+    """(prompt, max_new_tokens, arrival step) triples: mixed lengths,
+    budgets and staggered arrivals (tests/test_continuous_batching.py's
+    ``_random_workload``)."""
+    rng = np.random.default_rng(seed)
+    n_req = int(rng.integers(4, 7))
+    out = []
+    for _ in range(n_req):
+        plen = int(rng.integers(2, max_plen + 1))
+        budget = int(rng.integers(1, max_budget + 1))
+        arrival = int(rng.integers(0, 6))
+        out.append((rng.integers(0, vocab, plen).astype(np.int32), budget,
+                    arrival))
+    return out
+
+
+def drive_engine(eng, workload, continuous, request):
+    """Static rounds: submit everything, run to the end.  Continuous:
+    submit request i once its arrival step has run.  Returns {rid:
+    token stream}."""
+    if not continuous:
+        for rid, (prompt, budget, _) in enumerate(workload):
+            eng.submit(request(rid=rid, prompt=prompt.copy(),
+                               max_new_tokens=budget))
+        done = eng.run_until_done()
+    else:
+        pending = sorted(enumerate(workload), key=lambda kv: kv[1][2])
+        done, steps = [], 0
+        while pending or eng.queue or eng.active_slots:
+            while pending and pending[0][1][2] <= steps:
+                rid, (prompt, budget, _) = pending.pop(0)
+                eng.submit(request(rid=rid, prompt=prompt.copy(),
+                                   max_new_tokens=budget))
+            done.extend(eng.step())
+            steps += 1
+            assert steps < 10_000
+    assert len(done) == len(workload)
+    return {r.rid: tuple(r.out_tokens) for r in done}

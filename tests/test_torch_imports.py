@@ -38,7 +38,9 @@ def test_importing_every_module_loads_no_jax():
             "repro_torch.obs.drift", "repro_torch.obs.slo",
             "repro_torch.obs.streamsig", "repro_torch.serve.quality",
             "repro_torch.serve.requant",
-            "repro_torch.serve.resilience"} <= set(mods)
+            "repro_torch.serve.resilience", "repro_torch.models.rwkv6",
+            "repro_torch.models.rglru", "repro_torch.configs.rwkv6_7b",
+            "repro_torch.configs.recurrentgemma_2b"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "

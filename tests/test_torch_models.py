@@ -1,14 +1,18 @@
-"""Port of the dense model + tree quantizer held against the JAX package.
+"""Port of the decoder + tree quantizer held against the JAX package.
 
-Reduced minicpm-2b (MHA), reduced qwen2.5-32b (GQA + QKV bias) and a
-local-window config.  Weights come from the reference's ``init_params``
-(biases and norm scales perturbed with numpy so they matter), cross as
-numpy, and enter the port through ``models.convert.from_jax_params``.
+Reduced minicpm-2b (MHA), reduced qwen2.5-32b (GQA + QKV bias), a
+local-window config, reduced rwkv6-7b (ssm) and reduced recurrentgemma-2b
+(hybrid; quantized at ``min_dim`` 8 so the RWKV decay LoRA is too).
+Weights come from the reference's ``init_params`` (biases and norm scales
+perturbed with numpy so they matter), cross as numpy, and enter the port
+through ``models.convert.from_jax_params``.
 
 Tolerances: integer artifacts (payloads, escape COO, inventory records)
 byte-identical; logits and f32 cache contents rtol = atol = 1e-4 (two
-layers of f32 matmuls summed in another order); the port's decode_chunk
-bit-exact against its own decode_step.
+layers of f32 matmuls summed in another order); the RWKV WKV state,
+whose entries reach a few hundred, and the hybrid's K/V, downstream of an
+RG-LRU gate, relative to their largest entry; the port's
+decode_chunk bit-exact against its own decode_step.
 """
 import dataclasses
 import functools
@@ -17,8 +21,9 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import (assert_close, assert_trees_equal, require_cuda,
-                           to_numpy)
+from _torch_parity import (assert_close, assert_trees_close,
+                           assert_trees_equal, load_leaves, require_cuda,
+                           to_numpy, tree_leaves)
 from repro_torch.configs import get_config as tget_config
 from repro_torch.configs.base import ArchConfig as TArchConfig
 from repro_torch.kernels.dequant import payload_checksums, verify_payloads
@@ -32,7 +37,11 @@ from repro_torch.quant import (leaf_format_histogram, leaf_inventory,
 LOGIT_TOL = 1e-4
 WINDOW = dict(name="win", family="dense", n_layers=2, d_model=32, n_heads=2,
               n_kv=2, d_ff=64, vocab=64, head_dim=16, local_window=6)
-ARCHS = ["minicpm-2b", "qwen2.5-32b", "window"]
+ARCHS = ["minicpm-2b", "qwen2.5-32b", "window", "rwkv6-7b",
+         "recurrentgemma-2b"]
+#: the recurrent archs quantize their narrow leaves too (the reduced decay
+#: LoRA is (64, 8)): 10 code leaves on rwkv6, 21 on recurrentgemma
+MIN_DIM = {"rwkv6-7b": 8, "recurrentgemma-2b": 8}
 FORMATS = ["fp", "int8", "int4", "int3", "int2", "mixed"]
 
 
@@ -48,7 +57,9 @@ def _cfgs(arch):
 def _mixed(path):
     """Mixed-rate leaf formats: every rung of the ladder in one tree."""
     return {"wq": 4, "wk": 3, "wv": 2, "wo": 8, "w_gate": 2, "w_up": 4,
-            "w_in": 3, "w_out": 3}.get(path[-2])
+            "w_in": 3, "w_out": 3, "w_r": 2, "w_k": 4, "w_v": 8, "w_g": 3,
+            "w_o": 4, "decay_a": 8, "decay_b": 4, "w_a": 2,
+            "w_x": 8}.get(path[-2])
 
 
 def _qkw(fmt):
@@ -72,6 +83,8 @@ def jax_tree(arch, fmt):
     def perturb(node, path=()):
         if isinstance(node, dict):
             return {k: perturb(v, path + (k,)) for k, v in node.items()}
+        if isinstance(node, list):
+            return [perturb(v, path + (str(i),)) for i, v in enumerate(node)]
         if path[-1] == "b":
             return (rng.standard_normal(node.shape) * 0.1).astype(node.dtype)
         if path[-1] == "scale":
@@ -83,7 +96,7 @@ def jax_tree(arch, fmt):
     if fmt == "fp":
         return base
     return to_numpy(jquant(jax.tree.map(jax.numpy.asarray, base),
-                           min_dim=16, **_qkw(fmt)))
+                           min_dim=MIN_DIM.get(arch, 16), **_qkw(fmt)))
 
 
 @pytest.mark.parametrize("fmt", ["int8", "int4", "int3", "int2", "mixed"])
@@ -98,7 +111,7 @@ def test_quantize_params_tree_matches_jax(arch, fmt):
 
     want = jax_tree(arch, fmt)
     got = quantize_params_tree(from_jax_params(jax_tree(arch, "fp"), "cpu"),
-                               min_dim=16, **_qkw(fmt))
+                               min_dim=MIN_DIM.get(arch, 16), **_qkw(fmt))
     assert_trees_equal(got, want)
     jwant = jax.tree.map(jax.numpy.asarray, want)
     assert leaf_inventory(got) == jinv(jwant)
@@ -164,8 +177,23 @@ def test_decode_step_matches_jax(arch, fmt, per_slot):
                                     torch.from_numpy(toks[:, j:j + 1]))
         assert logits.shape == (3, tcfg.vocab)
         assert_close(logits, want[j], tol=LOGIT_TOL)
-    assert_close(cache.kv.k, jcache.kv.k, tol=LOGIT_TOL)
-    assert_close(cache.kv.v, jcache.kv.v, tol=LOGIT_TOL)
+    if arch == "rwkv6-7b":
+        # the WKV state's entries reach a few hundred: it alone is held
+        # relative to its largest entry; the shift states absolutely
+        assert_trees_close(cache.kv.wkv, jcache.kv.wkv, tol=LOGIT_TOL,
+                           relative=True)
+        assert_trees_close(cache.kv._replace(wkv=None),
+                           jcache.kv._replace(wkv=None), tol=LOGIT_TOL)
+    elif arch == "recurrentgemma-2b":
+        # the hybrid's attention reads an RG-LRU block's output, whose
+        # sqrt(1 - a^2) input gate loses digits as a -> 1: its K/V (entries
+        # up to ~24) relative to the largest entry; the recurrent state
+        # absolutely
+        assert_trees_close(cache.kv["kv"], jcache.kv["kv"], tol=LOGIT_TOL,
+                           relative=True)
+        assert_trees_close(cache.kv["rec"], jcache.kv["rec"], tol=LOGIT_TOL)
+    else:
+        assert_trees_close(cache.kv, jcache.kv, tol=LOGIT_TOL)
     np.testing.assert_array_equal(to_numpy(cache.pos), np.asarray(jcache.pos))
 
 
@@ -190,14 +218,16 @@ def test_decode_chunk_is_exactly_decode_steps(arch):
         lc, c = decode_chunk(tcfg, split, c, toks)
         for other, lo in ((b, lb), (c, lc)):
             assert torch.equal(la, lo)
-            assert torch.equal(a.kv.k, other.kv.k)
-            assert torch.equal(a.kv.v, other.kv.v)
+            for x, y in zip(tree_leaves(a.kv), tree_leaves(other.kv)):
+                assert torch.equal(x, y)
             assert torch.equal(a.pos, other.pos)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_cache_write_and_reset_slot_match_jax(arch):
-    """vs repro.models.cache_write_slot / cache_reset_slot."""
+    """vs repro.models.cache_write_slot / cache_reset_slot, every state
+    leaf (K/V, RWKV shift and WKV states, RG-LRU h and conv)."""
+    import jax
     import jax.numpy as jnp
     from repro.models import cache_reset_slot as jreset
     from repro.models import cache_write_slot as jwrite
@@ -205,36 +235,26 @@ def test_cache_write_and_reset_slot_match_jax(arch):
 
     jcfg, tcfg = _cfgs(arch)
     rng = np.random.default_rng(5)
+
+    def noise(t):
+        return jnp.asarray(rng.standard_normal(t.shape), jnp.float32)
     big = jcache(jcfg, 3, 8, jnp.float32, per_slot=True)
-    big = big._replace(
-        kv=type(big.kv)(*(jnp.asarray(rng.standard_normal(t.shape),
-                                      jnp.float32)
-                          if not isinstance(t, tuple) else t
-                          for t in big.kv)),
-        pos=jnp.asarray([4, 1, 7], jnp.int32))
+    big = big._replace(kv=jax.tree.map(noise, big.kv),
+                       pos=jnp.asarray([4, 1, 7], jnp.int32))
     sub = jcache(jcfg, 1, 8, jnp.float32)
-    sub = sub._replace(
-        kv=type(sub.kv)(*(jnp.asarray(rng.standard_normal(t.shape),
-                                      jnp.float32)
-                          if not isinstance(t, tuple) else t
-                          for t in sub.kv)),
-        pos=jnp.asarray(5, jnp.int32))
+    sub = sub._replace(kv=jax.tree.map(noise, sub.kv),
+                       pos=jnp.asarray(5, jnp.int32))
     want = jreset(jwrite(big, sub, 1), 2)
 
     tbig = init_cache(tcfg, 3, 8, torch.float32, per_slot=True,
                       device="cpu")
-    tbig = tbig._replace(kv=type(tbig.kv)(
-        torch.from_numpy(np.array(big.kv.k)),
-        torch.from_numpy(np.array(big.kv.v))),
-        pos=torch.from_numpy(np.array(big.pos)))
+    load_leaves(tbig.kv, tree_leaves(to_numpy(big.kv)))
+    tbig = tbig._replace(pos=torch.from_numpy(np.array(big.pos)))
     tsub = init_cache(tcfg, 1, 8, torch.float32, device="cpu")
-    tsub = tsub._replace(kv=type(tsub.kv)(
-        torch.from_numpy(np.array(sub.kv.k)),
-        torch.from_numpy(np.array(sub.kv.v))),
-        pos=torch.tensor(5, dtype=torch.int32))
+    load_leaves(tsub.kv, tree_leaves(to_numpy(sub.kv)))
+    tsub = tsub._replace(pos=torch.tensor(5, dtype=torch.int32))
     got = cache_reset_slot(cache_write_slot(tbig, tsub, 1), 2)
-    for a, b in ((got.kv.k, want.kv.k), (got.kv.v, want.kv.v),
-                 (got.pos, want.pos)):
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
         np.testing.assert_array_equal(to_numpy(a), np.asarray(b))
 
 
@@ -255,7 +275,8 @@ def test_port_init_params_has_the_reference_tree():
 
 
 @pytest.mark.parametrize("arch", ["minicpm-2b", "qwen1.5-32b", "qwen2.5-32b",
-                                  "minitron-8b"])
+                                  "minitron-8b", "rwkv6-7b",
+                                  "recurrentgemma-2b"])
 def test_configs_match_jax(arch):
     """The port's registry holds the reference's configs, field for field,
     and reduces them the same way."""

@@ -175,13 +175,15 @@ def test_adaptive_mixing_matches_reference():
 
 
 def test_quantize_model_raises_on_unported_options():
-    """Families still to be ported (here the recurrent ``ssm``) wait for
-    their slice.  The planner's ``plan=`` and the MoE family, which this
-    test checked before, are ported: tests/test_torch_plan.py and
-    tests/test_torch_moe_ptq.py."""
+    """PTQ covers the dense and MoE families only, as the reference's
+    (``assert cfg.family in ("dense", "moe")``): the recurrent ``ssm``
+    family, served by the port, is refused.  The planner's ``plan=`` and
+    the MoE family, which this test checked before, are ported:
+    tests/test_torch_plan.py and tests/test_torch_moe_ptq.py."""
     base, calib, _ = _setup()
     ssm = TArchConfig(**{**CFG, "family": "ssm"})
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError,
+                       match="dense and MoE families only"):
         quantize_model(ssm, from_jax_params(base, "cpu"), calib,
                        PTQConfig())
 
