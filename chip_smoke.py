@@ -223,10 +223,42 @@ MoE phases, on the serve phase's traffic:
    parallel prefill's K/V bit for bit, the stepped prefill's codes within
    one of them.
 
+The encoder–decoder and prefix-LM families (whisper-base: 6 encoder and
+6 decoder layers, d 512, 8 heads of 64, d_ff 2048, 1500 frames;
+paligemma-3b: 18 layers, d 2048, 8 query heads over 1 KV head of 256,
+d_ff 16384, 256 prefix positions), last, at full width and depth on the
+serve phase's traffic:
+
+14. encdec/vlm kernels: B1 (packed int4) and B2 at m = 8 at every (k, n)
+   of the two families, whisper's (512, 512), (512, 2048), (2048, 512)
+   and paligemma's (2048, 2048), (2048, 256), (2048, 16384), (16384,
+   2048); B1 at their full-sequence rows (m = 8·1500 = 12000 for
+   whisper's encoder and cross K/V, m = 8·288 = 2304 for paligemma's
+   prefill); B3 non-causal at whisper's encoder (B·H = 64, S = 1500, d =
+   64; SDPA the library call); each against its twin, twice with equal
+   bits for B1/B2, timed as in the kernel phase;
+14b. whisper-base, packed int4, frames (8, 1500, 512) from a seed:
+   ``encode`` (36 B1 at m = 12000, 6 B3 non-causal), ``capture_cross_kv``
+   (12 B1) and ``prefill`` (those and the decoder's 48 B1 and 6 B3
+   causal), timed and counted; the prefill's self K/V and cross K/V
+   against ``capture_cross_kv`` + ``decode_chunk`` over the prompt; 16
+   greedy decode steps after the prefill, its logits and every step's
+   against the dequantized model's ``forward_train`` over the frames and
+   [prompt; served tokens]; then the continuous engine on token-only
+   requests (the cross K/V stay zero, as the reference's engines leave
+   them): first step against the dequantized model, 48 B1 per step and in
+   a CUDA graph of one step, traced idle share, a rerun and the static
+   engine with equal streams, one int8 step through B2 (48 launches);
+14c. paligemma-3b, packed int4, patches (8, 256, 2048): ``prefill`` of
+   256 + 32 positions (126 B1 at m = 2304, no B3: GQA and the prefix-LM
+   mask take the plain softmax, as in the reference), then as whisper's
+   (126 B1 and B2 per step).
+
 The second-to-last line is the kernel summary JSON (six entries: the
 packed kernel per payload, the int8 kernel, ZSIC and flash; B1 int4's and
-B2's launches include the recurrent serve runs and int8 steps), the last
-line ``{"ok": true, "device": {...}}``.  Per-case numbers also go to
+B2's launches include the recurrent, whisper and paligemma serve runs and
+int8 steps, flash's whisper's encode and prefill), the last line
+``{"ok": true, "device": {...}}``.  Per-case numbers also go to
 ``chiprun_out/chip_smoke_detail.json``.  Tolerances:
 
 * dequant kernels (packed and int8) vs twin: |Δ| ≤ 1e-4 + 1e-4·|twin|
@@ -293,8 +325,9 @@ from repro_torch.kernels.dequant import (LAUNCHES, PLANE_GROUPS,  # noqa: E402
                                          unpack_payload_ref)
 from repro_torch.launch import plan as launch_plan  # noqa: E402
 from repro_torch.launch.serve import quantize_for_wbits  # noqa: E402
-from repro_torch.models import (decode_chunk, decode_layers,  # noqa: E402
-                                decode_step, loss_fn, prefill,
+from repro_torch.models import (capture_cross_kv,  # noqa: E402
+                                decode_chunk, decode_layers, decode_step,
+                                encode, forward_train, loss_fn, prefill,
                                 prefill_layers)
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.models import (init_cache, init_params,  # noqa: E402
@@ -646,10 +679,23 @@ def _stacked(leaf) -> int:
     return leaf["s"].shape[0] if leaf["s"].ndim == 2 else 1
 
 
+def decode_tree(params):
+    """The leaves a decode step reads (stacked): all but the embedding;
+    of an encoder–decoder, the decoder's leaves but its cross attention's
+    wk and wv, whose K/V the cache holds."""
+    if "dec_layers" in params:
+        dec = params["dec_layers"]
+        return {"dec_layers": {**dec, "cross_attn": {
+            k: v for k, v in dec["cross_attn"].items()
+            if k not in ("wk", "wv")}}}
+    return {k: v for k, v in params.items() if k != "embed"}
+
+
 def launches_per_step(params):
     """Dequant-kernel launches one decode step makes, by nbits (8: the int8
-    kernel): one per layer of every quantized leaf (the stacked ``layers``
-    or ``groups`` and the hybrid's unstacked ``tail``)."""
+    kernel): one per layer of every quantized leaf it reads
+    (``decode_tree``: the stacked ``layers`` or ``groups``, the hybrid's
+    unstacked ``tail``, an encoder–decoder's decoder)."""
     want = {}
 
     def walk(node):
@@ -663,7 +709,7 @@ def launches_per_step(params):
         elif isinstance(node, list):
             for v in node:
                 walk(v)
-    walk({k: v for k, v in params.items() if k != "embed"})
+    walk(decode_tree(params))
     return want
 
 
@@ -1146,11 +1192,11 @@ def flash_check(b, s, h, d, causal, window, dev, gen):
     return q, k, v, want, err
 
 
-def flash_case(s, window, dev, gen, flush):
+def flash_case(s, window, dev, gen, flush, *, b=4, h=36, d=64,
+               causal=True):
     """Kernel vs twin at minicpm-2b's heads (B·H = 4·36, d = 64), causal,
-    with times and bound."""
-    b, h, d = 4, 36, 64
-    q, k, v, want, err = flash_check(b, s, h, d, True, window, dev, gen)
+    or at the heads and mask given, with times and bound."""
+    q, k, v, want, err = flash_check(b, s, h, d, causal, window, dev, gen)
     mask = None
     if window:
         i = torch.arange(s, device=dev)[:, None]
@@ -1160,21 +1206,22 @@ def flash_case(s, window, dev, gen, flush):
 
     def library():
         if mask is None:
-            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+            return F.scaled_dot_product_attention(qt, kt, vt,
+                                                  is_causal=causal)
         return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
     lib_err = float((library().transpose(1, 2) - want).abs().max())
     # bytes: q, k, v read and o written once; operations: 2·d for q·k and
     # 2·d for p·v per kept (query, key) pair, on the bf16 tensor cores with
     # an f32-accurate 3-term split (the f32 CUDA-core time is printed too)
-    flops = 4 * d * _kept_pairs(s, True, window) * b * h
+    flops = 4 * d * _kept_pairs(s, causal, window) * b * h
     t_bytes = 4 * 4 * b * s * h * d / HBM_BYTES_PER_S * 1e3
     t_ops = BF16_TERMS * flops / BF16_FLOP_PER_S * 1e3
-    return {"bh": b * h, "s": s, "d": d, "window": window,
+    return {"bh": b * h, "s": s, "d": d, "window": window, "causal": causal,
             "max_abs_err": err, "library_max_abs_err": lib_err,
             "ms": device_ms(lambda: flash_attention_cuda(
-                q, k, v, causal=True, window=window), dev, flush=flush),
+                q, k, v, causal=causal, window=window), dev, flush=flush),
             "plain_ms": device_ms(lambda: flash_twin(
-                q, k, v, causal=True, window=window), dev, flush=flush),
+                q, k, v, causal=causal, window=window), dev, flush=flush),
             "library_ms": device_ms(library, dev, flush=flush),
             "bound_ms": max(t_bytes, t_ops), "bytes_ms": t_bytes,
             "operations_ms": t_ops,
@@ -3508,6 +3555,354 @@ def recurrent_phases(dev, gen) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# the encoder–decoder and prefix-LM families: whisper-base and paligemma-3b
+# ---------------------------------------------------------------------------
+
+WHISPER_ARCH = "whisper-base"
+PALIGEMMA_ARCH = "paligemma-3b"
+#: packed denses one decoder layer runs per decode step: whisper's self
+#: wq wk wv wo, cross wq wo (the cross K/V are the cache's extras) and
+#: MLP w_in w_out; a paligemma layer's wq wk wv wo and gated MLP
+ENCDEC_PER_LAYER = {WHISPER_ARCH: 8, PALIGEMMA_ARCH: 7}
+#: the (k, n) of every dense of the two families at full width
+ENCDEC_SHAPES = {
+    WHISPER_ARCH: [(512, 512), (512, 2048), (2048, 512)],
+    PALIGEMMA_ARCH: [(2048, 2048), (2048, 256), (2048, 16384),
+                     (16384, 2048)]}
+#: rows of B1's full-sequence launches: whisper's encoder and cross K/V
+#: over 8 × 1500 frames, paligemma's prefill of 8 × (256 + 32) positions
+ENCDEC_PREFILL_M = {WHISPER_ARCH: 8 * 1500, PALIGEMMA_ARCH: 8 * (256 + 32)}
+
+
+def encdec_kernel_phase(dev, gen, flush) -> dict:
+    """B1 (packed int4) and B2 against their twins at m = 8 at every (k,
+    n) of the two families, B1 at their full-sequence rows
+    (ENCDEC_PREFILL_M) and B3 non-causal at whisper's encoder (B·H = 8·8,
+    S = 1500, d = 64), each timed beside its bound, its twin and the
+    library call as in the kernel phase: {"m8": {(k, n): {"arch",
+    "int4", "int8"}}, "prefill": [case], "flash": case}."""
+    out = {"m8": {}, "prefill": []}
+    for arch, shapes in ENCDEC_SHAPES.items():
+        for k, n in shapes:
+            c4 = kernel_case(4, 8, k, n, dev, gen, flush)
+            c8 = int8_case(8, k, n, "kn", dev, gen, flush, timed=True)
+            out["m8"][(k, n)] = {"arch": arch, "int4": c4, "int8": c8}
+            print(f"encdec/vlm kernels {arch} m=8 k={k} n={n}: B1 int4 ms="
+                  f"{c4['ms']:.5f} plain_ms={c4['plain_ms']:.5f} library_ms="
+                  f"{c4['library_ms']:.5f} bound_ms={c4['bound_ms']:.5f} "
+                  f"({c4['bound_by']}) err={c4['max_abs_err']:.3e}; B2 ms="
+                  f"{c8['ms']:.5f} plain_ms={c8['plain_ms']:.5f} library_ms="
+                  f"{c8['library_ms']:.5f} bound_ms={c8['bound_ms']:.5f} "
+                  f"({c8['bound_by']}) err={c8['max_abs_err']:.3e} [{CARD}]",
+                  flush=True)
+        m = ENCDEC_PREFILL_M[arch]
+        for k, n in shapes:
+            c = dict(kernel_case(4, m, k, n, dev, gen, flush), arch=arch)
+            out["prefill"].append(c)
+            print(f"encdec/vlm kernels {arch} B1 int4 m={m} k={k} n={n}: ms="
+                  f"{c['ms']:.5f} plain_ms={c['plain_ms']:.5f} library_ms="
+                  f"{c['library_ms']:.5f} bound_ms={c['bound_ms']:.5f} "
+                  f"({c['bound_by']}) err={c['max_abs_err']:.3e} [{CARD}]",
+                  flush=True)
+    c = flash_case(1500, 0, dev, gen, flush, b=8, h=8, d=64, causal=False)
+    out["flash"] = c
+    print(f"encdec kernels B3 non-causal B*H=64 S=1500 d=64: ms="
+          f"{c['ms']:.5f} plain_ms={c['plain_ms']:.5f} library_ms="
+          f"{c['library_ms']:.5f} bound_ms={c['bound_ms']:.5f} "
+          f"({c['bound_by']}) err={c['max_abs_err']:.3e} [{CARD}]",
+          flush=True)
+    return out
+
+
+def _counted(dev, fn):
+    """``fn()`` with every kernel count zeroed just before it: (its
+    result, {"ms": synchronized wall ms, "b1": dequant launches by nbits,
+    "flash": B3 launches})."""
+    _sync(dev)
+    reset_launches()
+    reset_flash_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(dev)
+    return out, {"ms": 1e3 * (time.perf_counter() - t0),
+                 "b1": {nb: c for nb, c in LAUNCHES.items() if c},
+                 "flash": flash_attention_cuda.launches}
+
+
+def _greedy_steps(cfg, split, cache, logits, n):
+    """``n`` greedy ``decode_step`` calls from a prefilled cache: (the
+    tokens fed, [the prefill's logits, each step's logits], mean step
+    wall ms)."""
+    fed, seen = [], [logits]
+    dev = logits.device
+    _sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        tok = seen[-1].argmax(-1, keepdim=True)
+        fed.append(tok)
+        logits, cache = decode_step(cfg, split, cache, tok)
+        seen.append(logits)
+    _sync(dev)
+    return (torch.cat(fed, 1), seen,
+            1e3 * (time.perf_counter() - t0) / n)
+
+
+def _hold_steps(seen, oracle_logits, what):
+    """Each served logits row (the prefill's, then each step's) against
+    the oracle's forward_train logits at its position, within LOGIT_TOL
+    of the oracle's largest value; the largest relative error."""
+    want = oracle_logits[:, -len(seen):]
+    return max(_rel_check(got, want[:, j], f"{what} step {j}")
+               for j, got in enumerate(seen))
+
+
+def encdec_serve_rest(cfg, params, kcases, dev, rec, traffic):
+    """The part both families share after their prefill check: the
+    continuous engine's token-only traffic (serve_tree: first step against
+    the dequantized model, ENCDEC_PER_LAYER B1 per layer and step), the
+    step's breakdown (its CUDA graph's B1 nodes), a rerun and the static
+    engine with equal streams, one decode step of an int8 copy through
+    B2."""
+    arch = cfg.name
+    per_layer = ENCDEC_PER_LAYER[arch]
+    rec["serve"] = serve_tree(cfg, params, dequantized_model, "int4", dev,
+                              per_layer=per_layer, **traffic)
+    rec["serve"].update(step_breakdown(cfg, params, dev, traffic["slots"],
+                                       traffic["max_len"], ()))
+    rec["b1_ms_per_step"] = kernel_ms_per_step(decode_tree(params), kcases,
+                                               "int4")
+    prompts = moe_prompts(cfg, traffic["n_req"], traffic["prompt_len"])
+    kw = dict(slots=traffic["slots"], max_len=traffic["max_len"],
+              chunk=traffic["chunk"])
+    rerun = engine_run(cfg, params, prompts, traffic["new_tokens"], dev,
+                       **kw)
+    if rerun["streams"] != rec["serve"]["streams"]:
+        raise AssertionError(f"{arch}: a rerun of the continuous engine gave "
+                             "other streams")
+    rec["rerun_step_ms_median"] = rerun["step_ms_median"]
+    if static_streams(cfg, params, prompts, traffic["new_tokens"],
+                      **kw) != rec["serve"]["streams"]:
+        raise AssertionError(f"{arch}: ServeEngine's streams differ from "
+                             "ContinuousEngine's")
+    deq = dequantized_model(params)
+    int8 = quantize_params_tree(deq)
+    del deq
+    tok = torch.as_tensor(np.stack([p[:1] for p in prompts]),
+                          dtype=torch.long, device=dev)
+    n_req, max_len = traffic["n_req"], traffic["max_len"]
+    got, counts = _counted(dev, lambda: decode_step(cfg, int8, init_cache(
+        cfg, n_req, max_len, torch.float32, device=dev), tok)[0])
+    if counts["b1"] != {8: per_layer * cfg.n_layers}:
+        raise AssertionError(f"{arch} int8 decode step launches "
+                             f"{counts['b1']}")
+    oracle = dequantized_model(int8)
+    want, _ = decode_step(cfg, oracle, init_cache(
+        cfg, n_req, max_len, torch.float32, device=dev), tok)
+    rec["int8_step"] = {"launches": counts["b1"],
+                        "logit_rel_err": _rel_check(
+                            got, want, f"{arch} int8 first step")}
+    del oracle, int8
+    torch.cuda.empty_cache()
+
+
+def _check_counts(dev, what, got, want):
+    """On the card, the (B1 launches by nbits, B3 launches) of a counted
+    call (``_counted``) must be ``want``; the CPU's twins count nothing."""
+    if dev.type == "cuda" and (got["b1"], got["flash"]) != want:
+        raise AssertionError(f"{what}: B1 {got['b1']}, B3 {got['flash']}; "
+                             f"expected {want}")
+
+
+def whisper_prefill_phase(cfg, params, dev, *, n_req, prompt_len,
+                          new_tokens, max_len) -> dict:
+    """Frames (n_req, enc_seq, d) from a numpy seed: ``encode`` (6 B1 per
+    encoder layer at m = n_req·enc_seq and one B3, non-causal),
+    ``capture_cross_kv`` (2 B1 per decoder layer at that m) and the whole
+    ``prefill`` (those, and 8 B1 per decoder layer at m = n_req·prompt_len
+    and one B3, causal), each timed with its launches counted; the
+    prefill's self K/V and extras against ``capture_cross_kv`` +
+    ``decode_chunk`` over the prompt; ``new_tokens`` greedy decode steps
+    after it, the prefill's and every step's logits against the
+    dequantized model's ``forward_train`` over the frames and [prompt;
+    served tokens].  All within LOGIT_TOL of the largest value."""
+    split = split_layers(params)
+    rng = np.random.default_rng(31)
+    frames = torch.as_tensor(
+        rng.standard_normal((n_req, cfg.enc_seq, cfg.d_model)),
+        dtype=torch.float32, device=dev)
+    toks = torch.as_tensor(np.stack(moe_prompts(cfg, n_req, prompt_len)),
+                           dtype=torch.long, device=dev)
+    batch = {"tokens": toks, "frames": frames}
+    prefill(cfg, split, {"tokens": toks[:, :2], "frames": frames}, max_len,
+            torch.float32)                                  # first use
+    enc, c_enc = _counted(dev, lambda: encode(cfg, split, frames))
+    extras, c_cross = _counted(dev, lambda: capture_cross_kv(
+        cfg, split, enc, torch.float32))
+    (logits, cache), c_pre = _counted(dev, lambda: prefill(
+        cfg, split, batch, max_len, torch.float32))
+    L, E = cfg.n_layers, cfg.enc_layers
+    _check_counts(dev, "whisper encode", c_enc, ({4: 6 * E}, E))
+    _check_counts(dev, "whisper cross K/V", c_cross, ({4: 2 * L}, 0))
+    _check_counts(dev, "whisper prefill", c_pre,
+                  ({4: 6 * E + 2 * L + 8 * L}, E + L))
+    if int(cache.pos) != prompt_len:
+        raise AssertionError(f"whisper prefill pos {int(cache.pos)}")
+    rec = {"encode": c_enc, "cross_kv": c_cross, "prefill": c_pre}
+    ref = init_cache(cfg, n_req, max_len, torch.float32, device=dev)
+    for dst, src in zip(ref.extras, extras):
+        dst.copy_(src)
+    ref_logits, ref = decode_chunk(cfg, split, ref, toks)
+    rec["prefill_vs_decode_chunk_rel_err"] = {
+        name: _rel_check(got, want, f"whisper prefill {name} vs "
+                         "capture_cross_kv + decode_chunk")
+        for name, got, want in (
+            ("k", cache.kv.k, ref.kv.k), ("v", cache.kv.v, ref.kv.v),
+            ("enc_k", cache.extras[0], ref.extras[0]),
+            ("enc_v", cache.extras[1], ref.extras[1]),
+            ("logits", logits, ref_logits))}
+    del ref, extras, enc
+    fed, seen, step_ms = _greedy_steps(cfg, split, cache, logits,
+                                       new_tokens)
+    oracle = dequantized_model(params)
+    full = forward_train(cfg, oracle, {"tokens": torch.cat([toks, fed], 1),
+                                       "frames": frames})
+    rec["steps_rel_err"] = _hold_steps(seen, full, "whisper int4")
+    rec["greedy_steps"] = new_tokens
+    rec["prefilled_step_ms"] = step_ms
+    return rec
+
+
+def paligemma_prefill_phase(cfg, params, dev, *, n_req, prompt_len,
+                            new_tokens) -> dict:
+    """Patches (n_req, prefix_tokens, d) from a numpy seed: the
+    ``prefill`` of prefix_tokens + prompt_len positions (7 B1 per layer at
+    m = n_req·(P + S), no B3: GQA and the prefix-LM mask take the plain
+    softmax), timed with its launches counted; ``new_tokens`` greedy
+    decode steps after it, the prefill's and every step's logits against
+    the dequantized model's ``forward_train`` over [patches; prompt;
+    served tokens], within LOGIT_TOL of the largest value."""
+    split = split_layers(params)
+    rng = np.random.default_rng(32)
+    patches = torch.as_tensor(
+        rng.standard_normal((n_req, cfg.prefix_tokens, cfg.d_model)),
+        dtype=torch.float32, device=dev)
+    toks = torch.as_tensor(np.stack(moe_prompts(cfg, n_req, prompt_len)),
+                           dtype=torch.long, device=dev)
+    batch = {"tokens": toks, "patches": patches}
+    max_len = cfg.prefix_tokens + prompt_len + new_tokens
+    prefill(cfg, split, {"tokens": toks[:, :2], "patches": patches},
+            max_len, torch.float32)                         # first use
+    (logits, cache), c_pre = _counted(dev, lambda: prefill(
+        cfg, split, batch, max_len, torch.float32))
+    _check_counts(dev, "paligemma prefill", c_pre,
+                  ({4: ENCDEC_PER_LAYER[PALIGEMMA_ARCH] * cfg.n_layers}, 0))
+    if int(cache.pos) != cfg.prefix_tokens + prompt_len:
+        raise AssertionError(f"paligemma prefill pos {int(cache.pos)}")
+    fed, seen, step_ms = _greedy_steps(cfg, split, cache, logits,
+                                       new_tokens)
+    del cache
+    oracle = dequantized_model(params)
+    full = forward_train(cfg, oracle, {"tokens": torch.cat([toks, fed], 1),
+                                       "patches": patches})
+    return {"prefill": c_pre, "prefill_max_len": max_len,
+            "steps_rel_err": _hold_steps(seen, full, "paligemma int4"),
+            "greedy_steps": new_tokens, "prefilled_step_ms": step_ms}
+
+
+def family_phase(arch, dev, kcases, *, n_req, prompt_len, new_tokens,
+                 max_len, slots, chunk) -> dict:
+    """whisper-base (6 encoder and 6 decoder layers, frames (8, 1500,
+    512)) or paligemma-3b (18 layers, patches (8, 256, 2048)) at full
+    width and depth, every dense packed int4 (B1): init time, the exact
+    prefill and the steps after it (``whisper_prefill_phase``,
+    ``paligemma_prefill_phase``), then ``encdec_serve_rest`` on the serve
+    traffic; peak memory."""
+    cfg = get_config(arch)
+    torch.empty(1, device=dev)          # the allocator exists before reset
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = quantize_for_wbits(init_params(cfg, 0, device=dev), 4)
+    _sync(dev)
+    rec = {"init_s": time.perf_counter() - t0,
+           "formats": leaf_format_histogram(params)}
+    torch.cuda.empty_cache()
+    if arch == WHISPER_ARCH:
+        rec.update(whisper_prefill_phase(
+            cfg, params, dev, n_req=n_req, prompt_len=prompt_len,
+            new_tokens=new_tokens, max_len=max_len))
+    else:
+        rec.update(paligemma_prefill_phase(
+            cfg, params, dev, n_req=n_req, prompt_len=prompt_len,
+            new_tokens=new_tokens))
+    torch.cuda.empty_cache()
+    traffic = dict(n_req=n_req, prompt_len=prompt_len, new_tokens=new_tokens,
+                   max_len=max_len, slots=slots, chunk=chunk)
+    encdec_serve_rest(cfg, params, kcases, dev, rec, traffic)
+    rec["peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    _print_family(cfg, rec)
+    del params
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _print_family(cfg, rec):
+    sv = rec["serve"]
+    busy = sv.get("device_busy_ms_per_step")
+    parts = [f"{k} {rec[k]['ms']:.2f} ms (B1 {rec[k]['b1']}, B3 "
+             f"{rec[k]['flash']})" for k in ("encode", "cross_kv", "prefill")
+             if k in rec]
+    print(f"{cfg.name} L={cfg.n_layers}"
+          + (f"+{cfg.enc_layers} enc" if cfg.enc_layers else "")
+          + f": {'; '.join(parts)}; {rec['greedy_steps']} prefilled steps "
+          f"{rec['prefilled_step_ms']:.2f} ms each, logits vs the "
+          f"dequantized forward_train max rel err "
+          f"{rec['steps_rel_err']:.3e}; engine {sv['tokens']} tokens "
+          f"{sv['tokens_per_s']:.2f} tok/s, decode step "
+          f"{sv['decode_step_ms']:.3f} ms (engine), step wall "
+          f"{sv['decode_step_wall_ms']:.3f} ms, traced "
+          f"{sv['traced_step_wall_ms']:.3f} ms, device busy "
+          + ("not measured" if busy is None else
+             f"{busy:.3f} ms, idle share {sv['device_idle_share']:.4f}, "
+             f"{sv['device_activities_per_step']:.0f} activities")
+          + f"; B1 {sv['launches_per_step']} per step "
+          f"({rec['b1_ms_per_step']:.3f} ms from the kernel cases), "
+          f"{sv['graph_packed_kernels_per_step']} in a CUDA graph of one "
+          f"step; unembed {sv['unembed_ms']:.5f} ms; rerun equal, static == "
+          f"continuous; int8 step B2 {rec['int8_step']['launches']} rel err "
+          f"{rec['int8_step']['logit_rel_err']:.3e}; init "
+          f"{rec['init_s']:.1f} s, peak {rec['peak_memory_gb']:.1f} GB "
+          f"[{CARD}]", flush=True)
+
+
+def encdec_vlm_phases(dev, gen) -> dict:
+    """The encoder–decoder and prefix-LM cells, in order: B1/B2/B3 at
+    their shapes, whisper-base and paligemma-3b at full width and depth;
+    each one's wall time."""
+    traffic = dict(n_req=8, prompt_len=32, new_tokens=16, max_len=64,
+                   slots=8, chunk=16)
+    rec, took = {}, {}
+    t0 = time.perf_counter()
+    flush = torch.ones(16 << 20, dtype=torch.float32, device=dev)  # 64 MB
+    kcases = encdec_kernel_phase(dev, gen, flush)
+    del flush
+    took["kernels"] = time.perf_counter() - t0
+    rec["kernels"] = {
+        "m8": [dict(k=k, n=n, **v) for (k, n), v in kcases["m8"].items()],
+        "prefill": kcases["prefill"], "flash": kcases["flash"]}
+    for name in (WHISPER_ARCH, PALIGEMMA_ARCH):
+        t0 = time.perf_counter()
+        rec[name] = family_phase(name, dev, kcases["m8"], **traffic)
+        torch.cuda.empty_cache()
+        took[name] = time.perf_counter() - t0
+    rec["phase_s"] = took
+    rec["total_s"] = sum(took.values())
+    print("encdec/vlm phases (s): " + ", ".join(f"{k} {v:.1f}"
+                                                for k, v in took.items())
+          + f"; total {rec['total_s']:.1f} [{CARD}]", flush=True)
+    return rec
+
+
 T_START = time.perf_counter()
 #: ``nvidia-smi``'s name and power limit of the card, set by ``main``;
 #: every report line of the slice-7 phases carries it
@@ -3650,13 +4045,23 @@ def main() -> int:
     print(f"smoke so far {time.perf_counter() - T_START:.1f}s", flush=True)
     recurrent = recurrent_phases(dev, gen)
     print(f"smoke so far {time.perf_counter() - T_START:.1f}s", flush=True)
-    rec_cases = [v["int4"] for v in recurrent["kernels"]]
-    rec_int8 = [v["int8"] for v in recurrent["kernels"]]
-    # the recurrent serve runs' B1 launches and their int8 steps' B2
-    rec_b1 = sum(recurrent[a]["launches"].get(4, 0)
-                 for a in (RWKV_ARCH, RG_ARCH))
-    rec_b2 = sum(recurrent[a]["int8_step"]["launches"].get(8, 0)
-                 for a in (RWKV_ARCH, RG_ARCH))
+    encdec = encdec_vlm_phases(dev, gen)
+    print(f"smoke so far {time.perf_counter() - T_START:.1f}s", flush=True)
+    rec_cases = [v["int4"] for v in recurrent["kernels"]] \
+        + [v["int4"] for v in encdec["kernels"]["m8"]] \
+        + encdec["kernels"]["prefill"]
+    rec_int8 = [v["int8"] for v in recurrent["kernels"]] \
+        + [v["int8"] for v in encdec["kernels"]["m8"]]
+    # the recurrent and encoder–decoder / prefix-LM serve runs' B1
+    # launches, their int8 steps' B2 and whisper's encode and prefill B3
+    fams = [recurrent[a] for a in (RWKV_ARCH, RG_ARCH)] \
+        + [encdec[a]["serve"] for a in (WHISPER_ARCH, PALIGEMMA_ARCH)]
+    rec_b1 = sum(f["launches"].get(4, 0) for f in fams)
+    rec_b2 = sum(f["int8_step"]["launches"].get(8, 0)
+                 for f in [recurrent[a] for a in (RWKV_ARCH, RG_ARCH)]
+                 + [encdec[a] for a in (WHISPER_ARCH, PALIGEMMA_ARCH)])
+    whisper_b3 = sum(encdec[WHISPER_ARCH][k]["flash"]
+                     for k in ("encode", "prefill"))
 
     kernels, detail_mix = [], {}
     for nbits in (4, 3, 2):
@@ -3722,8 +4127,10 @@ def main() -> int:
     kernels.append({
         "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": FLASH_REPLACES,
-        "launches": sum(p["flash_launches"] for p in ptq["ppl"].values()),
-        "max_abs_err": max(c["max_abs_err"] for c in flash_cases),
+        "launches": sum(p["flash_launches"] for p in ptq["ppl"].values())
+        + whisper_b3,
+        "max_abs_err": max(c["max_abs_err"] for c in flash_cases
+                           + [encdec["kernels"]["flash"]]),
         "ms": path["ms"], "plain_ms": path["plain_ms"],
         "bound_ms": path["bound_ms"], "bound_by": path["bound_by"],
         "library_ms": path["library_ms"]})
@@ -3739,6 +4146,7 @@ def main() -> int:
               "chaos": chaos_rows, "degrade": degrade, "quality": quality,
               "requant_full": requant_full, "slice7_phase_s": phase_s,
               "moe": moe_rec, "recurrent": recurrent,
+              "encdec_vlm": encdec,
               "total_s": time.perf_counter() - T_START}
     (out / "chip_smoke_detail.json").write_text(json.dumps(detail, indent=1,
                                                            default=float))

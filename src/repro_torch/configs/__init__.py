@@ -1,10 +1,11 @@
-"""repro_torch.configs — the dense, MoE, ssm (RWKV6) and hybrid (RG-LRU)
-architectures the port serves."""
+"""repro_torch.configs — the dense, MoE, ssm (RWKV6), hybrid (RG-LRU),
+encoder–decoder (whisper) and prefix-LM (paligemma) architectures the
+port serves."""
 import importlib
 
 _MODULES = ["minicpm_2b", "qwen1_5_32b", "qwen2_5_32b", "minitron_8b",
             "phi3_5_moe", "moonshot_v1_16b", "rwkv6_7b",
-            "recurrentgemma_2b"]
+            "recurrentgemma_2b", "whisper_base", "paligemma_3b"]
 _loaded = False
 
 

@@ -1,16 +1,18 @@
-"""repro_torch.models — the decoders of the dense, MoE, ssm (RWKV6) and
-hybrid (RG-LRU) families: serving and evaluation paths."""
+"""repro_torch.models — the models of the dense, MoE, ssm (RWKV6), hybrid
+(RG-LRU), encoder–decoder and prefix-LM families: serving and evaluation
+paths."""
 from . import rglru, rwkv6
 from .convert import (from_jax_calib_stats, from_jax_params,
                       from_jax_quantized_linear)
 from .transformer import (DecodeCache, cache_reset_slot, cache_rows,
-                          cache_write_slot, decode_chunk, decode_layers,
-                          decode_step, forward_train, init_cache,
-                          init_params, layer_kv, loss_fn, prefill,
-                          prefill_layers, split_layers)
+                          cache_write_slot, capture_cross_kv, decode_chunk,
+                          decode_layers, decode_step, encode, forward_train,
+                          init_cache, init_params, layer_kv, loss_fn,
+                          prefill, prefill_layers, split_layers)
 
 __all__ = ["DecodeCache", "cache_reset_slot", "cache_rows", "cache_write_slot",
-           "decode_chunk", "decode_layers", "decode_step", "forward_train",
+           "capture_cross_kv", "decode_chunk", "decode_layers", "decode_step",
+           "encode", "forward_train",
            "from_jax_calib_stats", "from_jax_params",
            "from_jax_quantized_linear",
            "init_cache", "init_params", "layer_kv", "loss_fn", "prefill",

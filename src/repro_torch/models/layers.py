@@ -1,4 +1,5 @@
-"""Model building blocks of the dense and MoE families (port of
+"""Model building blocks of the decoder families, the encoder–decoder's
+cross attention and the prefix-LM mask (port of
 ``repro/models/layers.py``).
 
 Plain functions on tensors over the reference's nested-dict param tree
@@ -12,14 +13,16 @@ from __future__ import annotations
 import math
 from typing import Any, NamedTuple, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import flash
 
-__all__ = ["rmsnorm", "layernorm", "dense", "rope", "KVCache",
-           "q8", "attention_train", "attention_decode", "mlp", "moe",
-           "moe_experts", "embed", "unembed"]
+__all__ = ["rmsnorm", "layernorm", "dense", "rope", "sinusoidal_positions",
+           "KVCache", "q8", "attention_train", "attention_decode",
+           "cross_attention_decode", "mlp", "moe", "moe_experts", "embed",
+           "unembed"]
 
 
 # ---------------------------------------------------------------------------
@@ -94,8 +97,18 @@ def rope(x, positions, theta: float = 10000.0):
     return out.to(x.dtype)
 
 
+def sinusoidal_positions(length, dim, dtype=torch.float32, device=None):
+    """(length, dim) sin | cos table of the encoder's positions, computed in
+    float64 numpy as the reference's is, then cast: the same bits."""
+    pos = np.arange(length)[:, None]
+    i = np.arange(dim // 2)[None, :]
+    ang = pos / np.power(10000.0, 2 * i / dim)
+    out = np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
+    return torch.as_tensor(out, device=device).to(dtype)
+
+
 # ---------------------------------------------------------------------------
-# Attention (full sequence, decode)
+# Attention (full sequence, decode, cross)
 # ---------------------------------------------------------------------------
 
 
@@ -150,40 +163,56 @@ def _attn_out(scores, v):
 
 def attention_train(p, x, *, n_q, n_kv, head_dim, rope_theta=10000.0,
                     causal=True, window: Optional[int] = None,
-                    return_kv: bool = False):
-    """Full-sequence self-attention (train / evaluation forward, prefill).
+                    prefix_len: Optional[int] = None,
+                    kv_x: Optional[torch.Tensor] = None,
+                    positions: Optional[torch.Tensor] = None,
+                    use_rope=True, return_kv: bool = False):
+    """Full-sequence attention (train / evaluation forward, prefill).
 
-    Rope at positions 0..S-1.  Where the reference's flash conditions hold
-    (causal, ``n_q == n_kv``, head_dim ∈ {64, 128, 256}) it takes
+    Self attention ropes q and k at ``positions`` (default 0..S-1) unless
+    ``use_rope`` is off; the mask is causal (or none), optionally windowed,
+    and ``prefix_len`` opens the first ``prefix_len`` keys to every query
+    (the prefix-LM mask ``causal | j < prefix_len``).  ``kv_x`` switches
+    to cross attention: keys and values from ``kv_x`` (B, T, d), no mask
+    and no rope.  Self attention without a prefix and with
+    ``n_q == n_kv`` and head_dim ∈ {64, 128, 256}, causal or not, takes
     ``kernels/flash``: the hand-written kernel for CUDA tensors, its
     materialized twin for CPU tensors, differentiable either way (the
-    backward recomputes through the twin).  Other shapes take the plain
-    masked softmax over the (S, S) scores.  ``return_kv`` also returns the
-    post-rope (K, V), each (B, S, n_kv, head_dim): what a decode cache
-    holds.  Cross attention, explicit positions and prefix-LM masks belong
-    to the other families (ROADMAP queue A item 12).
+    backward recomputes through the twin).  Cross attention, prefix-LM
+    and GQA take the plain masked softmax, as in the reference.
+    ``return_kv`` also returns the post-rope (K, V), each (B, T, n_kv,
+    head_dim): what a decode cache holds.
     """
     b, s, d = x.shape
+    src = x if kv_x is None else kv_x
+    t = src.shape[1]
     q = _split_heads(dense(p["wq"], x), n_q, head_dim)
-    k = _split_heads(dense(p["wk"], x), n_kv, head_dim)
-    v = _split_heads(dense(p["wv"], x), n_kv, head_dim)
-    positions = torch.arange(s, device=x.device)[None, :]
-    q = rope(q, positions, rope_theta)
-    k = rope(k, positions, rope_theta)
-    if causal and n_q == n_kv and head_dim in flash.HEAD_DIMS:
-        out = flash.flash_attention(q, k, v, causal=True, window=window or 0)
+    k = _split_heads(dense(p["wk"], src), n_kv, head_dim)
+    v = _split_heads(dense(p["wv"], src), n_kv, head_dim)
+    if use_rope and kv_x is None:
+        if positions is None:
+            positions = torch.arange(s, device=x.device)[None, :]
+        q = rope(q, positions, rope_theta)
+        k = rope(k, positions, rope_theta)
+    if (kv_x is None and prefix_len is None and n_q == n_kv
+            and head_dim in flash.HEAD_DIMS):
+        out = flash.flash_attention(q, k, v, causal=causal,
+                                    window=window or 0)
         out = out.reshape(b, s, n_q * head_dim)
     else:
         scores = _attn_scores(q, k, 1.0 / math.sqrt(head_dim))
-        i = torch.arange(s, device=x.device)[:, None]
-        j = torch.arange(s, device=x.device)[None, :]
-        mask = torch.ones((s, s), dtype=torch.bool, device=x.device)
-        if causal:
-            mask = j <= i
-        if window is not None:
-            mask = mask & (i - j < window)
-        scores = torch.where(mask[None, None, None], scores,
-                             torch.full_like(scores, -1e30))
+        if kv_x is None:
+            i = torch.arange(s, device=x.device)[:, None]
+            j = torch.arange(t, device=x.device)[None, :]
+            mask = torch.ones((s, t), dtype=torch.bool, device=x.device)
+            if causal:
+                mask = j <= i
+            if window is not None:
+                mask = mask & (i - j < window)
+            if prefix_len is not None:
+                mask = mask | (j < prefix_len)
+            scores = torch.where(mask[None, None, None], scores,
+                                 torch.full_like(scores, -1e30))
         probs = torch.softmax(scores.to(torch.float32), dim=-1)
         out = _attn_out(probs.to(x.dtype), v)
     out = dense(p["wo"], out)
@@ -267,6 +296,17 @@ def attention_decode(p, x_t, cache: KVCache, pos, *, n_q, n_kv, head_dim,
     probs = torch.softmax(scores.to(torch.float32), dim=-1)
     out = _attn_out(probs.to(x_t.dtype), v_eff)
     return dense(p["wo"], out), cache
+
+
+def cross_attention_decode(p, x_t, k, v, *, n_q, n_kv, head_dim):
+    """Cross attention of x_t (B, S, d) against fixed encoder K/V (B, T,
+    n_kv, head_dim): no mask, no rope.  Decode runs it at S = 1 against a
+    cache's extras; the exact prefill at the prompt's S."""
+    q = _split_heads(dense(p["wq"], x_t), n_q, head_dim)
+    scores = _attn_scores(q, k, 1.0 / math.sqrt(head_dim))
+    probs = torch.softmax(scores.to(torch.float32), dim=-1)
+    out = _attn_out(probs.to(x_t.dtype), v)
+    return dense(p["wo"], out)
 
 
 # ---------------------------------------------------------------------------

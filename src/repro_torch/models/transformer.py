@@ -1,7 +1,10 @@
-"""Decoder of the dense, MoE, ssm (RWKV6) and hybrid (RG-LRU + local
-attention) families: init, full-sequence forward, decode caches, decode
-and prefill (port of those families of ``repro/models/transformer.py``;
-a MoE layer runs ``layers.moe`` where a dense one runs ``layers.mlp``).
+"""Models of every family of ``repro/models/transformer.py``: the dense,
+MoE, ssm (RWKV6), hybrid (RG-LRU + local attention), encoder–decoder
+(whisper: a non-causal encoder over stub frame embeddings, a causal
+decoder with cross attention) and prefix-LM (paligemma: stub patch
+embeddings before the text, the dense decoder under the prefix-LM mask)
+families: init, full-sequence forward, decode caches, decode and prefill
+(a MoE layer runs ``layers.moe`` where a dense one runs ``layers.mlp``).
 
 API (plain functions of (cfg, params, ...)):
   init_params(cfg, seed, device)             -> param tree (reference keys)
@@ -11,19 +14,21 @@ API (plain functions of (cfg, params, ...)):
   decode_step(cfg, params, cache, token)     -> (logits, cache)
   decode_chunk(cfg, params, cache, tokens)   -> (last logits, cache)
   prefill(cfg, params, batch, max_len)       -> (last logits, cache)
+  encode / capture_cross_kv                  -> encoder states, cross K/V
   cache_write_slot / cache_reset_slot        -> slot graft / eviction
   split_layers(params)                       -> params with per-layer views
 
 The reference's ``jax.lax.scan`` over layers is a Python loop over the
-first axis of the stacked leaves (``layers``, or the hybrid's ``groups``
-of one block pattern each, followed by its unstacked ``tail`` list).
+first axis of the stacked leaves (``layers``; the hybrid's ``groups`` of
+one block pattern each, followed by its unstacked ``tail`` list; the
+encoder–decoder's ``enc_layers`` and ``dec_layers``).
 The decode functions take either the stacked tree or one that
 :func:`split_layers` already cut into per-layer views; a caller that steps
 many times (the engines) splits once.  Every cache leaf (K/V buffers,
-int8 scales, RWKV shift and WKV states, RG-LRU h and conv states) carries
-the layer on axis 0 and the batch on axis 1, and is updated IN PLACE: the
-returned cache shares its tensors with the input cache and carries a new
-position tensor.
+int8 scales, RWKV shift and WKV states, RG-LRU h and conv states, the
+encoder–decoder's cross K/V ``extras``) carries the layer on axis 0 and
+the batch on axis 1, and is updated IN PLACE: the returned cache shares
+its tensors with the input cache and carries a new position tensor.
 """
 from __future__ import annotations
 
@@ -37,15 +42,20 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.opts import enabled as _opt
 from . import rglru as rg
 from . import rwkv6 as rk
-from .layers import (KVCache, attention_decode, attention_train, embed,
-                     layernorm, mlp, moe, q8, rmsnorm, unembed)
+from .layers import (KVCache, _split_heads, attention_decode,
+                     attention_train, cross_attention_decode, dense, embed,
+                     layernorm, mlp, moe, q8, rmsnorm, sinusoidal_positions,
+                     unembed)
 
 __all__ = ["init_params", "forward_train", "loss_fn", "init_cache",
            "decode_step", "decode_chunk", "prefill", "cache_write_slot",
            "cache_reset_slot", "cache_rows", "layer_kv", "split_layers",
-           "decode_layers", "prefill_layers", "DecodeCache"]
+           "decode_layers", "prefill_layers", "encode", "capture_cross_kv",
+           "DecodeCache"]
 
-_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
+#: the stacked layer trees of a param tree
+_STACKS = ("layers", "groups", "enc_layers", "dec_layers")
 
 
 def _check_family(cfg: ArchConfig):
@@ -53,9 +63,9 @@ def _check_family(cfg: ArchConfig):
             or (cfg.family == "moe") != bool(cfg.n_experts) \
             or (cfg.family == "hybrid") != bool(cfg.block_pattern):
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported; the port "
-            "serves the dense, MoE, ssm and hybrid families (ROADMAP item "
-            "12)")
+            f"{cfg.name}: the {cfg.family} family is not a family of the "
+            f"reference (one of {', '.join(_FAMILIES)}; MoE exactly when "
+            "n_experts is set, hybrid exactly when block_pattern is)")
 
 
 def _ffn(cfg, lp, x):
@@ -92,7 +102,14 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device=None,
     layers; the hybrid family stacks one block pattern per group under
     ``groups.b{i}`` (``ln_t``, ``ln_mlp``, ``mlp`` and ``attn`` or
     ``rec``) and keeps the ``n_layers mod len(pattern)`` last layers
-    unstacked in the ``tail`` list.
+    unstacked in the ``tail`` list.  The prefix-LM family (vlm) holds
+    the dense tree.  The encoder–decoder family holds ``enc_layers``
+    (``ln_attn``, ``attn``, ``ln_mlp``, ``mlp``) and ``enc_ln_f``,
+    ``dec_layers`` (``ln_self``, ``self_attn``, ``ln_cross``,
+    ``cross_attn``, ``ln_mlp``, ``mlp``), ``dec_pos`` (4096, d) normal with
+    std 0.01 and ``ln_f``; all its attention and MLP denses carry biases
+    and its MLPs are not gated, whatever the config says (the
+    reference's).
     """
     _check_family(cfg)
     dev = resolve_device(device)
@@ -125,9 +142,9 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device=None,
                 "wv": lin(d, cfg.n_kv * hd, qkv_bias, lead),
                 "wo": lin(cfg.n_heads * hd, d, out_bias, lead)}
 
-    def mlp_p(lead=(L,), bias=cfg.out_bias):
+    def mlp_p(lead=(L,), bias=cfg.out_bias, gated=cfg.gated_mlp):
         p = {"w_out": lin(cfg.d_ff, d, bias, lead)}
-        if cfg.gated_mlp:
+        if gated:
             p["w_gate"] = lin(d, cfg.d_ff, bias, lead)
             p["w_up"] = lin(d, cfg.d_ff, bias, lead)
         else:
@@ -169,13 +186,23 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device=None,
             ffn[key] = normal((L, E, d, ff), d ** -0.5)
         params["layers"] = {"ln_attn": norm(), "attn": attn(),
                             "ln_mlp": norm(), "moe": ffn}
+    elif cfg.family == "encdec":
+        enc = (cfg.enc_layers,)
+        params["enc_layers"] = {
+            "ln_attn": norm(enc), "attn": attn(enc, True, True),
+            "ln_mlp": norm(enc), "mlp": mlp_p(enc, True, False)}
+        params["enc_ln_f"] = norm(())
+        params["dec_layers"] = {
+            "ln_self": norm(), "self_attn": attn(qkv_bias=True,
+                                                 out_bias=True),
+            "ln_cross": norm(), "cross_attn": attn(qkv_bias=True,
+                                                   out_bias=True),
+            "ln_mlp": norm(), "mlp": mlp_p(bias=True, gated=False)}
+        params["dec_pos"] = normal((4096, d), 0.01)
     else:
         params["layers"] = {"ln_attn": norm(), "attn": attn(),
                             "ln_mlp": norm(), "mlp": mlp_p()}
-    ln_f = {"scale": torch.ones((d,), dtype=torch.float32, device=dev)}
-    if cfg.norm == "layernorm":
-        ln_f["bias"] = torch.zeros((d,), dtype=torch.float32, device=dev)
-    params["ln_f"] = ln_f
+    params["ln_f"] = norm(())
     return params
 
 
@@ -212,14 +239,15 @@ def _leaves(node):
 
 
 def split_layers(params):
-    """``params`` with its stacked ``layers`` tree (the hybrid's ``groups``
-    tree) cut into a list of per-layer (per-group) trees of views (no
-    copy); the other entries, the hybrid's ``tail`` list among them, are
-    shared."""
-    key = "groups" if "groups" in params else "layers"
-    if isinstance(params[key], list):
+    """``params`` with each stacked layer tree (``layers``, the hybrid's
+    ``groups``, the encoder–decoder's ``enc_layers`` and ``dec_layers``)
+    cut into a list of per-layer (per-group) trees of views (no copy); the
+    other entries, the hybrid's ``tail`` list among them, are shared."""
+    keys = [k for k in _STACKS
+            if k in params and not isinstance(params[k], list)]
+    if not keys:
         return params
-    return {**params, key: _layer_params(params[key])}
+    return {**params, **{k: _layer_params(params[k]) for k in keys}}
 
 
 def _hybrid_layers(cfg, params):
@@ -236,11 +264,15 @@ def _hybrid_layers(cfg, params):
     return out
 
 
-def _layers(cfg, params):
-    layers = split_layers(params)["layers"]
-    if len(layers) != cfg.n_layers:
-        raise ValueError(f"params hold {len(layers)} layers, "
-                         f"{cfg.name} has {cfg.n_layers}")
+def _layers(cfg, params, key=None):
+    """Per-layer views of the decoder stack (the encoder–decoder's
+    ``dec_layers``), or of the stack ``key``."""
+    key = key or ("dec_layers" if cfg.family == "encdec" else "layers")
+    layers = split_layers(params)[key]
+    want = cfg.enc_layers if key == "enc_layers" else cfg.n_layers
+    if len(layers) != want:
+        raise ValueError(f"params hold {len(layers)} {key}, "
+                         f"{cfg.name} has {want}")
     return layers
 
 
@@ -266,11 +298,99 @@ def _logits(cfg, params, x):
     return unembed(params["embed"], x, cfg.vocab)
 
 
+def _dec_pos_rows(params, pos):
+    """The decoder's learned position rows at ``pos`` mod 4096 (the
+    reference's cyclic table): (B, 1, d) for a per-slot (B,) ``pos``,
+    (1, 1, d) for a 0-d one (an index on the device: no host sync)."""
+    table = params["dec_pos"]
+    idx = (pos % table.shape[0]).reshape(-1).long()
+    return torch.index_select(table, 0, idx)[:, None, :]
+
+
+def _dec_pos_seq(params, s):
+    """Rows 0..S-1 of the position table, repeated past its length."""
+    table = params["dec_pos"]
+    reps = -(-s // table.shape[0])
+    return (table.repeat(reps, 1) if reps > 1 else table)[:s]
+
+
+def encode(cfg: ArchConfig, params, frames) -> torch.Tensor:
+    """The encoder–decoder's encoder (the reference's ``_encode``): frame
+    embeddings (B, T, d) plus sinusoidal positions, non-causal attention
+    without rope (B3 where its conditions hold), biased GELU MLPs, the
+    final norm → encoder states (B, T, d)."""
+    ak = _attn_kwargs(cfg)
+    x = frames + sinusoidal_positions(frames.shape[1], cfg.d_model,
+                                      frames.dtype, frames.device)[None]
+    for lp in _layers(cfg, params, "enc_layers"):
+        x = x + attention_train(lp["attn"], _norm(cfg, lp["ln_attn"], x),
+                                causal=False, use_rope=False, **ak)
+        x = x + mlp(lp["mlp"], _norm(cfg, lp["ln_mlp"], x),
+                    activation="gelu")
+    return _norm(cfg, params["enc_ln_f"], x)
+
+
+def capture_cross_kv(cfg: ArchConfig, params, enc,
+                     cache_dtype=torch.bfloat16):
+    """Each decoder layer's cross-attention K and V of the encoder states
+    ``enc`` (B, T, d) through ``layers.dense`` (so a quantized tree runs
+    its dequant kernel at m = B·T): a pair of (L, B, T, n_kv, hd) in
+    ``cache_dtype``, the cache's ``extras``.  The reference's
+    ``_capture_cross_kv`` multiplies the raw weight leaf and raises on a
+    quantized tree (ROADMAP queue C)."""
+    ks, vs = [], []
+    hd = cfg.resolved_head_dim
+    for lp in _layers(cfg, params):
+        ca = lp["cross_attn"]
+        ks.append(_split_heads(dense(ca["wk"], enc), cfg.n_kv, hd))
+        vs.append(_split_heads(dense(ca["wv"], enc), cfg.n_kv, hd))
+    return (torch.stack(ks).to(cache_dtype), torch.stack(vs).to(cache_dtype))
+
+
+def _encdec_layer(cfg, lp, x, enc):
+    """One decoder layer of the full-sequence forward: causal
+    self-attention without rope, cross attention to ``enc``, GELU MLP."""
+    ak = _attn_kwargs(cfg)
+    x = x + attention_train(lp["self_attn"], _norm(cfg, lp["ln_self"], x),
+                            causal=True, use_rope=False, **ak)
+    x = x + attention_train(lp["cross_attn"], _norm(cfg, lp["ln_cross"], x),
+                            kv_x=enc, use_rope=False, **ak)
+    return x + mlp(lp["mlp"], _norm(cfg, lp["ln_mlp"], x), activation="gelu")
+
+
+def _vlm_inputs(cfg, params, batch):
+    """[patches; scaled token embeddings] (B, P + S, d): the patch
+    embeddings enter unscaled, as in the reference."""
+    tok = _embed_tokens(cfg, params, batch["tokens"])
+    return torch.cat([batch["patches"].to(tok.dtype), tok], dim=1)
+
+
 def forward_train(cfg: ArchConfig, params, batch) -> torch.Tensor:
     """Full-sequence logits (B, S, vocab) of ``batch["tokens"]`` (B, S),
     causal: every attention layer through ``attention_train``, the RWKV6
-    and RG-LRU blocks through their full-sequence forwards."""
+    and RG-LRU blocks through their full-sequence forwards.  The prefix-LM
+    family also takes ``batch["patches"]`` (B, P, d), attends to them
+    under the prefix-LM mask and returns the text positions' logits; the
+    encoder–decoder family takes ``batch["frames"]`` (B, T, d), encodes
+    them and decodes the tokens against the encoder states."""
     _check_family(cfg)
+    if cfg.family == "encdec":
+        enc = encode(cfg, params, batch["frames"])
+        x = _embed_tokens(cfg, params, batch["tokens"])
+        x = x + _dec_pos_seq(params, x.shape[1])[None].to(x.dtype)
+        for lp in _layers(cfg, params):
+            x = _encdec_layer(cfg, lp, x, enc)
+        return _logits(cfg, params, x)
+    if cfg.family == "vlm":
+        x = _vlm_inputs(cfg, params, batch)
+        for lp in _layers(cfg, params):
+            x = x + attention_train(lp["attn"], _norm(cfg, lp["ln_attn"], x),
+                                    causal=True,
+                                    window=cfg.local_window or None,
+                                    prefix_len=cfg.prefix_tokens,
+                                    **_attn_kwargs(cfg))
+            x = x + _ffn(cfg, lp, _norm(cfg, lp["ln_mlp"], x))
+        return _logits(cfg, params, x)[:, cfg.prefix_tokens:, :]
     x = _embed_tokens(cfg, params, batch["tokens"])
     if cfg.family == "ssm":
         for lp in _layers(cfg, params):
@@ -316,11 +436,13 @@ def loss_fn(cfg: ArchConfig, params, batch) -> torch.Tensor:
 
 class DecodeCache(NamedTuple):
     kv: Any                   # per-family state, layer-stacked, batch on
-                              # axis 1: a KVCache (dense, MoE), an
-                              # RWKVState (ssm), {"kv": KVCache, "rec":
-                              # RGLRUState} (hybrid)
+                              # axis 1: a KVCache (dense, MoE, vlm,
+                              # encdec self attention), an RWKVState
+                              # (ssm), {"kv": KVCache, "rec": RGLRUState}
+                              # (hybrid)
     pos: torch.Tensor         # int32: 0-d (lockstep) or (B,) per slot
-    extras: Any = ()
+    extras: Any = ()          # encdec: (enc_k, enc_v), each (L, B, T,
+                              # n_kv, hd), layer-stacked; else ()
 
 
 def _tree_tensors(tree):
@@ -375,7 +497,11 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
     ssm cache is an ``RWKVState`` (shift states in ``dtype``, the WKV
     state f32); the hybrid's is ``{"kv": K/V of its attention layers,
     "rec": RGLRUState of its recurrent layers}``, the window's buffer
-    ``min(max_len, local_window)`` long."""
+    ``min(max_len, local_window)`` long.  The encoder–decoder's adds
+    ``extras = (enc_k, enc_v)``, zeros of (L, batch, enc_seq, n_kv, hd)
+    in ``dtype`` (float under ``int8_kv`` too, as in the reference) that
+    :func:`prefill` fills from the frames; the engines admit token-only
+    requests, so their caches keep them zero, as the reference's do."""
     _check_family(cfg)
     dev = resolve_device(device)
     pos = torch.zeros((batch,) if per_slot else (), dtype=torch.int32,
@@ -399,6 +525,11 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                              dtype=dtype, device=dev))
         return DecodeCache({"kv": _kv_buf(cfg, batch, buf, dtype, n_attn,
                                           dev), "rec": rec}, pos)
+    if cfg.family == "encdec":
+        shape = (L, batch, cfg.enc_seq, cfg.n_kv, cfg.resolved_head_dim)
+        return DecodeCache(_kv_buf(cfg, batch, max_len, dtype, L, dev), pos,
+                           (torch.zeros(shape, dtype=dtype, device=dev),
+                            torch.zeros(shape, dtype=dtype, device=dev)))
     return DecodeCache(_kv_buf(cfg, batch, buf, dtype, L, dev), pos)
 
 
@@ -408,8 +539,12 @@ def layer_kv(kv: KVCache, i: int) -> KVCache:
 
 
 def cache_rows(cache: DecodeCache, i: int) -> DecodeCache:
-    """Batch row ``i`` of a cache as a batch-1 cache of views."""
-    return cache._replace(kv=_tree_map(lambda t: t[:, i:i + 1], cache.kv))
+    """Batch row ``i`` of a cache (its extras too) as a batch-1 cache of
+    views."""
+    def row(t):
+        return t[:, i:i + 1]
+    return cache._replace(kv=_tree_map(row, cache.kv),
+                          extras=_tree_map(row, cache.extras))
 
 
 def _slot_index(slot, batch: int) -> int:
@@ -421,11 +556,12 @@ def cache_write_slot(cache: DecodeCache, sub: DecodeCache,
                      slot) -> DecodeCache:
     """Graft a batch-1 ``sub`` cache into row ``slot`` of a per-slot cache
     (in place): the admission primitive of the continuous engine.  Every
-    state leaf carries the batch on axis 1."""
+    state leaf, the extras included, carries the batch on axis 1."""
     if cache.pos.ndim != 1:
         raise ValueError("cache_write_slot needs a per-slot cache")
     i = _slot_index(slot, cache.pos.shape[0])
-    for big, small in zip(_tree_tensors(cache.kv), _tree_tensors(sub.kv)):
+    for big, small in zip(_tree_tensors((cache.kv, cache.extras)),
+                          _tree_tensors((sub.kv, sub.extras))):
         big[:, i:i + 1] = small.to(big.dtype)
     sub_pos = sub.pos if sub.pos.ndim == 0 else sub.pos[0]
     cache.pos[i] = sub_pos.to(torch.int32)
@@ -433,11 +569,12 @@ def cache_write_slot(cache: DecodeCache, sub: DecodeCache,
 
 
 def cache_reset_slot(cache: DecodeCache, slot) -> DecodeCache:
-    """Zero row ``slot`` of a per-slot cache and its position (in place)."""
+    """Zero row ``slot`` of a per-slot cache (its extras too) and its
+    position (in place)."""
     if cache.pos.ndim != 1:
         raise ValueError("cache_reset_slot needs a per-slot cache")
     i = _slot_index(slot, cache.pos.shape[0])
-    for big in _tree_tensors(cache.kv):
+    for big in _tree_tensors((cache.kv, cache.extras)):
         big[:, i:i + 1] = 0
     cache.pos[i] = 0
     return cache
@@ -460,8 +597,14 @@ def _rec_views(rec: rg.RGLRUState, i: int) -> rg.RGLRUState:
 
 def _layer_states(cfg, params, cache: DecodeCache):
     """(kind, layer params, the layer's views of the cache state) of every
-    layer in order: kind ``dense`` (attention + FFN over a KV cache),
-    ``ssm`` (RWKV6 over an RWKVState) or the hybrid's ``attn``/``rec``."""
+    layer in order: kind ``dense`` (attention + FFN over a KV cache; the
+    prefix-LM family's too), ``ssm`` (RWKV6 over an RWKVState), the
+    hybrid's ``attn``/``rec`` or ``encdec`` (a decoder layer over its
+    (KVCache, (cross K, cross V)))."""
+    if cfg.family == "encdec":
+        ek, ev = cache.extras
+        return [("encdec", lp, (layer_kv(cache.kv, i), (ek[i], ev[i])))
+                for i, lp in enumerate(_layers(cfg, params))]
     if cfg.family == "ssm":
         st = cache.kv
         return [("ssm", lp, rk.RWKVState(*(t[i] for t in st)))
@@ -495,6 +638,18 @@ def _decode_layer(cfg, kind, lp, state, pos, x):
             lp["cm"], _norm(cfg, lp["ln_cm"], x), state.cm_shift)
         _copy_state(state, (tm_new, cm_new, wkv_new))
         return x + c_out
+    if kind == "encdec":
+        kv, (ek, ev) = state
+        ak = _attn_kwargs(cfg)
+        a_out, _ = attention_decode(lp["self_attn"],
+                                    _norm(cfg, lp["ln_self"], x), kv, pos,
+                                    use_rope=False, **ak)
+        x = x + a_out
+        x = x + cross_attention_decode(
+            lp["cross_attn"], _norm(cfg, lp["ln_cross"], x), ek, ev,
+            n_q=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.resolved_head_dim)
+        return x + mlp(lp["mlp"], _norm(cfg, lp["ln_mlp"], x),
+                       activation="gelu")
     if kind == "dense":
         a_out, _ = attention_decode(lp["attn"], _norm(cfg, lp["ln_attn"], x),
                                     state, pos, **ak)
@@ -523,8 +678,12 @@ def decode_layers(cfg: ArchConfig, params, cache: DecodeCache):
 
 
 def decode_step(cfg: ArchConfig, params, cache: DecodeCache, token):
-    """One decode step: token (B, 1) int → (logits (B, vocab), cache)."""
+    """One decode step: token (B, 1) int → (logits (B, vocab), cache).
+    The encoder–decoder adds the position table's row at each slot's
+    ``pos`` mod 4096 to the token's embedding."""
     x = _embed_tokens(cfg, params, token)
+    if cfg.family == "encdec":
+        x = x + _dec_pos_rows(params, cache.pos).to(x.dtype)
     for layer in decode_layers(cfg, params, cache):
         x = layer(x)
     logits = _logits(cfg, params, x)[:, 0, :]
@@ -560,14 +719,35 @@ def _write_kv(kv_i: KVCache, k, v, keep, slots, cache_dtype):
         kv_i.v[:, slots] = v[:, keep].to(cache_dtype)
 
 
-def _prefill_layer(cfg, kind, lp, state, cache_dtype, x):
+def _prefill_layer(cfg, kind, lp, state, cache_dtype, prefix_len, x):
     """One layer of the full-sequence prefill: x (B, S, d) → its output;
     what decode steps over the S tokens would leave in the layer's state
     goes into ``state``'s views: the post-rope K/V of the last ``buf``
     positions at slot p mod buf (``q8`` with scales in an int8 cache),
     the RWKV shift states (each block's last normalized input) and final
-    WKV state, the RG-LRU's final h and conv lookback."""
+    WKV state, the RG-LRU's final h and conv lookback.  ``prefix_len``
+    opens the first positions to every query (the prefix-LM mask).  An
+    encoder–decoder layer writes its self-attention K/V (no rope) and
+    attends to the cross K/V already in its extras, as decode steps do."""
     ak = dict(_attn_kwargs(cfg), window=cfg.local_window or None)
+    if kind == "encdec":
+        kv, (ek, ev) = state
+        s, buf = x.shape[1], kv.k.shape[1]
+        if s > buf:
+            raise ValueError(f"prompt of {s} tokens exceeds the cache's "
+                             f"{buf} positions")
+        keep = torch.arange(s, device=x.device)
+        h, (k, v) = attention_train(lp["self_attn"],
+                                    _norm(cfg, lp["ln_self"], x),
+                                    causal=True, use_rope=False,
+                                    return_kv=True, **_attn_kwargs(cfg))
+        _write_kv(kv, k, v, keep, keep, cache_dtype)
+        x = x + h
+        x = x + cross_attention_decode(
+            lp["cross_attn"], _norm(cfg, lp["ln_cross"], x), ek, ev,
+            n_q=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.resolved_head_dim)
+        return x + mlp(lp["mlp"], _norm(cfg, lp["ln_mlp"], x),
+                       activation="gelu")
     if kind == "ssm":
         tm_in = _norm(cfg, lp["ln_tm"], x)
         t_out, wkv_f = rk.rwkv_time_mix_train(
@@ -586,7 +766,8 @@ def _prefill_layer(cfg, kind, lp, state, cache_dtype, x):
         keep = torch.arange(max(0, s - buf), s, device=x.device)
         norm_key = "ln_attn" if kind == "dense" else "ln_t"
         h, (k, v) = attention_train(lp["attn"], _norm(cfg, lp[norm_key], x),
-                                    causal=True, return_kv=True, **ak)
+                                    causal=True, prefix_len=prefix_len,
+                                    return_kv=True, **ak)
         _write_kv(state, k, v, keep, keep % buf, cache_dtype)
         x = x + h
         if kind == "dense":
@@ -601,14 +782,15 @@ def _prefill_layer(cfg, kind, lp, state, cache_dtype, x):
 
 
 def prefill_layers(cfg: ArchConfig, params, cache: DecodeCache,
-                   cache_dtype=torch.bfloat16):
+                   cache_dtype=torch.bfloat16, prefix_len=None):
     """The layers of the full-sequence prefill, in order, as callables
     x (B, S, d) → the layer's output that fill the layer's state in
-    ``cache`` (a fresh cache of :func:`init_cache`) as S decode steps
-    would."""
+    ``cache`` (a fresh cache of :func:`init_cache`; an encoder–decoder's
+    with its extras filled) as S decode steps would; ``prefix_len`` is
+    the prefix-LM family's image prefix."""
     _check_family(cfg)
     return [functools.partial(_prefill_layer, cfg, kind, lp, state,
-                              cache_dtype)
+                              cache_dtype, prefix_len)
             for kind, lp, state in _layer_states(cfg, params, cache)]
 
 
@@ -638,6 +820,20 @@ def prefill(cfg: ArchConfig, params, batch, max_len: int,
     (``int8_kv``) takes ``q8`` of each kept position's K/V with its scale
     on either path; the reference's parallel hybrid path returns a float
     cache there (ROADMAP queue C).
+
+    Encoder–decoder (``batch["frames"]`` (B, T, d) too): :func:`encode`,
+    then each decoder layer's cross K/V through ``layers.dense``
+    (:func:`capture_cross_kv`, the extras), then one pass over the tokens
+    whose layers write their self K/V and attend to those extras: the
+    cache ``capture_cross_kv`` + ``decode_chunk`` build, at position S.
+    The reference's ``_capture_cross_kv`` raises on a quantized tree and
+    its self K/V are ``_capture_kv``'s (ROADMAP queue C).
+
+    Prefix-LM (``batch["patches"]`` (B, P, d), P = ``prefix_tokens``):
+    one pass over [patches; tokens] under the prefix-LM mask writing the
+    post-rope K/V of all P + S positions, at position P + S (a
+    ``ValueError`` if they do not fit the cache); the reference's cache
+    holds the S text rows only (ROADMAP queue C).
     """
     _check_family(cfg)
     tokens = batch["tokens"]
@@ -646,9 +842,32 @@ def prefill(cfg: ArchConfig, params, batch, max_len: int,
     cache = init_cache(cfg, b, max_len, cache_dtype, device=dev)
     if cfg.family in ("ssm", "hybrid") and not _opt("parallel_prefill"):
         return decode_chunk(cfg, params, cache, tokens)
-    x = _embed_tokens(cfg, params, tokens)
-    for layer in prefill_layers(cfg, params, cache, cache_dtype):
+    prefix_len = None
+    for key, family in (("frames", "encdec"), ("patches", "vlm")):
+        if cfg.family == family and key not in batch:
+            raise ValueError(f"{cfg.name}: prefill needs batch[{key!r}]")
+    if cfg.family == "encdec":
+        enc = encode(cfg, params, batch["frames"])
+        for dst, src in zip(cache.extras,
+                            capture_cross_kv(cfg, params, enc, cache_dtype)):
+            dst.copy_(src)
+        x = _embed_tokens(cfg, params, tokens)
+        x = x + _dec_pos_seq(params, s)[None].to(x.dtype)
+    elif cfg.family == "vlm":
+        prefix_len = cfg.prefix_tokens
+        if batch["patches"].shape[1] != prefix_len:
+            raise ValueError(f"{cfg.name}: {batch['patches'].shape[1]} "
+                             f"patches, the config has {prefix_len}")
+        if prefix_len + s > cache.kv.k.shape[2]:
+            raise ValueError(f"{prefix_len} patches and {s} tokens exceed "
+                             f"the cache's {cache.kv.k.shape[2]} positions")
+        x = _vlm_inputs(cfg, params, batch)
+        s = prefix_len + s
+    else:
+        x = _embed_tokens(cfg, params, tokens)
+    for layer in prefill_layers(cfg, params, cache, cache_dtype, prefix_len):
         x = layer(x)
     logits = _logits(cfg, params, x[:, -1:])[:, 0, :]
     return logits, DecodeCache(cache.kv,
-                               torch.tensor(s, dtype=torch.int32, device=dev))
+                               torch.tensor(s, dtype=torch.int32, device=dev),
+                               cache.extras)

@@ -50,8 +50,8 @@ __all__ = ["forward_with_taps", "StatsAccumulator", "accumulate_stats",
 def check_ptq_family(cfg: ArchConfig):
     """PTQ, its calibration taps and the planner cover the dense and MoE
     families only, as in the reference (which asserts ``cfg.family in
-    ("dense", "moe")``); the recurrent families are served, not
-    calibrated."""
+    ("dense", "moe")``); the recurrent, encoder–decoder and prefix-LM
+    families are served, not calibrated."""
     _check_family(cfg)
     if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(

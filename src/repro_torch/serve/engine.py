@@ -612,11 +612,15 @@ class ContinuousEngine(_EngineBase):
     """Continuous-batching scheduler: per-slot decode streams with
     in-flight admission and eviction.
 
-    Token streams equal those of the static oracle for the dense, ssm and
-    hybrid families: prefill is decode steps and decode is row-wise (the
-    recurrent blocks' contractions included), so the mixed batch never
-    couples slots; an idle slot's recurrent rows step on a pad token,
-    isolated, until the next graft overwrites them.
+    Token streams equal those of the static oracle for the dense, ssm,
+    hybrid, encoder–decoder and prefix-LM families: prefill is decode
+    steps and decode is row-wise (the recurrent blocks' contractions
+    included), so the mixed batch never couples slots; an idle slot's
+    recurrent rows step on a pad token, isolated, until the next graft
+    overwrites them.  Requests carry tokens only, as the reference's: an
+    encoder–decoder slot's cross K/V (the cache's extras, grafted, cut
+    and reset with its K/V) stay zero and a prefix-LM request has no
+    image prefix; ``models.prefill`` takes frames and patches.
     """
 
     _obs_engine = "continuous"

@@ -161,6 +161,23 @@ def assert_trees_close(a, b, *, tol, relative=False):
         np.testing.assert_allclose(x, y, rtol=tol, atol=atol)
 
 
+def dequantize_tree(tree):
+    """A served tree with every quantized leaf replaced by its effective
+    f32 weight (``dequantize_leaf_ref``, each layer of a stacked leaf):
+    the float model the dequant kernels and their twins compute."""
+    from repro_torch.kernels.dequant import dequantize_leaf_ref
+    if isinstance(tree, dict) and "codes" in tree:
+        if tree["s"].ndim == 1:
+            return dequantize_leaf_ref(tree)
+        return torch.stack([dequantize_leaf_ref(tree, index=i)
+                            for i in range(tree["s"].shape[0])])
+    if isinstance(tree, dict):
+        return {k: dequantize_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [dequantize_tree(v) for v in tree]
+    return tree
+
+
 def load_leaves(tree, leaves):
     """Copy numpy ``leaves`` (``tree_leaves`` order) into the tensors of a
     torch ``tree`` in place; returns the tree."""

@@ -40,7 +40,9 @@ def test_importing_every_module_loads_no_jax():
             "repro_torch.serve.requant",
             "repro_torch.serve.resilience", "repro_torch.models.rwkv6",
             "repro_torch.models.rglru", "repro_torch.configs.rwkv6_7b",
-            "repro_torch.configs.recurrentgemma_2b"} <= set(mods)
+            "repro_torch.configs.recurrentgemma_2b",
+            "repro_torch.configs.whisper_base",
+            "repro_torch.configs.paligemma_3b"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "

@@ -276,7 +276,8 @@ def test_port_init_params_has_the_reference_tree():
 
 @pytest.mark.parametrize("arch", ["minicpm-2b", "qwen1.5-32b", "qwen2.5-32b",
                                   "minitron-8b", "rwkv6-7b",
-                                  "recurrentgemma-2b"])
+                                  "recurrentgemma-2b", "whisper-base",
+                                  "paligemma-3b"])
 def test_configs_match_jax(arch):
     """The port's registry holds the reference's configs, field for field,
     and reduces them the same way."""
