@@ -254,10 +254,41 @@ serve phase's traffic:
    mask take the plain softmax, as in the reference), then as whisper's
    (126 B1 and B2 per step).
 
+Training on one device (minicpm-2b, the WSD schedule), last:
+
+15. train: ``python -m repro_torch.launch.train``'s ``main`` at full width
+   and depth (40 layers), 4 steps of 8 × 64 tokens in 2 microbatches,
+   bf16 compute over f32 masters, no checkpoint (a full-depth state
+   writes 33 GB): a finite loss and B3 n_layers × n_micro times per step
+   (bf16 q/k/v, cast to f32 around the kernel); the same step through
+   ``make_train_step``: synchronized medians of steps 2 onward, tokens/s,
+   peak memory, one traced step's device-busy time and idle share, the
+   step's bound (6·N·T flops at the bf16 peak against 7 × 4 bytes per
+   parameter moved by the update); then one f32 step at 2 layers through
+   the kernel against the same step with the twin in its place
+   (``train_kernel_oracle``: loss, grads and updated params, the
+   tolerance in its docstring);
+16. lifecycle (tests/test_system.py::test_full_lifecycle at full width,
+   2 layers): 120 bf16 steps under ``torch.use_deterministic_algorithms``
+   uninterrupted and through ``run_with_restarts`` (a checkpoint every 20
+   steps, one failure at step 50): losses and final state equal bit for
+   bit, the loss falling; WaterSIC, HPTQ (B4) and Huffman-GPTQ (B4, at
+   WaterSIC's per-matrix rate) of the trained weights at 2.5 bits on 6144
+   calibration tokens (Σ_X full rank), realized rates within 0.05 and
+   ``model_ppl`` of each recorded; ``finetune_rescalers`` 40 steps (the
+   KL and ppl gates of tests/test_quant_pipeline.py); the trained codes
+   served packed int4 through B1 (first step within LOGIT_TOL of the
+   dequantized model, equal streams on a rerun) and int8 through B2
+   (first step within 2e-2, equal streams on a rerun); last the trained
+   tiny-MoE ordering of tests/test_quant_moe.py, recorded.
+
 The second-to-last line is the kernel summary JSON (six entries: the
 packed kernel per payload, the int8 kernel, ZSIC and flash; B1 int4's and
 B2's launches include the recurrent, whisper and paligemma serve runs and
-int8 steps, flash's whisper's encode and prefill), the last line
+int8 steps and the lifecycle's served codes, flash's whisper's encode and
+prefill and the training phases' (the driver's steps, the lifecycle's
+training, ``model_ppl`` and fine-tune), ZSIC's the lifecycle's hptq and
+GPTQ), the last line
 ``{"ok": true, "device": {...}}``.  Per-case numbers also go to
 ``chiprun_out/chip_smoke_detail.json``.  Tolerances:
 
@@ -268,7 +299,8 @@ int8 steps, flash's whisper's encode and prefill), the last line
   and unfused products and subtractions);
 * flash kernel vs twin: |Δ| ≤ 2e-5 + 2e-5·|twin| (f32 sums of the same
   terms in another order: online against materialized softmax);
-* ``model_ppl`` through the kernel vs through the twin: 1e-5 relative;
+* ``model_ppl`` through the kernel vs through the twin: 1e-5 relative
+  (and so the train oracle's loss);
 * logits vs the float-weight model: max|Δ| ≤ 1e-3 · max|logits|
   (f32 sums in another order over 40 layers); the recurrent families
   also hold each layer's contribution so (layer by layer, above);
@@ -291,6 +323,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+#: the cuBLAS workspace that deterministic mode asks for (the lifecycle
+#: phase trains under ``torch.use_deterministic_algorithms``); PyTorch
+#: reads it once, when CUDA starts, so it is set before anything runs
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -354,6 +390,8 @@ from repro_torch.obs.drift import Threshold  # noqa: E402
 from repro_torch.plan import collect_sigma_x  # noqa: E402
 from repro_torch.quant.pipeline import matrix_tap_map  # noqa: E402
 from repro_torch.quant.calibrate import forward_with_taps  # noqa: E402
+from repro_torch.tree import (tree_leaves, tree_leaves_with_path,  # noqa: E402
+                              tree_map)
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOP_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
@@ -743,7 +781,7 @@ def layerwise_decode_check(cfg, tree, oracle, tok, dev, max_len, what):
         x = yb
     errs.append(_rel_check(tfm._logits(cfg, tree, ya),
                            tfm._logits(cfg, oracle, yb), f"{what} logits"))
-    for i, (sa, sb) in enumerate(zip(*(tfm._tree_tensors(c.kv)
+    for i, (sa, sb) in enumerate(zip(*(tree_leaves(c.kv)
                                        for c in caches))):
         errs.append(_rel_check(sa, sb, f"{what} state leaf {i}"))
     return max(errs)
@@ -795,8 +833,8 @@ def layerwise_prefill_check(cfg, tree, toks, dev, max_len, what):
         y = layer(x)
         errs.append(_rel_check(y - x, y_step - x, f"{what} layer {i} block"))
         x = y
-    for i, (sa, sb) in enumerate(zip(tfm._tree_tensors(c_par.kv),
-                                     tfm._tree_tensors(c_step.kv))):
+    for i, (sa, sb) in enumerate(zip(tree_leaves(c_par.kv),
+                                     tree_leaves(c_step.kv))):
         errs.append(_rel_check(sa, sb, f"{what} state leaf {i}"))
     return max(errs)
 
@@ -1921,7 +1959,7 @@ def engine_run(cfg, tree, prompts, new_tokens, dev, *, slots, max_len,
             "step_ms_mean": 1e3 * statistics.mean(steps),
             "step_ms_median": 1e3 * statistics.median(steps),
             "kv_bytes": sum(t.numel() * t.element_size()
-                            for t in tfm._tree_tensors(eng.cache.kv)),
+                            for t in tree_leaves(eng.cache.kv)),
             "launches": dict(LAUNCHES), "engine": eng,
             "streams": {r.rid: list(r.out_tokens) for r in done}}
 
@@ -2145,8 +2183,8 @@ def requant_cell(cfg, params, dev, *, limit=2.0) -> dict:
     a = acts[0]
     _, tree, _, _, _ = replan_from_sigma(cfg, params, a["plan_before"],
                                          a["snapshots"])
-    live = dict(_leaves_with_paths(eng.params))
-    offline = dict(_leaves_with_paths(tree))
+    live = dict(tree_leaves_with_path(eng.params))
+    offline = dict(tree_leaves_with_path(tree))
     bit_identical = live.keys() == offline.keys() and all(
         torch.equal(live[k], offline[k]) for k in live)
     swap_tick = next(t for t, why in eng.swap_history if why == "requant")
@@ -2171,14 +2209,6 @@ def requant_cell(cfg, params, dev, *, limit=2.0) -> dict:
         "replan_wall_s": a["wall_s"],
         "executor_wall_s": a["executor_wall_s"],
         "weight_formats_after": dict(eng.weight_formats)}
-
-
-def _leaves_with_paths(tree, path=()):
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _leaves_with_paths(tree[k], path + (k,))
-    else:
-        yield path, tree
 
 
 def run_gate(gate, args) -> str:
@@ -3304,7 +3334,7 @@ def recurrent_prefill_phase(cfg, params, label, dev, *, n_req, prompt_len,
     n_s, _ = decode_step(cfg, split, c_s, nxt)
     n_p, _ = decode_step(cfg, split, c_p, nxt)
     pairs = [(f"state{i}", a, b) for i, (a, b) in enumerate(zip(
-        tfm._tree_tensors(c_p.kv), tfm._tree_tensors(c_s.kv)))]
+        tree_leaves(c_p.kv), tree_leaves(c_s.kv)))]
     pairs += [("logits", lg_p, lg_s), ("next_logits", n_p, n_s)]
     errs = {}
     for name, got, ref in pairs:
@@ -3903,6 +3933,640 @@ def encdec_vlm_phases(dev, gen) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# Training on one device (slice 11): minicpm-2b trained at full width
+# through the train driver, then the lifecycle (train with a restart, PTQ
+# of the trained weights, rescaler fine-tune, serving the trained codes)
+# at full width and 2 layers
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "minicpm-2b"
+#: the train phase's global batch, sequence and microbatches
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = 8, 64, 2
+#: the driver's steps, and the steps of ``make_train_step`` timed after it
+#: (the medians skip the first two)
+TRAIN_MAIN_STEPS, TRAIN_TIMED_STEPS = 4, 6
+#: the lifecycle: the reference test's schedule and step count, a
+#: checkpoint every 20 steps and two injected failures: one before the
+#: first periodic save (replayed from the step-0 checkpoint) and one after
+#: the checkpoint of step 40.  These 120 steps leave the model above
+#: ln V; a schedule that goes below it makes WaterSIC's rescaler fit fail
+#: (ROADMAP queue C, ``rescaler_probe.py``)
+LIFE_LAYERS, LIFE_STEPS, LIFE_LR, LIFE_SAVE_EVERY = 2, 120, 2e-3, 20
+LIFE_CRASHES = (10, 50)
+LIFE_BITS = 2.5
+#: calibration batches of 8 × 64 tokens: 6144 ≥ 5760, the largest
+#: in-features, so every Σ_X can have full rank
+LIFE_CALIB = 12
+FT_STEPS, FT_LR = 40, 2e-4
+#: tests/test_quant_moe.py's config (the red reference test's)
+TINY_MOE = dict(name="tiny-moe", family="moe", n_layers=2, d_model=48,
+                n_heads=3, n_kv=3, d_ff=64, vocab=96, head_dim=16,
+                n_experts=4, top_k=2)
+
+
+def _clone_tree(tree):
+    return tree_map(lambda t: t.detach().clone(), tree)
+
+
+def _finite(x, what):
+    if not math.isfinite(float(x)):
+        raise AssertionError(f"{what} is {float(x)}")
+    return float(x)
+
+
+def top_kernels(prof, n=8) -> list:
+    """The ``n`` device kernels of a ``torch.profiler`` trace with the most
+    device time: [(name cut to 90 characters, ms, launches)]."""
+    by = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ms, k = by.get(e.name, (0.0, 0))
+            by[e.name] = (ms + (e.time_range.end - e.time_range.start) / 1e3,
+                          k + 1)
+    return [(name[:90], ms, k) for name, (ms, k) in
+            sorted(by.items(), key=lambda kv: -kv[1][0])[:n]]
+
+
+def train_step_bound_ms(cfg, n_params, tokens):
+    """The least time one train step could take on the card: the larger of
+    6·N·T multiply-add flops (forward and backward over every parameter,
+    the tied unembed included) at the bf16 tensor-core peak, and the bytes
+    the update must move at the memory rate: the f32 params, m and v read
+    and written once and the f32 mean grads read once (7 × 4 bytes per
+    parameter); activations and the bf16 cast left out."""
+    ops_ms = 1e3 * 6 * n_params * tokens / BF16_FLOP_PER_S
+    bytes_ms = 1e3 * 7 * 4 * n_params / HBM_BYTES_PER_S
+    return {"bound_ms": max(ops_ms, bytes_ms), "operations_ms": ops_ms,
+            "bytes_ms": bytes_ms,
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def train_kernel_oracle(cfg, dev, batch) -> dict:
+    """One f32 train step (2 microbatches) of ``cfg`` through the flash
+    kernel against the same step with the twin in its place, from equal
+    states.  Held: the loss within PPL_TOL relative, the mean grads and
+    the grad norm within GRAD_TOL of the largest (the flash grad phase's
+    tolerance), and the updated params.  A first AdamW step moves each
+    weight by lr·(g/(|g|+ε) + wd·p), g the clipped grad (m̂ = g, v̂ = g²):
+    it divides each grad by its own size, so a grad near ε or near zero
+    (most of them at this width: the clipped grads of 405 M weights are
+    ~1e-6) turns a Δg far below GRAD_TOL of the largest grad into a large
+    change of direction.  So the params are held within GRAD_TOL of each
+    leaf's largest wherever the two clipped grads' directions g/(|g|+ε)
+    differ by less than 0.1·GRAD_TOL·max|p|/lr (the step itself then
+    cannot move them apart by more), and within 2·lr (the most two first
+    steps can differ) elsewhere; the count of those elements is
+    reported."""
+    from repro_torch.train import (AdamWConfig, init_train_state,
+                                   make_train_step, microbatch_grads)
+    params = init_params(cfg, 0, device=dev)
+    opt = AdamWConfig(lr=3e-3, schedule=cfg.lr_schedule, total_steps=4,
+                      warmup_steps=1)
+
+    def run(fn):
+        kernel_fn = flash.flash_attention
+        flash.flash_attention = fn or kernel_fn
+        try:
+            state = init_train_state(_clone_tree(params))
+            _, grads = microbatch_grads(cfg, state.params, batch,
+                                        TRAIN_MICRO, torch.float32)
+            step = make_train_step(cfg, opt, n_micro=TRAIN_MICRO,
+                                   compute_dtype=torch.float32)
+            state, metrics = step(state, batch)
+        finally:
+            flash.flash_attention = kernel_fn
+        return grads, state.params, metrics
+
+    reset_flash_launches()
+    gk, pk, mk = run(None)
+    launches = flash_attention_cuda.launches
+    if launches != 2 * cfg.n_layers * TRAIN_MICRO:
+        raise AssertionError(f"train oracle: {launches} flash launches, "
+                             f"expected {2 * cfg.n_layers * TRAIN_MICRO}")
+    gt, pt, mt = run(flash_twin)
+    loss_rel = abs(float(mk["loss"]) - float(mt["loss"])) \
+        / abs(float(mt["loss"]))
+    gn_rel = abs(float(mk["grad_norm"]) - float(mt["grad_norm"])) \
+        / float(mt["grad_norm"])
+    if loss_rel > PPL_TOL or gn_rel > GRAD_TOL:
+        raise AssertionError(f"train oracle: loss rel {loss_rel:.3e}, "
+                             f"grad norm rel {gn_rel:.3e}")
+    lr, eps = float(mt["lr"]), opt.eps
+    clip_k, clip_t = (min(1.0, opt.clip_norm / float(m["grad_norm"]))
+                      for m in (mk, mt))
+    grad_err = well = moved = 0.0
+    loose = total = 0
+    for a, b, x, y in zip(tree_leaves(gk), tree_leaves(gt),
+                          tree_leaves(pk), tree_leaves(pt)):
+        gscale = float(b.abs().max())
+        grad_err = max(grad_err, check(a, b, "train oracle grad",
+                                       atol=GRAD_TOL * gscale, rtol=0.0)
+                       / max(gscale, 1e-30))
+        diff = (x - y).abs()
+        pscale = float(y.abs().max())
+        ak, bt = a * clip_k, b * clip_t
+        turn = (ak / (ak.abs() + eps) - bt / (bt.abs() + eps)).abs()
+        cond = lr * turn <= 0.1 * GRAD_TOL * pscale
+        if bool((diff * cond > GRAD_TOL * pscale).any()):
+            raise AssertionError(
+                f"train oracle: params apart by {float((diff * cond).max())}"
+                f" where Adam's direction is well conditioned")
+        if bool((diff > 2 * lr + GRAD_TOL * pscale).any()):
+            raise AssertionError(f"train oracle: params apart by "
+                                 f"{float(diff.max())} > 2·lr")
+        well = max(well, float((diff * cond).max()) / pscale)
+        moved = max(moved, float((diff * ~cond).max()))
+        loose += int((~cond).sum())
+        total += cond.numel()
+    rec = {"n_layers": cfg.n_layers, "flash_launches": launches,
+           "loss": float(mk["loss"]), "loss_twin": float(mt["loss"]),
+           "loss_rel": loss_rel, "grad_norm_rel": gn_rel,
+           "grad_rel_err": grad_err, "param_rel_err_well_conditioned": well,
+           "param_abs_diff_elsewhere": moved, "lr": lr,
+           "elements_not_well_conditioned": loose, "elements": total}
+    print(f"train oracle L={cfg.n_layers} f32 (kernel vs twin, one step): "
+          f"loss rel {loss_rel:.3e}, grad norm rel {gn_rel:.3e}, grads "
+          f"{grad_err:.3e} of max, params {well:.3e} of max where the two "
+          f"grads' Adam directions agree; {loose} of {total} elements "
+          f"elsewhere, within {moved:.3e} (2·lr = {2 * lr:.1e}) "
+          f"[{CARD}]", flush=True)
+    return rec
+
+
+def train_phase(dev) -> dict:
+    """minicpm-2b at full width and depth: ``launch.train.main`` (4 steps
+    of 8 × 64 tokens in 2 microbatches, bf16 compute over f32 masters, no
+    checkpoint: a full-depth state would write 33 GB) with its B3 launches
+    counted, n_layers × n_micro per step; then the same step through
+    ``make_train_step``: synchronized wall times (medians of steps 2
+    onward), tokens/s, peak memory, B3 launches per step and one traced
+    step's device-busy time and idle share; then the kernel-vs-twin oracle
+    at 2 layers (``train_kernel_oracle``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data import DataConfig
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import (AdamWConfig, init_train_state,
+                                   make_train_step)
+    cfg = get_config(TRAIN_ARCH)
+    per_step = cfg.n_layers * TRAIN_MICRO
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    argv = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_MAIN_STEPS),
+            "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+            "--n-micro", str(TRAIN_MICRO), "--log-every", "1"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    loss, counts = _counted(dev, lambda: launch_train.main(argv))
+    main_peak = torch.cuda.max_memory_allocated(dev)
+    _finite(loss, "launch.train's last loss")
+    if counts["flash"] != TRAIN_MAIN_STEPS * per_step or counts["b1"]:
+        raise AssertionError(f"launch.train: B3 {counts['flash']}, expected "
+                             f"{TRAIN_MAIN_STEPS} steps x {per_step}; B1 "
+                             f"{counts['b1']}")
+    rec = {"arch": cfg.name, "n_layers": cfg.n_layers, "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "n_micro": TRAIN_MICRO,
+           "main": {"steps": TRAIN_MAIN_STEPS, "final_loss": loss,
+                    "wall_s": counts["ms"] / 1e3,
+                    "flash_launches": counts["flash"],
+                    "peak_bytes": main_peak}}
+    print(f"train {cfg.name} L={cfg.n_layers} launch.train: "
+          f"{TRAIN_MAIN_STEPS} steps of {TRAIN_BATCH}x{TRAIN_SEQ} in "
+          f"{counts['ms'] / 1e3:.2f}s, last loss {loss:.4f}, "
+          f"{counts['flash']} B3 launches, peak "
+          f"{main_peak / 1e9:.2f} GB [{CARD}]", flush=True)
+
+    torch.cuda.empty_cache()
+    state = init_train_state(init_params(cfg, 0, device=dev))
+    n_params = sum(t.numel() for t in tree_leaves(state.params))
+    opt = AdamWConfig(lr=3e-3, schedule=cfg.lr_schedule,
+                      total_steps=TRAIN_TIMED_STEPS + 1, warmup_steps=1)
+    step = make_train_step(cfg, opt, n_micro=TRAIN_MICRO)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH)
+    batches = [launch_train.device_batch(dcfg, s, dev)
+               for s in range(TRAIN_TIMED_STEPS + 1)]
+    torch.cuda.reset_peak_memory_stats(dev)
+    walls, launches, losses, norms = [], [], [], []
+    for s in range(TRAIN_TIMED_STEPS):
+        _sync(dev)
+        reset_flash_launches()
+        t0 = time.perf_counter()
+        state, m = step(state, batches[s])
+        _sync(dev)
+        walls.append(1e3 * (time.perf_counter() - t0))
+        launches.append(flash_attention_cuda.launches)
+        losses.append(_finite(m["loss"], f"train step {s} loss"))
+        norms.append(_finite(m["grad_norm"], f"train step {s} grad norm"))
+    peak = torch.cuda.max_memory_allocated(dev)
+    if set(launches) != {per_step}:
+        raise AssertionError(f"B3 launches per train step {launches}, "
+                             f"expected {per_step}")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _sync(dev)
+        t0 = time.perf_counter()
+        state, m = step(state, batches[-1])
+        _sync(dev)
+        traced = 1e3 * (time.perf_counter() - t0)
+    _finite(m["loss"], "traced train step loss")
+    busy = _device_busy_ms(prof)
+    del state, m, batches
+    torch.cuda.empty_cache()
+    step_ms = statistics.median(walls[2:])
+    rec["step"] = {"wall_ms": walls, "step_ms_median": step_ms,
+                   "tokens_per_s": tokens / (step_ms / 1e3),
+                   "peak_bytes": peak, "flash_launches_per_step": per_step,
+                   "losses": losses, "grad_norms": norms,
+                   "traced_step_wall_ms": traced, "params": n_params,
+                   **train_step_bound_ms(cfg, n_params, tokens)}
+    if busy is not None:
+        rec["step"].update({
+            "device_busy_ms": busy["busy_ms"],
+            "device_idle_share": 1 - busy["busy_ms"] / traced,
+            "device_activities": busy["activities"],
+            "top_kernels": top_kernels(prof)})
+    print(f"train {cfg.name} L={cfg.n_layers} make_train_step: step "
+          f"{step_ms:.2f} ms (median of steps 2-{TRAIN_TIMED_STEPS - 1}; "
+          f"all {', '.join(f'{w:.1f}' for w in walls)}), "
+          f"{rec['step']['tokens_per_s']:.1f} tokens/s, peak "
+          f"{peak / 1e9:.2f} GB, {per_step} B3 launches per step, bound "
+          f"{rec['step']['bound_ms']:.2f} ms ({rec['step']['bound_by']}); "
+          "traced step " + (
+              "device busy not measured (no device activity in the trace)"
+              if busy is None else
+              f"{traced:.2f} ms wall, device busy {busy['busy_ms']:.2f} ms "
+              f"(idle share {rec['step']['device_idle_share']:.4f}, "
+              f"{busy['activities']} activities; most device time: "
+              + "; ".join(f"{name[:48]} {ms:.2f} ms x{k}" for name, ms, k
+                          in rec["step"]["top_kernels"][:5])
+              + ")") + f" [{CARD}]", flush=True)
+    rec["oracle"] = train_kernel_oracle(
+        dataclasses.replace(cfg, n_layers=LIFE_LAYERS), dev,
+        launch_train.device_batch(dcfg, 0, dev))
+    torch.cuda.empty_cache()
+    return rec
+
+
+def lifecycle_train(cfg, dev, dcfg) -> tuple:
+    """LIFE_STEPS bf16 steps from ``init_params(cfg, 0)`` under
+    ``torch.use_deterministic_algorithms``, twice: a plain loop, and
+    through ``run_with_restarts`` with a checkpoint every LIFE_SAVE_EVERY
+    steps (older ones pruned, a checkpoint of this state is 5 GB) and one
+    failure injected at each of LIFE_CRASHES; the second's losses and
+    final state must equal the first's bit for bit, and the loss must
+    fall.  Returns (record, the trained params)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.dist.checkpoint import list_steps
+    from repro_torch.dist.fault import RestartPolicy, run_with_restarts
+    from repro_torch.launch.train import device_batch
+    from repro_torch.train import (AdamWConfig, init_train_state,
+                                   make_train_step)
+    step = make_train_step(cfg, AdamWConfig(lr=LIFE_LR,
+                                            total_steps=LIFE_STEPS,
+                                            warmup_steps=10))
+    (ROOT / "scratch").mkdir(exist_ok=True)
+    ckpt = tempfile.mkdtemp(dir=ROOT / "scratch", prefix="lifecycle_")
+    losses, pending, slept, resumed = {}, set(LIFE_CRASHES), [], []
+
+    def step_fn(s, state):
+        kept = list_steps(ckpt)
+        for old in kept[:-1]:
+            shutil.rmtree(os.path.join(ckpt, f"step_{old:08d}"))
+        if s in pending:
+            pending.remove(s)
+            resumed.append(kept[-1])
+            raise RuntimeError(f"injected failure at step {s}")
+        state, m = step(state, device_batch(dcfg, s - 1, dev))
+        losses[s] = float(m["loss"])
+        return state
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        reset_flash_launches()
+        t0 = time.perf_counter()
+        clean = init_train_state(init_params(cfg, 0, device=dev))
+        clean_losses = {}
+        for s in range(1, LIFE_STEPS + 1):
+            clean, m = step(clean, device_batch(dcfg, s - 1, dev))
+            clean_losses[s] = float(m["loss"])
+        clean_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        state, _ = run_with_restarts(
+            step_fn, init_train_state(init_params(cfg, 0, device=dev)),
+            n_steps=LIFE_STEPS, ckpt_dir=ckpt, save_every=LIFE_SAVE_EVERY,
+            policy=RestartPolicy(max_restarts=len(LIFE_CRASHES)),
+            sleep_fn=slept.append)
+        _sync(dev)
+        crash_s = time.perf_counter() - t0
+        launches = flash_attention_cuda.launches
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(ckpt, ignore_errors=True)
+    if len(slept) != len(LIFE_CRASHES) or losses != clean_losses:
+        bad = [s for s in clean_losses if losses.get(s) != clean_losses[s]]
+        raise AssertionError(f"lifecycle: {len(slept)} restarts; resumed "
+                             f"losses differ from the uninterrupted run's at "
+                             f"steps {bad[:5]}")
+    if not all(torch.equal(a, b) for a, b in zip(tree_leaves(state),
+                                                 tree_leaves(clean))):
+        raise AssertionError("lifecycle: the resumed run's final state "
+                             "differs from the uninterrupted run's")
+    del clean
+    want_resumed = [c // LIFE_SAVE_EVERY * LIFE_SAVE_EVERY
+                    for c in LIFE_CRASHES]
+    if resumed != want_resumed:
+        raise AssertionError(f"lifecycle: failures resumed from {resumed}, "
+                             f"expected the checkpoints {want_resumed}")
+    curve = [losses[s] for s in range(1, LIFE_STEPS + 1)]
+    first, last = float(np.mean(curve[:10])), float(np.mean(curve[-10:]))
+    uniform = math.log(cfg.vocab)
+    if not last < first:
+        raise AssertionError(f"lifecycle: loss did not fall ({first} -> "
+                             f"{last})")
+    steps_run = 2 * LIFE_STEPS + sum(c - 1 - r for c, r in
+                                     zip(LIFE_CRASHES, resumed))
+    want = steps_run * cfg.n_layers
+    if launches != want:
+        raise AssertionError(f"lifecycle training: {launches} B3 launches, "
+                             f"expected {want}")
+    rec = {"steps": LIFE_STEPS, "lr": LIFE_LR,
+           "save_every": LIFE_SAVE_EVERY, "crash_at": list(LIFE_CRASHES),
+           "resumed_from": resumed, "resumed_equal_bitwise": True,
+           "losses": curve, "loss_first10": first, "loss_last10": last,
+           "ln_vocab": uniform, "clean_s": clean_s,
+           "with_restart_s": crash_s, "flash_launches": launches}
+    print(f"lifecycle train {cfg.name} L={cfg.n_layers}: {LIFE_STEPS} bf16 "
+          f"steps at lr {LIFE_LR}, failures at steps {list(LIFE_CRASHES)} "
+          f"resumed from the checkpoints of steps {resumed}: losses and "
+          f"final state equal bit for bit to the uninterrupted run's "
+          f"(deterministic algorithms); loss {first:.4f} -> {last:.4f} "
+          f"(means of the first and last 10; ln V {uniform:.4f}); "
+          f"{clean_s:.1f}s uninterrupted, {crash_s:.1f}s with the restarts "
+          f"and {1 + LIFE_STEPS // LIFE_SAVE_EVERY} checkpoint saves; "
+          f"{launches} B3 launches [{CARD}]", flush=True)
+    return rec, state.params
+
+
+def gptq_model(cfg, params, calib, qlin) -> tuple:
+    """Huffman-GPTQ (``gptq_at_rate``: ZSIC through B4) of every matrix
+    at the entropy of its WaterSIC code (matched rate), on the float
+    model's Σ_X (one calibration pass, damped as the gptq phase damps);
+    returns (params with each Ŵ installed, realized rate: the
+    parameter-weighted code entropy, as ``RateBudget.realized_rate``
+    counts WaterSIC's, ZSIC launches)."""
+    weights, stats = plan_inputs_for_model(cfg, params, calib)
+    qp = _clone_tree(params)
+    launches0 = zsic_block_cuda.launches
+    bits = n = 0.0
+    for name in sorted(weights):
+        w = weights[name].contiguous()
+        q = qlin[name]
+        g, _, _ = gptq_at_rate(w, _damped(stats[name].sigma_x.to(
+            torch.float32)), q.entropy_bits,
+            float(torch.exp(torch.log(q.alphas).mean())))
+        if abs(g["entropy"] - q.entropy_bits) > 0.05:
+            raise AssertionError(f"{name}: GPTQ rate {g['entropy']} does not "
+                                 f"match WaterSIC's {q.entropy_bits}")
+        l, blk, key = name.split("/")
+        qp["layers"][blk][key]["w"][int(l[1:])].copy_(g["w_hat"].T)
+        bits += g["entropy"] * w.numel()
+        n += w.numel()
+    return qp, bits / n, zsic_block_cuda.launches - launches0
+
+
+def lifecycle_ptq(cfg, params, dev, dcfg) -> tuple:
+    """WaterSIC, HPTQ (B4) and Huffman-GPTQ (B4) of the trained weights at
+    LIFE_BITS on LIFE_CALIB batches: realized rates within 0.05 (hard),
+    ``model_ppl`` through the flash kernel of each (recorded, ungated);
+    returns (record, (qparams, qlinears) of WaterSIC)."""
+    from repro_torch.data import global_batch_for_step
+    calib = [global_batch_for_step(dcfg, 900 + i)["tokens"]
+             for i in range(LIFE_CALIB)]
+    evalb = [np.concatenate([b["tokens"], b["targets"][:, -1:]], axis=1)
+             for b in (global_batch_for_step(dcfg, 1800 + i)
+                       for i in range(2))]
+    rec = {"calib_tokens": sum(c.size for c in calib),
+           "eval": f"{len(evalb)} x {evalb[0].shape}", "methods": {}}
+    reset_flash_launches()
+    rec["ppl_float"] = model_ppl(cfg, params, evalb)
+    results = {}
+    for method in ("watersic", "hptq"):
+        reset_zsic_launches()
+        t0 = time.perf_counter()
+        qp, qlin, budget, _ = quantize_model(
+            cfg, params, calib, PTQConfig(target_bits=LIFE_BITS,
+                                          method=method))
+        _sync(dev)
+        rate = budget.realized_rate
+        if abs(rate - LIFE_BITS) > 0.05:
+            raise AssertionError(f"lifecycle {method}: realized rate {rate}")
+        rec["methods"][method] = {
+            "realized_rate": rate, "wall_s": time.perf_counter() - t0,
+            "zsic_launches": zsic_block_cuda.launches,
+            "ppl": model_ppl(cfg, qp, evalb)}
+        results[method] = (qp, qlin)
+    if rec["methods"]["hptq"]["zsic_launches"] == 0:
+        raise AssertionError("lifecycle hptq ran no ZSIC kernel launch")
+    t0 = time.perf_counter()
+    qp_g, rate, launches = gptq_model(cfg, params, calib,
+                                      results["watersic"][1])
+    _sync(dev)
+    if abs(rate - LIFE_BITS) > 0.05 or launches == 0:
+        raise AssertionError(f"lifecycle gptq: rate {rate}, {launches} "
+                             "ZSIC launches")
+    rec["methods"]["gptq"] = {"realized_rate": rate,
+                              "wall_s": time.perf_counter() - t0,
+                              "zsic_launches": launches,
+                              "ppl": model_ppl(cfg, qp_g, evalb)}
+    del qp_g, results["hptq"]
+    rec["flash_launches"] = flash_attention_cuda.launches
+    if rec["flash_launches"] != 4 * len(evalb) * cfg.n_layers:
+        raise AssertionError(f"lifecycle model_ppl: "
+                             f"{rec['flash_launches']} B3 launches")
+    ppl = {m: v["ppl"] for m, v in rec["methods"].items()}
+    for m, v in ppl.items():
+        _finite(v, f"lifecycle {m} ppl")
+    rec["watersic_over_hptq_ppl"] = ppl["watersic"] / ppl["hptq"]
+    rec["watersic_over_gptq_ppl"] = ppl["watersic"] / ppl["gptq"]
+    rec["evalb"] = evalb
+    rec["calib"] = calib
+    print(f"lifecycle ptq {cfg.name} L={cfg.n_layers} trained weights at "
+          f"{LIFE_BITS} bits on {rec['calib_tokens']} calibration tokens: "
+          + ", ".join(f"{m} rate {v['realized_rate']:.4f} ppl "
+                      f"{v['ppl']:.4f} ({v['wall_s']:.1f}s, "
+                      f"{v['zsic_launches']} ZSIC launches)"
+                      for m, v in rec["methods"].items())
+          + f"; float ppl {rec['ppl_float']:.4f}; WaterSIC/HPTQ "
+          f"{rec['watersic_over_hptq_ppl']:.4f}, WaterSIC/GPTQ "
+          f"{rec['watersic_over_gptq_ppl']:.4f} [{CARD}]", flush=True)
+    return rec, results["watersic"]
+
+
+def lifecycle_finetune(cfg, params, qp, qlin, calib, evalb) -> dict:
+    """``finetune_rescalers`` for FT_STEPS steps on the WaterSIC model:
+    the mean KL of the last 5 steps ≤ 1.05 × the first 5's and ppl after
+    ≤ 1.10 × before (tests/test_quant_pipeline.py's gates)."""
+    from repro_torch.train.distill import finetune_rescalers
+    reset_flash_launches()
+    t0 = time.perf_counter()
+    qp_ft, _, kl = finetune_rescalers(cfg, params, qp, qlin, calib,
+                                      steps=FT_STEPS, lr=FT_LR, log_every=0)
+    wall = time.perf_counter() - t0
+    launches = flash_attention_cuda.launches
+    want = (len(calib) + FT_STEPS) * cfg.n_layers
+    if launches != want:
+        raise AssertionError(f"fine-tune: {launches} B3 launches, expected "
+                             f"{want} (teacher and student forwards)")
+    ppl_q, ppl_ft = model_ppl(cfg, qp, evalb), model_ppl(cfg, qp_ft, evalb)
+    head, tail = float(np.mean(kl[:5])), float(np.mean(kl[-5:]))
+    if not tail <= 1.05 * head or not ppl_ft <= 1.10 * ppl_q:
+        raise AssertionError(f"fine-tune: KL {head} -> {tail}, ppl {ppl_q} "
+                             f"-> {ppl_ft}")
+    print(f"lifecycle fine-tune: {FT_STEPS} steps in {wall:.2f}s, KL "
+          f"{head:.5f} -> {tail:.5f} (means of the first and last 5), ppl "
+          f"{ppl_q:.4f} -> {ppl_ft:.4f}, {launches} B3 launches [{CARD}]",
+          flush=True)
+    return {"steps": FT_STEPS, "lr": FT_LR, "kl": kl, "kl_first5": head,
+            "kl_last5": tail, "ppl_before": ppl_q, "ppl_after": ppl_ft,
+            "wall_s": wall, "flash_launches": launches}
+
+
+def lifecycle_serve_int8(cfg, qp, qlin, dev) -> dict:
+    """The trained WaterSIC codes as int8 serving leaves (``from_watersic``,
+    stacked as tests/test_system.py stacks them) through B2: first-step
+    logits within 2e-2 of the largest of the dequantized path's, then the
+    continuous engine twice with equal streams."""
+    groups = {}
+    for name, q in qlin.items():
+        groups.setdefault(tuple(name.split("/")[1:]), {})[
+            int(name.split("/")[0][1:])] = from_watersic(q)
+    tree = {**qp, "layers": {k: dict(v) for k, v in qp["layers"].items()}}
+    for (blk, key), per_layer in groups.items():
+        tree["layers"][blk][key] = {
+            **tree["layers"][blk][key],
+            "w": {k: torch.stack([per_layer[l][k]
+                                  for l in range(cfg.n_layers)])
+                  for k in ("codes", "s", "t")}}
+    prompts = moe_prompts(cfg, 4, 16)
+    tok = torch.as_tensor(np.stack([p[:1] for p in prompts]),
+                          dtype=torch.long, device=dev)
+    got, counts = _counted(dev, lambda: decode_step(cfg, tree, init_cache(
+        cfg, 4, 32, torch.float32, device=dev), tok)[0])
+    if counts["b1"] != {8: 7 * cfg.n_layers}:
+        raise AssertionError(f"int8 first step launches {counts['b1']}")
+    want, _ = decode_step(cfg, qp, init_cache(cfg, 4, 32, torch.float32,
+                                              device=dev), tok)
+    rel = float((got - want).abs().max()) / float(want.abs().max())
+    if not rel < 2e-2:
+        raise AssertionError(f"int8 serving logits {rel} of max from the "
+                             "dequantized path")
+    runs = [engine_run(cfg, tree, prompts, 8, dev, slots=4, max_len=32,
+                       chunk=16) for _ in range(2)]
+    if runs[0]["streams"] != runs[1]["streams"]:
+        raise AssertionError("lifecycle int8 streams differ on a rerun")
+    b2 = sum(r["launches"].get(8, 0) for r in runs) + counts["b1"][8]
+    print(f"lifecycle int8 serve: first-step logits {rel:.3e} of max from "
+          f"the dequantized path, equal streams on a rerun, "
+          f"{runs[0]['tok_s']:.1f} tokens/s, {b2} B2 launches [{CARD}]",
+          flush=True)
+    return {"first_step_rel_err": rel, "b2_launches": b2,
+            "tokens_per_s": runs[0]["tok_s"],
+            "streams": runs[0]["streams"]}
+
+
+def tiny_moe_ordering(dev) -> dict:
+    """tests/test_quant_moe.py's trained-MoE ordering on the card: its
+    config (the port's init, seed 0) trained 100 bf16 steps, then
+    WaterSIC and RTN at 2.5 bits on its one calibration batch, ``model_ppl``
+    on its evaluation batch.  Recorded, not gated (the reference test is
+    red)."""
+    from repro_torch.configs.base import ArchConfig
+    from repro_torch.data import DataConfig, global_batch_for_step
+    from repro_torch.launch.train import device_batch
+    from repro_torch.train import (AdamWConfig, init_train_state,
+                                   make_train_step)
+    cfg = ArchConfig(**TINY_MOE)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=40, global_batch=8)
+    state = init_train_state(init_params(cfg, 0, device=dev))
+    step = make_train_step(cfg, AdamWConfig(lr=2e-3, total_steps=100,
+                                            warmup_steps=10))
+    for s in range(100):
+        state, _ = step(state, device_batch(dcfg, s, dev))
+    calib = [global_batch_for_step(dcfg, 900)["tokens"]]
+    b = global_batch_for_step(dcfg, 1800)
+    evalb = [np.concatenate([b["tokens"], b["targets"][:, -1:]], axis=1)]
+    ppl = {}
+    for method in ("watersic", "rtn"):
+        qp, _, budget, _ = quantize_model(
+            cfg, state.params, calib, PTQConfig(target_bits=2.5,
+                                                method=method))
+        ppl[method] = model_ppl(cfg, qp, evalb)
+    ppl["float"] = model_ppl(cfg, state.params, evalb)
+    holds = ppl["watersic"] <= ppl["rtn"]
+    print(f"tiny MoE (tests/test_quant_moe.py's config, trained 100 steps): "
+          f"ppl watersic {ppl['watersic']:.4f}, rtn {ppl['rtn']:.4f}, float "
+          f"{ppl['float']:.4f}; WaterSIC <= RTN: {holds} (recorded, not "
+          f"gated) [{CARD}]", flush=True)
+    return {"ppl": ppl, "watersic_le_rtn": holds}
+
+
+def lifecycle_phase(dev) -> dict:
+    """tests/test_system.py::test_full_lifecycle on the card at
+    minicpm-2b's full width and LIFE_LAYERS layers: train with a restart
+    (``lifecycle_train``), PTQ of the trained weights (``lifecycle_ptq``),
+    the rescaler fine-tune, the trained codes served as packed int4
+    through B1 (``serve_after_ptq``: the first step within LOGIT_TOL of
+    the dequantized model, equal streams on a rerun) and as int8 through
+    B2; then the tiny-MoE ordering.  Prints the new phases' times."""
+    from repro_torch.data import DataConfig
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=LIFE_LAYERS)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH)
+    rec, took = {}, {}
+    t0 = time.perf_counter()
+    rec["train"], params = lifecycle_train(cfg, dev, dcfg)
+    took["train"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rec["ptq"], (qp, qlin) = lifecycle_ptq(cfg, params, dev, dcfg)
+    calib, evalb = rec["ptq"].pop("calib"), rec["ptq"].pop("evalb")
+    took["ptq"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rec["finetune"] = lifecycle_finetune(cfg, params, qp, qlin, calib, evalb)
+    took["finetune"] = time.perf_counter() - t0
+    del params
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rec["serve_int4"] = serve_after_ptq(cfg, qp, qlin, dev)
+    rec["serve_int8"] = lifecycle_serve_int8(cfg, qp, qlin, dev)
+    took["serve"] = time.perf_counter() - t0
+    del qp, qlin
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rec["tiny_moe"] = tiny_moe_ordering(dev)
+    took["tiny_moe"] = time.perf_counter() - t0
+    rec["phase_s"] = took
+    return rec
+
+
+def training_phases(dev) -> dict:
+    """The train phase, then the lifecycle; each one's wall time."""
+    t0 = time.perf_counter()
+    rec = {"train": train_phase(dev)}
+    rec["train_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rec["lifecycle"] = lifecycle_phase(dev)
+    rec["lifecycle_s"] = time.perf_counter() - t0
+    rec["total_s"] = rec["train_s"] + rec["lifecycle_s"]
+    print(f"training phases (s): train {rec['train_s']:.1f}, lifecycle "
+          f"{rec['lifecycle_s']:.1f} ("
+          + ", ".join(f"{k} {v:.1f}"
+                      for k, v in rec["lifecycle"]["phase_s"].items())
+          + f"); total {rec['total_s']:.1f} [{CARD}]", flush=True)
+    return rec
+
+
 T_START = time.perf_counter()
 #: ``nvidia-smi``'s name and power limit of the card, set by ``main``;
 #: every report line of the slice-7 phases carries it
@@ -4047,6 +4711,9 @@ def main() -> int:
     print(f"smoke so far {time.perf_counter() - T_START:.1f}s", flush=True)
     encdec = encdec_vlm_phases(dev, gen)
     print(f"smoke so far {time.perf_counter() - T_START:.1f}s", flush=True)
+    training = training_phases(dev)
+    print(f"smoke so far {time.perf_counter() - T_START:.1f}s", flush=True)
+    life = training["lifecycle"]
     rec_cases = [v["int4"] for v in recurrent["kernels"]] \
         + [v["int4"] for v in encdec["kernels"]["m8"]] \
         + encdec["kernels"]["prefill"]
@@ -4062,6 +4729,13 @@ def main() -> int:
                  + [encdec[a] for a in (WHISPER_ARCH, PALIGEMMA_ARCH)])
     whisper_b3 = sum(encdec[WHISPER_ARCH][k]["flash"]
                      for k in ("encode", "prefill"))
+    # the training path's B3 (the driver's steps, the lifecycle's training,
+    # model_ppl and fine-tune), B4 (hptq, gptq), B1 and B2 (the trained
+    # codes served)
+    train_b3 = training["train"]["main"]["flash_launches"] + sum(
+        life[k]["flash_launches"] for k in ("train", "ptq", "finetune"))
+    train_b4 = sum(life["ptq"]["methods"][k]["zsic_launches"]
+                   for k in ("hptq", "gptq"))
 
     kernels, detail_mix = [], {}
     for nbits in (4, 3, 2):
@@ -4076,7 +4750,8 @@ def main() -> int:
         kernels.append({
             "name": f"dequant_matmul_packed_int{nbits}", "route": "cuda",
             "source": SOURCE, "replaces": REPLACES,
-            "launches": serve["launches"][4] + rec_b1 if nbits == 4
+            "launches": serve["launches"][4] + rec_b1
+            + life["serve_int4"]["launches"].get(4, 0) if nbits == 4
             else ladder[nbits]["launches"][nbits],
             "max_abs_err": max(c["max_abs_err"] for c in cases + rec_cases
                                if c["nbits"] == nbits),
@@ -4097,7 +4772,8 @@ def main() -> int:
     kernels.append({
         "name": "dequant_matmul_int8", "route": "cuda",
         "source": INT8_SOURCE, "replaces": INT8_REPLACES,
-        "launches": planned["serve"]["launches"][8] + rec_b2,
+        "launches": planned["serve"]["launches"][8] + rec_b2
+        + life["serve_int8"]["b2_launches"],
         "max_abs_err": max(c["max_abs_err"] for c in int8_cases + rec_int8),
         "ms": int8_mix["ms"], "plain_ms": int8_mix["plain_ms"],
         "bound_ms": int8_mix["bound_ms"],
@@ -4112,7 +4788,7 @@ def main() -> int:
     kernels.append({
         "name": "zsic_block", "route": "cuda", "source": ZSIC_SOURCE,
         "replaces": ZSIC_REPLACES,
-        "launches": ptq["hptq"]["zsic_launches"],
+        "launches": ptq["hptq"]["zsic_launches"] + train_b4,
         "max_abs_err": max(c["max_abs_err"] for c in zsic["cases"].values()),
         "code_mismatches": sum(c["code_mismatches"]
                                for c in zsic["cases"].values())
@@ -4128,7 +4804,7 @@ def main() -> int:
         "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": FLASH_REPLACES,
         "launches": sum(p["flash_launches"] for p in ptq["ppl"].values())
-        + whisper_b3,
+        + whisper_b3 + train_b3,
         "max_abs_err": max(c["max_abs_err"] for c in flash_cases
                            + [encdec["kernels"]["flash"]]),
         "ms": path["ms"], "plain_ms": path["plain_ms"],
@@ -4146,7 +4822,7 @@ def main() -> int:
               "chaos": chaos_rows, "degrade": degrade, "quality": quality,
               "requant_full": requant_full, "slice7_phase_s": phase_s,
               "moe": moe_rec, "recurrent": recurrent,
-              "encdec_vlm": encdec,
+              "encdec_vlm": encdec, "training": training,
               "total_s": time.perf_counter() - T_START}
     (out / "chip_smoke_detail.json").write_text(json.dumps(detail, indent=1,
                                                            default=float))

@@ -1,12 +1,13 @@
 """repro_torch.dist — the port of ``repro.dist``: the fault primitives the
-plan executor and the serving engines use (``fault``) and single-device
-step-directory checkpoints (``checkpoint``, the engines' snapshots);
-sharding and restart-from-checkpoint come with the multi-device slice
-(ROADMAP queue A item 11)."""
+train driver, the plan executor and the serving engines use (``fault``,
+with restart-from-checkpoint) and single-device step-directory
+checkpoints (``checkpoint``: train states and the engines' snapshots);
+sharding comes with the multi-device slice (ROADMAP queue A item 11)."""
 from .checkpoint import (cleanup_old, latest_step, list_steps, read_manifest,
                          restore_checkpoint, save_checkpoint)
-from .fault import Heartbeat, RestartPolicy, StragglerMonitor
+from .fault import (Heartbeat, RestartPolicy, StragglerMonitor,
+                    run_with_restarts)
 
 __all__ = ["Heartbeat", "RestartPolicy", "StragglerMonitor", "cleanup_old",
            "latest_step", "list_steps", "read_manifest",
-           "restore_checkpoint", "save_checkpoint"]
+           "restore_checkpoint", "run_with_restarts", "save_checkpoint"]

@@ -40,6 +40,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.tree import tree_leaves_with_path, tree_map_with_path
+
 __all__ = ["save_checkpoint", "restore_checkpoint", "read_manifest",
            "latest_step", "list_steps", "cleanup_old"]
 
@@ -155,49 +157,6 @@ def cleanup_old(ckpt_dir: str, keep: int) -> List[int]:
     return removed
 
 
-def _is_namedtuple(node) -> bool:
-    return isinstance(node, tuple) and hasattr(node, "_fields")
-
-
-def _flatten_with_keys(tree) -> List[Tuple[str, Any]]:
-    """(keystr, leaf) pairs in ``jax.tree_util`` flattening order."""
-    out: List[Tuple[str, Any]] = []
-
-    def walk(node, key):
-        if node is None:
-            return
-        if isinstance(node, dict):
-            for k in sorted(node):
-                walk(node[k], f"{key}[{k!r}]")
-        elif _is_namedtuple(node):
-            for name, v in zip(node._fields, node):
-                walk(v, f"{key}.{name}")
-        elif isinstance(node, (list, tuple)):
-            for i, v in enumerate(node):
-                walk(v, f"{key}[{i}]")
-        else:
-            out.append((key, node))
-
-    walk(tree, "")
-    return out
-
-
-def _rebuild(tree, leaf_fn, key=""):
-    """``tree`` with every leaf replaced by ``leaf_fn(key, leaf)``."""
-    if tree is None:
-        return None
-    if isinstance(tree, dict):
-        return {k: _rebuild(v, leaf_fn, f"{key}[{k!r}]")
-                for k, v in tree.items()}
-    if _is_namedtuple(tree):
-        return type(tree)(*(_rebuild(v, leaf_fn, f"{key}.{name}")
-                            for name, v in zip(tree._fields, tree)))
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_rebuild(v, leaf_fn, f"{key}[{i}]")
-                          for i, v in enumerate(tree))
-    return leaf_fn(key, tree)
-
-
 _BF16 = "bfloat16"
 
 
@@ -246,7 +205,7 @@ def save_checkpoint(ckpt_dir: str, step: int, state,
         }
         if extra_meta:
             manifest["meta"] = extra_meta
-        for i, (key, leaf) in enumerate(_flatten_with_keys(state)):
+        for i, (key, leaf) in enumerate(tree_leaves_with_path(state)):
             arr, dtype = _host(leaf)
             fname = f"leaf_{i:05d}.npy"
             _save_leaf(os.path.join(tmp, fname), arr, dtype)
@@ -341,4 +300,4 @@ def restore_checkpoint(ckpt_dir: str, template, *,
         return _place(np.load(os.path.join(d, rec["file"])), rec["dtype"],
                       key, leaf)
 
-    return _rebuild(template, load), manifest
+    return tree_map_with_path(load, template), manifest

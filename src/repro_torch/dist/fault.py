@@ -1,17 +1,15 @@
-"""Fault-tolerance primitives of the plan executor (port of the stdlib half
-of ``repro/dist/fault.py``).
+"""Fault tolerance of the train driver and the plan executor (port of
+``repro/dist/fault.py``).
 
 * :class:`Heartbeat` — one atomically rewritten liveness file per host;
   any host (or an external watchdog) reads the directory to see who is
   alive and how far along they are.
 * :class:`StragglerMonitor` — rolling per-host step-time means; a host is
   flagged when it runs ``threshold``× slower than the median host.
-* :class:`RestartPolicy` — capped exponential backoff with a hard restart
-  budget.
-
-The reference module also holds ``run_with_restarts``, which drives
-resume-from-checkpoint through ``dist/checkpoint.py``; it comes with the
-checkpoints (ROADMAP queue A item 11).  These three use only the stdlib.
+* :class:`RestartPolicy` / :func:`run_with_restarts` — capped exponential
+  backoff driving resume-from-latest-checkpoint through the single-device
+  checkpoints of ``dist/checkpoint.py``: a step either made it into a
+  committed checkpoint or is re-run identically after restore.
 """
 from __future__ import annotations
 
@@ -22,9 +20,12 @@ import time
 import uuid
 from collections import deque
 from statistics import median
-from typing import Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
-__all__ = ["Heartbeat", "StragglerMonitor", "RestartPolicy"]
+from .checkpoint import latest_step, restore_checkpoint, save_checkpoint
+
+__all__ = ["Heartbeat", "StragglerMonitor", "RestartPolicy",
+           "run_with_restarts"]
 
 _HB_SUFFIX = ".hb"
 
@@ -191,3 +192,48 @@ class RestartPolicy:
     @property
     def restarts_used(self) -> int:
         return self._used
+
+
+def run_with_restarts(step_fn: Callable[[int, Any], Any], state,
+                      *, n_steps: int, ckpt_dir: str, save_every: int = 10,
+                      policy: Optional[RestartPolicy] = None,
+                      sleep_fn: Callable[[float], None] = time.sleep,
+                      heartbeat: Optional[Heartbeat] = None
+                      ) -> Tuple[Any, int]:
+    """Drive ``state = step_fn(step, state)`` for steps ``1..n_steps`` with
+    checkpointed restarts; returns ``(final_state, n_steps)``.
+
+    On any exception the loop restores the latest committed checkpoint
+    onto the structure of the initial state (new tensors on its leaves'
+    devices), waits out the policy's backoff, and replays from the
+    post-checkpoint step.  When the restart budget runs dry the original
+    error propagates.  The reference falls back to the initial state
+    itself when no checkpoint exists; here a ``step_fn`` may update the
+    state in place (``make_train_step``'s does), so the initial state is
+    committed as step 0 when ``ckpt_dir`` holds no checkpoint, and a
+    failure before the first save replays from it.
+    """
+    policy = policy or RestartPolicy()
+    initial = state
+    fresh = latest_step(ckpt_dir) is None   # ``state`` is still as given
+    if fresh:
+        save_checkpoint(ckpt_dir, 0, state)
+    while True:
+        try:
+            start = latest_step(ckpt_dir)
+            if not fresh:
+                state, _ = restore_checkpoint(ckpt_dir, initial, step=start)
+            fresh = False
+            for step in range(start + 1, n_steps + 1):
+                state = step_fn(step, state)
+                policy.record_success()   # reset_after streaks refund budget
+                if heartbeat is not None:
+                    heartbeat.beat(step)
+                if step % save_every == 0 or step == n_steps:
+                    save_checkpoint(ckpt_dir, step, state)
+            return state, n_steps
+        except Exception:
+            delay = policy.next_delay()
+            if delay is None:
+                raise
+            sleep_fn(delay)

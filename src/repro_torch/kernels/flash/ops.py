@@ -12,6 +12,11 @@ kernel (or the twin) without a graph, and the backward recomputes the
 attention through the materialized twin under ``enable_grad`` and takes
 its vector-Jacobian product.  That is the recompute backward the
 reference's docstring describes; there is no hand backward kernel.
+
+Half-width input (the train step's bf16 cast) is computed in float32 on
+both sides: the forward casts q, k, v up for the kernel (whose contract is
+float32) and its output back to ``q.dtype``; the backward recomputes the
+twin in float32 and casts each gradient back to its input's dtype.
 """
 from __future__ import annotations
 
@@ -33,6 +38,11 @@ def _unfold(x, b, h):  # (B*H, S, d) -> (B, S, H, d)
     return x.reshape(b, h, s, d).transpose(1, 2)
 
 
+def _wide(x):
+    """``x`` in float32 when it is narrower (bf16, f16), else as it is."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def _twin(q, k, v, causal, window):
     b, s, h, d = q.shape
     out = attention_ref(_fold(q), _fold(k), _fold(v), causal=causal,
@@ -49,17 +59,20 @@ class _FlashAttention(torch.autograd.Function):
         ctx.save_for_backward(q, k, v)
         ctx.causal, ctx.window = causal, window
         if q.is_cuda:
-            return flash_attention_cuda(q.contiguous(), k.contiguous(),
-                                        v.contiguous(), causal=causal,
-                                        window=window)
+            out = flash_attention_cuda(
+                _wide(q).contiguous(), _wide(k).contiguous(),
+                _wide(v).contiguous(), causal=causal, window=window)
+            return out.to(q.dtype)
         return _twin(q, k, v, causal, window)
 
     @staticmethod
     def backward(ctx, grad_out):
-        q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
+        saved = ctx.saved_tensors
+        q, k, v = (_wide(t.detach()).requires_grad_() for t in saved)
         with torch.enable_grad():
             out = _twin(q, k, v, ctx.causal, ctx.window)
-        dq, dk, dv = torch.autograd.grad(out, (q, k, v), grad_out)
+        grads = torch.autograd.grad(out, (q, k, v), grad_out.to(out.dtype))
+        dq, dk, dv = (g.to(t.dtype) for g, t in zip(grads, saved))
         return dq, dk, dv, None, None
 
 

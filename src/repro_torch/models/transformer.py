@@ -40,6 +40,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.opts import enabled as _opt
+from repro_torch.tree import tree_leaves, tree_map
 from . import rglru as rg
 from . import rwkv6 as rk
 from .layers import (KVCache, _split_heads, attention_decode,
@@ -445,32 +446,6 @@ class DecodeCache(NamedTuple):
                               # n_kv, hd), layer-stacked; else ()
 
 
-def _tree_tensors(tree):
-    """The tensors of a cache tree in a fixed order (dict keys sorted,
-    NamedTuple fields in order); the empty placeholders of a float KV
-    cache's scales are skipped."""
-    if torch.is_tensor(tree):
-        return [tree]
-    if isinstance(tree, dict):
-        return [t for k in sorted(tree) for t in _tree_tensors(tree[k])]
-    if isinstance(tree, (list, tuple)):
-        return [t for v in tree for t in _tree_tensors(v)]
-    return []
-
-
-def _tree_map(fn, tree):
-    """``tree`` with every tensor replaced by ``fn(tensor)``."""
-    if torch.is_tensor(tree):
-        return fn(tree)
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(_tree_map(fn, v) for v in tree))
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_tree_map(fn, v) for v in tree)
-    return tree
-
-
 def _kv_buf(cfg, batch, buf, dtype, n_layers, dev) -> KVCache:
     """Layer-stacked K/V buffers (n_layers, batch, buf, n_kv, hd); with
     ``REPRO_OPTS`` holding ``int8_kv`` int8 with f32 scales (the
@@ -543,8 +518,8 @@ def cache_rows(cache: DecodeCache, i: int) -> DecodeCache:
     views."""
     def row(t):
         return t[:, i:i + 1]
-    return cache._replace(kv=_tree_map(row, cache.kv),
-                          extras=_tree_map(row, cache.extras))
+    return cache._replace(kv=tree_map(row, cache.kv),
+                          extras=tree_map(row, cache.extras))
 
 
 def _slot_index(slot, batch: int) -> int:
@@ -560,8 +535,8 @@ def cache_write_slot(cache: DecodeCache, sub: DecodeCache,
     if cache.pos.ndim != 1:
         raise ValueError("cache_write_slot needs a per-slot cache")
     i = _slot_index(slot, cache.pos.shape[0])
-    for big, small in zip(_tree_tensors((cache.kv, cache.extras)),
-                          _tree_tensors((sub.kv, sub.extras))):
+    for big, small in zip(tree_leaves((cache.kv, cache.extras)),
+                          tree_leaves((sub.kv, sub.extras))):
         big[:, i:i + 1] = small.to(big.dtype)
     sub_pos = sub.pos if sub.pos.ndim == 0 else sub.pos[0]
     cache.pos[i] = sub_pos.to(torch.int32)
@@ -574,7 +549,7 @@ def cache_reset_slot(cache: DecodeCache, slot) -> DecodeCache:
     if cache.pos.ndim != 1:
         raise ValueError("cache_reset_slot needs a per-slot cache")
     i = _slot_index(slot, cache.pos.shape[0])
-    for big in _tree_tensors((cache.kv, cache.extras)):
+    for big in tree_leaves((cache.kv, cache.extras)):
         big[:, i:i + 1] = 0
     cache.pos[i] = 0
     return cache

@@ -13,6 +13,10 @@ Flags the port reads:
   parallel_prefill — the ssm and hybrid families prefill in one
                      full-sequence pass instead of decode steps over the
                      prompt (``models.prefill``).
+  bf16_grads       — ``train.microbatch_grads`` narrows each microbatch's
+                     grads to bf16 before the float32 accumulator adds
+                     them (the reference narrows them ahead of the
+                     cross-DP reduction; on one device it only rounds).
 
 The reference's other flags (``kv_seq_shard``, ``flat_remat``,
 ``moe_bf16_dispatch``, ``seq_shard_train``) belong to the multi-device

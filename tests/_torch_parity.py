@@ -8,6 +8,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.tree import tree_leaves
+
 # The suite runs in several pytest-xdist worker processes at once; a torch
 # intra-op pool as wide as the machine in every worker oversubscribes the
 # cores, slows every file several times over and makes the host-timed
@@ -133,19 +135,6 @@ def assert_close(a, b, *, tol):
     np.testing.assert_allclose(to_numpy(a), to_numpy(b), rtol=tol, atol=tol)
 
 
-def tree_leaves(tree):
-    """Leaves of a numpy / JAX / torch value tree in ``jax.tree_util``'s
-    order: dict keys sorted, NamedTuple fields and sequences in order;
-    ``None`` and empty tuples hold no leaf (a float KV cache's scales)."""
-    if tree is None:
-        return []
-    if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
-    if isinstance(tree, (list, tuple)):
-        return [x for v in tree for x in tree_leaves(v)]
-    return [tree]
-
-
 def assert_trees_close(a, b, *, tol, relative=False):
     """Two value trees with leaves of equal shapes within ``tol`` (rtol =
     atol = tol); ``relative`` scales atol by each leaf's largest |b|."""
@@ -159,6 +148,21 @@ def assert_trees_close(a, b, *, tol, relative=False):
         atol = tol * max(float(np.abs(y).max(initial=0.0)), 1.0) \
             if relative else tol
         np.testing.assert_allclose(x, y, rtol=tol, atol=atol)
+
+
+def rescale_fan_in(node):
+    """A numpy param tree with every stacked weight ``w`` (L, in, out)
+    rescaled to std 1/sqrt(in): the reference's stacked init takes the
+    layer count as fan-in (ROADMAP queue C), and the residual stream it
+    gives turns f32 comparisons into comparisons of rounding noise."""
+    if isinstance(node, dict) and "w" in node and not isinstance(node["w"],
+                                                                 dict):
+        w = node["w"]
+        return {**node, "w": (w * np.sqrt(w.shape[0] / w.shape[1]))
+                .astype(w.dtype)}
+    if isinstance(node, dict):
+        return {k: rescale_fan_in(v) for k, v in node.items()}
+    return node
 
 
 def dequantize_tree(tree):

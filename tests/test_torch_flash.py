@@ -337,3 +337,87 @@ def test_kernel_grads_match_twin(d):
     want = torch.autograd.grad(ref.transpose(1, 2), (q, k, v), g)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# half-width input (the train step's bf16 cast): computed in float32,
+# returned in the input's dtype
+# ---------------------------------------------------------------------------
+
+
+def test_bf16_input_is_computed_in_f32_and_cast_back():
+    """bf16 q/k/v (CPU: the twin) give a bf16 output and bf16 grads, equal
+    bit for bit to the f32 twin's values on the same (upcast) inputs and
+    output gradient, cast to bf16."""
+    rng = np.random.default_rng(21)
+    q, k, v = [torch.as_tensor(x).to(torch.bfloat16).requires_grad_()
+               for x in _qkv(2, 37, 3, 64, seed=21)]
+    g = torch.as_tensor(rng.standard_normal((2, 37, 3, 64))).to(
+        torch.bfloat16)
+    out = flash_attention(q, k, v, causal=True, window=9)
+    assert out.dtype == torch.bfloat16
+    got = torch.autograd.grad(out, (q, k, v), g)
+    assert all(x.dtype == torch.bfloat16 for x in got)
+    wide = [x.detach().float().requires_grad_() for x in (q, k, v)]
+    fold = [x.transpose(1, 2).reshape(6, 37, 64) for x in wide]
+    ref = attention_ref(*fold, causal=True,
+                        window=9).reshape(2, 3, 37, 64).transpose(1, 2)
+    assert torch.equal(out, ref.to(torch.bfloat16))
+    want = torch.autograd.grad(ref, wide, g.float())
+    for a, b in zip(got, want):
+        assert torch.equal(a, b.to(torch.bfloat16))
+
+
+#: bf16 ``loss_fn`` through the kernel vs through the twin: both compute
+#: attention in f32 from the same bf16 q/k/v, and their f32 outputs differ
+#: by KERNEL_TOL-sized reorderings; cast to bf16 (8-bit mantissa, one ulp
+#: 2**-8 = 3.9e-3 relative) a few of them round the other way, and those
+#: one-ulp flips run through two bf16 layers and the softmax.  Held to a
+#: few bf16 ulps of the largest value.
+BF16_GRAD_TOL = 3e-2
+
+
+@pytest.mark.cuda
+def test_bf16_loss_grads_through_kernel_match_twin(monkeypatch):
+    """``loss_fn`` of a bf16 tree on the card (B3 takes the bf16 q/k/v)
+    and its wq/wk/wv grads, against the same loss with the twin in the
+    kernel's place: loss within BF16_GRAD_TOL relative, grads within
+    BF16_GRAD_TOL of the largest."""
+    from repro_torch.kernels import flash
+    from repro_torch.kernels.flash.ops import _twin
+    import jax
+    from repro.models import init_params, split_tree
+    dev = require_cuda()
+    jcfg, tcfg = _grad_cfgs()
+    base = to_numpy(split_tree(init_params(jcfg, jax.random.PRNGKey(3)))[0])
+    tp = from_jax_params(base, dev)
+    toks = torch.as_tensor(_tokens(jcfg, b=2, s=64, seed=4), device=dev)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+
+    def bf16_tree(node):
+        if isinstance(node, dict):
+            return {k: bf16_tree(v) for k, v in node.items()}
+        return node.to(torch.bfloat16).requires_grad_()
+
+    def loss_and_grads():
+        p = bf16_tree(tp)
+        leaves = [p["layers"]["attn"][n]["w"] for n in ("wq", "wk", "wv")]
+        loss = loss_fn(tcfg, p, batch)
+        return float(loss.detach()), torch.autograd.grad(loss, leaves)
+
+    before = flash_attention_cuda.launches
+    loss, grads = loss_and_grads()
+    assert flash_attention_cuda.launches == before + tcfg.n_layers
+    assert all(g.dtype == torch.bfloat16 for g in grads)
+    monkeypatch.setattr(flash, "flash_attention",
+                        lambda q, k, v, *, causal=True, window=0:
+                        _twin(q, k, v, causal, window))
+    loss_twin, grads_twin = loss_and_grads()
+    assert flash_attention_cuda.launches == before + tcfg.n_layers
+    assert np.isfinite(loss)
+    assert abs(loss - loss_twin) <= BF16_GRAD_TOL * abs(loss_twin)
+    for a, b in zip(grads, grads_twin):
+        scale = float(b.float().abs().max())
+        assert scale > 0
+        assert float((a.float() - b.float()).abs().max()) \
+            <= BF16_GRAD_TOL * scale

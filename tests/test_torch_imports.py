@@ -42,7 +42,11 @@ def test_importing_every_module_loads_no_jax():
             "repro_torch.models.rglru", "repro_torch.configs.rwkv6_7b",
             "repro_torch.configs.recurrentgemma_2b",
             "repro_torch.configs.whisper_base",
-            "repro_torch.configs.paligemma_3b"} <= set(mods)
+            "repro_torch.configs.paligemma_3b", "repro_torch.data",
+            "repro_torch.data.pipeline", "repro_torch.train",
+            "repro_torch.train.optimizer", "repro_torch.train.train_loop",
+            "repro_torch.train.distill",
+            "repro_torch.launch.train", "repro_torch.tree"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
@@ -61,7 +65,8 @@ _BAD = re.compile(r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)[\s.])",
 
 
 def test_sources_do_not_import_jax_or_repro():
-    scripts = [ROOT / "chip_smoke.py", ROOT / "kernel_bench.py"]
+    scripts = [ROOT / "chip_smoke.py", ROOT / "kernel_bench.py",
+               ROOT / "rescaler_probe.py"]
     files = list(PKG.rglob("*.py")) + scripts
     assert all(f.exists() for f in scripts)
     hits = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
@@ -83,6 +88,17 @@ def test_serve_without_cuda_raises_unless_cpu_is_asked(monkeypatch):
                        "--max-new", "3", "--wbits", "2", "--continuous",
                        "--device", "cpu"])
     assert [len(r.out_tokens) for r in done] == [3, 3]
+
+
+def test_train_without_cuda_raises_unless_cpu_is_asked(monkeypatch):
+    from repro_torch.launch import train
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.main(["--arch", "minicpm-2b", "--reduced", "--steps", "1"])
+    loss = train.main(["--arch", "minicpm-2b", "--reduced", "--steps", "1",
+                       "--batch", "2", "--seq", "8", "--device", "cpu"])
+    assert loss > 0
 
 
 def test_model_builders_default_to_cuda(monkeypatch):
