@@ -282,10 +282,33 @@ Training on one device (minicpm-2b, the WSD schedule), last:
    (first step within 2e-2, equal streams on a rerun); last the trained
    tiny-MoE ordering of tests/test_quant_moe.py, recorded.
 
+Tensor-parallel k-sharded serving (DESIGN.md §13), last: 4 rank
+processes share the card (``launch.mesh``: gloo, since NCCL takes one rank
+per card; partials and K/V blocks meet in device memory mapped through
+CUDA IPC; the weights, shared with the ranks the same way, never cross):
+
+17. shard kernels: B1 (packed int4) and B2 against their twins at the
+   k-shard shapes of minicpm-2b at 4 shards, (k_loc, n) ∈ {(576, 2304),
+   (576, 5760), (1440, 2304)}, m ∈ {8, 256}, timed as in the kernel phase;
+17b. mesh: minicpm-2b packed int4 at full width and depth, sharded 4 ways
+   (``serve.shard_params_tree``): the single-process oracle's first step
+   (the sharded tree here) within LOGIT_TOL of the unsharded dequantized
+   model, 4 × 280 B1 launches per step; then one launch of 4 ranks serves
+   the serve phase's traffic (max_len 64: the K/V buffer shards), every
+   rank's streams equal to the oracle's bit for bit, 280 B1 launches per
+   rank per decode step, float all-gathers only (no integer one: no
+   weight byte crossed), each rank's step time, B1 time, all-gathers and
+   bytes printed; the reference test's crc32 format mix at 4 layers (B2 on
+   its int8 shards) equal to its oracle; seeded device-loss chaos at 2
+   layers recovered equal to the clean mesh run; last ``python -m
+   repro_torch.launch.serve --mesh --ranks 4`` at 4 layers and
+   ``benchmarks/check_mesh.py`` unchanged on its JSON.
+
 The second-to-last line is the kernel summary JSON (six entries: the
 packed kernel per payload, the int8 kernel, ZSIC and flash; B1 int4's and
 B2's launches include the recurrent, whisper and paligemma serve runs and
-int8 steps and the lifecycle's served codes, flash's whisper's encode and
+int8 steps, the lifecycle's served codes and the mesh phases' oracle and
+rank runs, flash's whisper's encode and
 prefill and the training phases' (the driver's steps, the lifecycle's
 training, ``model_ppl`` and fine-tune), ZSIC's the lifecycle's hptq and
 GPTQ), the last line
@@ -319,6 +342,7 @@ import statistics
 import subprocess
 import sys
 import time
+import zlib
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -4567,6 +4591,230 @@ def training_phases(dev) -> dict:
     return rec
 
 
+MESH_RANKS = 4
+#: (k_loc, n) of the k-shard partials of minicpm-2b at 4 shards: wq wk wv
+#: wo, w_gate w_up, w_out (k = 2304 → 576, k = 5760 → 1440)
+SHARD_SHAPES = [(576, 2304), (576, 5760), (1440, 2304)]
+SHARD_PER_LAYER = {(576, 2304): 4, (576, 5760): 2, (1440, 2304): 1}
+MESH_M = (8, 256)
+#: depth of the mixed tree's and the gate's mesh runs, and of the chaos run
+MESH_SHORT_LAYERS = 4
+MESH_CHAOS_LAYERS = 2
+#: seconds before the ranks of one launch are killed
+MESH_TIMEOUT_S = 600.0
+
+
+def mixed_bits(path):
+    """The reference mesh test's per-leaf format: crc32 of the path over
+    {2, 3, 4, 8} bits."""
+    return [2, 3, 4, 8][zlib.crc32("/".join(path).encode()) % 4]
+
+
+def shard_kernel_phase(dev, gen, flush) -> dict:
+    """B1 (packed int4) and B2 against their twins at the k-shard shapes,
+    m ∈ MESH_M, timed as in the kernel phase."""
+    rec = {"b1": [], "b2": []}
+    for m in MESH_M:
+        for k, n in SHARD_SHAPES:
+            c = kernel_case(4, m, k, n, dev, gen, flush)
+            rec["b1"].append(c)
+            c8 = int8_case(m, k, n, "kn", dev, gen, flush, timed=True)
+            rec["b2"].append(c8)
+            for name, r in (("B1 int4", c), ("B2 int8", c8)):
+                print(f"shard kernel {name} m={m} k_loc={k} n={n}: "
+                      f"ms={r['ms']:.5f} plain_ms={r['plain_ms']:.5f} "
+                      f"library_ms={r['library_ms']:.5f} bound_ms="
+                      f"{r['bound_ms']:.5f} ({r['bound_by']}) max_abs_err="
+                      f"{r['max_abs_err']:.3e} [{CARD}]", flush=True)
+    return rec
+
+
+def _mesh_work(cfg, n_req, prompt_len, new_tokens):
+    rng = np.random.default_rng(0)
+    return [(0, i, rng.integers(0, cfg.vocab, prompt_len).astype(np.int32),
+             new_tokens, None) for i in range(n_req)]
+
+
+def mesh_phases(dev, gen) -> dict:
+    """Tensor-parallel k-sharded serving on 4 ranks sharing the card.
+
+    B1/B2 at the shard shapes; minicpm-2b at full width and depth, packed
+    int4, sharded 4 ways: the oracle's first step (the sharded tree in
+    this process) against the unsharded dequantized model and its 1120 B1
+    launches per step; then one rank launch (gloo, tensors staged through
+    the host; the weights shared through CUDA IPC, not copied) serves the
+    full-depth tree (streams equal to the oracle's, 280 B1 per rank per
+    decode step, no integer all-gather), the mixed tree at 4 layers (B2 on
+    its int8 shards) and the device-loss chaos case at 2 layers
+    (recovered streams equal to the clean mesh run's); last the
+    ``launch.serve --mesh`` gate at 4 layers through ``check_mesh.py``."""
+    from repro_torch.dist.fault import RestartPolicy
+    from repro_torch.launch.mesh import (backend_rule, launch_ranks,
+                                         staging_rule)
+    from repro_torch.serve import (MeshJob, run_oracle, serve_mesh_jobs,
+                                   shard_params_tree)
+    t_phase = time.perf_counter()
+    flush = torch.ones(16 << 20, dtype=torch.float32, device=dev)
+    rec = {"kernels": shard_kernel_phase(dev, gen, flush)}
+    del flush
+    backend, why = backend_rule(MESH_RANKS, dev)
+    staging = staging_rule(backend, dev)
+    print(f"mesh: {MESH_RANKS} ranks, backend {backend} ({why}), staging "
+          f"{staging} [{CARD}]", flush=True)
+    rec.update(backend=backend, staging=staging)
+    traffic = dict(n_req=8, prompt_len=32, new_tokens=16)
+    econf = EngineConfig(n_slots=8, max_len=64, cache_dtype=torch.float32,
+                         prefill_chunk=16)
+
+    cfg = get_config("minicpm-2b")
+    t0 = time.perf_counter()
+    params = quantize_for_wbits(init_params(cfg, 0, device=dev), 4)
+    sp = shard_params_tree(params, MESH_RANKS)
+    _sync(dev)
+    rec["shard_s"] = time.perf_counter() - t0
+    # the oracle's first step against the unsharded dequantized model
+    work = _mesh_work(cfg, **traffic)
+    tok = torch.as_tensor(np.stack([w[2][:1] for w in work]),
+                          dtype=torch.long, device=dev)
+    reset_launches()
+    got, _ = decode_step(cfg, sp, init_cache(cfg, 8, 64, torch.float32,
+                                             device=dev), tok)
+    _sync(dev)
+    oracle_b1 = LAUNCHES[4]
+    want, _ = decode_step(cfg, dequantized_model(params),
+                          init_cache(cfg, 8, 64, torch.float32, device=dev),
+                          tok)
+    rec["oracle_first_step_rel_err"] = _rel_check(
+        got, want, "sharded oracle first-step logits")
+    del params, want
+    torch.cuda.empty_cache()
+    if oracle_b1 != MESH_RANKS * 7 * cfg.n_layers:
+        raise AssertionError(f"the oracle's decode step launched B1 "
+                             f"{oracle_b1} times, not {MESH_RANKS} x 7 x "
+                             f"{cfg.n_layers}")
+    short = dataclasses.replace(cfg, n_layers=MESH_SHORT_LAYERS)
+    mixed = shard_params_tree(quantize_params_tree(
+        init_params(short, 0, device=dev), nbits_by_path=mixed_bits),
+        MESH_RANKS)
+    tiny = dataclasses.replace(cfg, n_layers=MESH_CHAOS_LAYERS)
+    tiny_sp = shard_params_tree(quantize_for_wbits(
+        init_params(tiny, 0, device=dev), 4), MESH_RANKS)
+    def retry():
+        # 2 slots: 4 requests of 8 + 16 tokens make 30 decode dispatches,
+        # past the plan's device losses at serve.decode 12 and 20
+        return dataclasses.replace(econf, n_slots=2, resilience=(
+            ResilienceConfig(retry=RestartPolicy(
+                max_restarts=8, backoff_base_s=0.0, reset_after=4))))
+    small = dict(n_req=4, prompt_len=8, new_tokens=16)
+    jobs = [
+        MeshJob("full", cfg, sp, econf, work, measure=True),
+        MeshJob("mixed", short, mixed, econf, _mesh_work(short, **traffic)),
+        MeshJob("chaos_clean", tiny, tiny_sp, retry(),
+                _mesh_work(tiny, **small)),
+        MeshJob("chaos_device_loss", tiny, tiny_sp, retry(),
+                _mesh_work(tiny, **small), chaos=("device-loss", 0))]
+    t0 = time.perf_counter()
+    reset_launches()
+    oracles = {j.name: run_oracle(j) for j in jobs[:2]}
+    _sync(dev)
+    oracle_launches = dict(LAUNCHES)
+    rec["oracle_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranks = launch_ranks(serve_mesh_jobs, MESH_RANKS,
+                         (jobs, MESH_RANKS), device=dev,
+                         timeout_s=MESH_TIMEOUT_S)
+    rec["ranks_s"] = time.perf_counter() - t0
+    by_job = {j.name: [r[i] for r in ranks] for i, j in enumerate(jobs)}
+    for name, want_streams in oracles.items():
+        for r in by_job[name]:
+            if r["streams"] != want_streams["streams"]:
+                raise AssertionError(f"mesh {name}: rank {r['rank']}'s "
+                                     "streams differ from the oracle's")
+    clean = by_job["chaos_clean"][0]["streams"]
+    for r in by_job["chaos_clean"] + by_job["chaos_device_loss"]:
+        if r["streams"] != clean:
+            raise AssertionError(f"mesh chaos: rank {r['rank']}'s streams "
+                                 "differ from the clean mesh run's")
+    if [r["faults"] for r in by_job["chaos_device_loss"]] != [2] * MESH_RANKS:
+        raise AssertionError("mesh chaos: the device losses did not fire "
+                             "on every rank")
+    rec["chaos_faults"] = by_job["chaos_device_loss"][0]["faults"]
+    per_step = {}
+    for r in by_job["full"]:
+        if r["step"]["launches"][4] != 7 * cfg.n_layers:
+            raise AssertionError(f"rank {r['rank']} launched B1 "
+                                 f"{r['step']['launches'][4]} times in a "
+                                 f"decode step, not 7 x {cfg.n_layers}")
+    for name, rs in by_job.items():
+        for r in rs:
+            if r["integer_allgathers"] or not r["allgathers"] \
+                    or r["allgather_dtypes"] != ["float32"]:
+                raise AssertionError(f"mesh {name} rank {r['rank']}: "
+                                     f"all-gathers {r['allgathers']} of "
+                                     f"{r['allgather_dtypes']}, integer "
+                                     f"{r['integer_allgathers'][:3]}")
+    if any(r["launches"][8] == 0 or r["launches"][4] == 0
+           for r in by_job["mixed"]):
+        raise AssertionError("mesh mixed: B1 or B2 never launched on a "
+                             "rank")
+    b1 = {(c["k"], c["n"]): c["ms"] for c in rec["kernels"]["b1"]
+          if c["m"] == 8}
+    b1_step_ms = cfg.n_layers * sum(n * b1[s]
+                                    for s, n in SHARD_PER_LAYER.items())
+    for r in by_job["full"]:
+        st = r["step"]
+        step_ms = 1e3 * statistics.median(r["step_s"])
+        per_step[r["rank"]] = {
+            "host_step_ms": step_ms, "measured_step_ms": 1e3 * st["host_s"],
+            "b1_launches": st["launches"][4],
+            "allgathers": st["allgathers"],
+            "allgather_bytes": st["allgather_bytes"]}
+        print(f"mesh rank {r['rank']}: decode step {step_ms:.2f} "
+              f"ms host (median engine step; one measured step "
+              f"{1e3 * st['host_s']:.2f} ms), B1 {st['launches'][4]} "
+              f"launches ≈ {b1_step_ms:.4f} ms device per step (the shard "
+              f"kernel phase's L2-cold times), {st['allgathers']} "
+              f"all-gathers of {st['allgather_bytes']} B per step, "
+              f"backend {r['backend']}, staging {r['staging']} [{CARD}]",
+              flush=True)
+    rec["per_rank"] = per_step
+    rec["b1_device_ms_per_step"] = b1_step_ms
+    rec["b1_launches"] = oracle_launches[4] + oracle_b1 + sum(
+        r["launches"][4] + r.get("step", {}).get("launches", {}).get(4, 0)
+        for rs in by_job.values() for r in rs)
+    rec["b2_launches"] = oracle_launches[8] + sum(
+        r["launches"][8] for rs in by_job.values() for r in rs)
+    rec["jobs"] = {name: {k: v for k, v in rs[0].items()
+                          if k not in ("streams",)}
+                   for name, rs in by_job.items()}
+    del sp, mixed, tiny_sp, jobs
+    torch.cuda.empty_cache()
+    # the gate: the serve driver's --mesh run and check_mesh.py unchanged
+    t0 = time.perf_counter()
+    out = ROOT / "chiprun_out" / "mesh_serve.json"
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "minicpm-2b", "--n-layers", str(MESH_SHORT_LAYERS), "--wbits", "4",
+         "--continuous", "--requests", "8", "--slots", "8", "--prompt-len",
+         "16", "--max-new", "8", "--mesh", "--ranks", str(MESH_RANKS),
+         "--mesh-json", str(out)],
+        capture_output=True, text=True, timeout=MESH_TIMEOUT_S,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    print(res.stdout.rstrip(), flush=True)
+    if res.returncode != 0:
+        raise AssertionError(f"launch.serve --mesh exited {res.returncode}:"
+                             f" {res.stderr[-3000:]}")
+    run_gate("check_mesh", [str(out)])
+    rec["gate_s"] = time.perf_counter() - t0
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"mesh phases: {rec['phase_s']:.1f}s (sharding {rec['shard_s']:.1f}"
+          f", oracles {rec['oracle_s']:.1f}, ranks {rec['ranks_s']:.1f}, "
+          f"gate {rec['gate_s']:.1f}); oracle first step rel err "
+          f"{rec['oracle_first_step_rel_err']:.3e}; streams bit-identical "
+          f"on every rank [{CARD}]", flush=True)
+    return rec
+
+
 T_START = time.perf_counter()
 #: ``nvidia-smi``'s name and power limit of the card, set by ``main``;
 #: every report line of the slice-7 phases carries it
@@ -4713,6 +4961,8 @@ def main() -> int:
     print(f"smoke so far {time.perf_counter() - T_START:.1f}s", flush=True)
     training = training_phases(dev)
     print(f"smoke so far {time.perf_counter() - T_START:.1f}s", flush=True)
+    mesh = mesh_phases(dev, gen)
+    print(f"smoke so far {time.perf_counter() - T_START:.1f}s", flush=True)
     life = training["lifecycle"]
     rec_cases = [v["int4"] for v in recurrent["kernels"]] \
         + [v["int4"] for v in encdec["kernels"]["m8"]] \
@@ -4751,7 +5001,8 @@ def main() -> int:
             "name": f"dequant_matmul_packed_int{nbits}", "route": "cuda",
             "source": SOURCE, "replaces": REPLACES,
             "launches": serve["launches"][4] + rec_b1
-            + life["serve_int4"]["launches"].get(4, 0) if nbits == 4
+            + life["serve_int4"]["launches"].get(4, 0)
+            + mesh["b1_launches"] if nbits == 4
             else ladder[nbits]["launches"][nbits],
             "max_abs_err": max(c["max_abs_err"] for c in cases + rec_cases
                                if c["nbits"] == nbits),
@@ -4773,7 +5024,7 @@ def main() -> int:
         "name": "dequant_matmul_int8", "route": "cuda",
         "source": INT8_SOURCE, "replaces": INT8_REPLACES,
         "launches": planned["serve"]["launches"][8] + rec_b2
-        + life["serve_int8"]["b2_launches"],
+        + life["serve_int8"]["b2_launches"] + mesh["b2_launches"],
         "max_abs_err": max(c["max_abs_err"] for c in int8_cases + rec_int8),
         "ms": int8_mix["ms"], "plain_ms": int8_mix["plain_ms"],
         "bound_ms": int8_mix["bound_ms"],
@@ -4822,7 +5073,7 @@ def main() -> int:
               "chaos": chaos_rows, "degrade": degrade, "quality": quality,
               "requant_full": requant_full, "slice7_phase_s": phase_s,
               "moe": moe_rec, "recurrent": recurrent,
-              "encdec_vlm": encdec, "training": training,
+              "encdec_vlm": encdec, "training": training, "mesh": mesh,
               "total_s": time.perf_counter() - T_START}
     (out / "chip_smoke_detail.json").write_text(json.dumps(detail, indent=1,
                                                            default=float))

@@ -34,7 +34,7 @@ __all__ = ["pack_int4_planar", "unpack_int4_planar", "pack_int3_planar",
            "unpack_int3_planar", "pack_int2_planar", "unpack_int2_planar",
            "pack_codes_torch", "PAD_MULT", "CODE_RANGE", "pack_int4",
            "unpack_int4", "PackedCodes", "pack_codes", "unpack_codes",
-           "escapes_to_coo", "shard_pad_cols"]
+           "escapes_to_coo", "shard_pad_cols", "shard_planar_codes"]
 
 #: payload nbits → (lo, hi) two's-complement code range
 CODE_RANGE = {2: (-2, 1), 3: (-4, 3), 4: (-8, 7)}
@@ -210,6 +210,36 @@ def shard_pad_cols(n: int, nbits: int, shards: int = 1) -> int:
     k_loc = -(-n // shards)
     mult = _PAD_MULT[nbits]
     return shards * mult * (-(-k_loc // mult)) - n
+
+
+def shard_planar_codes(codes: torch.Tensor, shards: int, *,
+                       nbits: int) -> torch.Tensor:
+    """Split integer codes (a, n) into per-shard planar payloads (the
+    reference's ``shard_planar_codes_jnp``).
+
+    Each shard's contiguous in-feature block is zero-filled to the uniform
+    local width ``k_loc = ceil(n/shards)`` and THEN planar-packed on its
+    own, so pad columns sit at the end of every shard's own payload, never
+    mid-matrix from a later shard's point of view.  Returns uint8
+    ``(shards, a, ...)`` whose trailing dims are the single-device planar
+    layout of ``k_loc`` columns.  Lossless: unpacking each shard and
+    concatenating the first ``k_loc`` columns of each recovers the input.
+    """
+    if nbits not in _PACKERS:
+        raise ValueError("nbits must be 2, 3 or 4")
+    a, n = codes.shape
+    k_loc = -(-n // shards)
+    mult = PAD_MULT[nbits]
+    k_loc_padded = mult * (-(-k_loc // mult))
+    body = codes.to(torch.int8)
+    total = shards * k_loc
+    if total > n:
+        body = torch.cat([body, body.new_zeros((a, total - n))], dim=1)
+    blocks = body.reshape(a, shards, k_loc).transpose(0, 1)
+    if k_loc_padded > k_loc:
+        blocks = torch.cat([blocks, blocks.new_zeros(
+            (shards, a, k_loc_padded - k_loc))], dim=-1)
+    return _PACKERS[nbits](blocks.contiguous())
 
 
 def pack_int4(z: np.ndarray) -> np.ndarray:

@@ -1,8 +1,8 @@
 """repro_torch.dist — the port of ``repro.dist``: the fault primitives the
 train driver, the plan executor and the serving engines use (``fault``,
 with restart-from-checkpoint) and single-device step-directory
-checkpoints (``checkpoint``: train states and the engines' snapshots);
-sharding comes with the multi-device slice (ROADMAP queue A item 11)."""
+checkpoints (``checkpoint``: train states and the engines' snapshots),
+and the logical-axis rules and the SPMD seam of the ranks (``sharding``)."""
 from .checkpoint import (cleanup_old, latest_step, list_steps, read_manifest,
                          restore_checkpoint, save_checkpoint)
 from .fault import (Heartbeat, RestartPolicy, StragglerMonitor,

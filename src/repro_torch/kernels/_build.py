@@ -91,7 +91,10 @@ def build_all() -> Dict[str, float]:
         if proc.returncode != 0:
             failed.append(f"{stem}: nvcc exited {proc.returncode}\n{log}")
             continue
-        out.with_suffix(".log").write_text(log)
+        # both land by rename: another process (a rank) never reads half
+        log_tmp = tmp.with_name(tmp.name + ".log")
+        log_tmp.write_text(log)
+        os.replace(log_tmp, out.with_suffix(".log"))
         os.replace(tmp, out)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))

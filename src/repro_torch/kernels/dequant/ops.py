@@ -28,6 +28,12 @@ engines charge every forward dispatch its modeled weight traffic with
 :func:`record_weight_traffic` over :func:`weight_format_bytes` — the
 ``quant.leaf_inventory`` records that ``benchmarks/check_bytes.py``
 audits.
+
+``dequant_matmul_sharded`` serves the k-sharded leaves of tensor-parallel
+serving (``serve/sharded.py``): one kernel call per in-feature shard and
+an ordered chain sum of the partials, in one process (the oracle) or one
+shard per rank with the partials gathered (``path="kshard"`` in the
+dispatch counter).
 """
 from __future__ import annotations
 
@@ -43,7 +49,8 @@ from .dequant_matmul import (PLANE_GROUPS, dequant_matmul_int8_cuda,
                              dequant_matmul_packed_cuda)
 from .ref import dequant_matmul_packed_ref, dequant_matmul_ref, payload_nbits
 
-__all__ = ["dequant_matmul", "dequant_matmul_packed", "payload_nbits",
+__all__ = ["dequant_matmul", "dequant_matmul_packed",
+           "dequant_matmul_sharded", "payload_nbits",
            "payload_checksums", "verify_payloads", "weight_format_bytes",
            "record_weight_traffic"]
 
@@ -53,10 +60,14 @@ FORMAT_OF_NBITS = {8: "int8", 4: "packed-int4", 3: "packed-int3",
                    2: "packed-int2"}
 
 
-def _count_dispatch(fmt: str, z: torch.Tensor) -> None:
+def _count_dispatch(fmt: str, path: str) -> None:
     if obs.enabled():
         obs.counter("repro_kernel_dispatch_total", format=fmt,
-                    path="cuda" if z.is_cuda else "ref").inc()
+                    path=path).inc()
+
+
+def _path(z: torch.Tensor) -> str:
+    return "cuda" if z.is_cuda else "ref"
 
 
 def weight_format_bytes(tree) -> Dict[str, int]:
@@ -132,7 +143,12 @@ def dequant_matmul(x, z, col_scale, row_scale, *, escapes=None):
     if z.dtype == torch.uint8:
         return dequant_matmul_packed(x, z, col_scale, row_scale,
                                      nbits=payload_nbits(z), escapes=escapes)
-    _count_dispatch("int8", z)
+    _count_dispatch("int8", _path(z))
+    return _int8(x, z, col_scale, row_scale, escapes)
+
+
+def _int8(x, z, col_scale, row_scale, escapes=None):
+    """The int8 product of :func:`dequant_matmul`, not counted."""
     if z.is_cuda:
         out = dequant_matmul_int8_cuda(
             x.to(torch.float32).contiguous(), z,
@@ -152,7 +168,12 @@ def dequant_matmul_packed(x, payload, col_scale, row_scale, *,
     Requires ``G·kg − G < k ≤ G·kg`` (the payload's pad columns are fewer
     than one group row).
     """
-    _count_dispatch(FORMAT_OF_NBITS[nbits], payload)
+    _count_dispatch(FORMAT_OF_NBITS[nbits], _path(payload))
+    return _packed(x, payload, col_scale, row_scale, nbits, escapes)
+
+
+def _packed(x, payload, col_scale, row_scale, nbits, escapes=None):
+    """The packed product of :func:`dequant_matmul_packed`, not counted."""
     g = PLANE_GROUPS[nbits]
     m, k = x.shape
     n, kg = payload.shape[0], payload.shape[-1]
@@ -175,6 +196,92 @@ def dequant_matmul_packed(x, payload, col_scale, row_scale, *,
                                         nbits=nbits)
     if escapes is not None:
         out = _apply_escapes(out, x, col_scale, row_scale, escapes)
+    return out
+
+
+def _chain_sum(stacked: torch.Tensor) -> torch.Tensor:
+    """Fixed-order chain sum over the leading axis: s0 + s1 + … + s_{S-1}.
+
+    The k-sharded matmul's epilogue: explicit adds (never ``torch.sum``,
+    whose reduction order is the library's), so the oracle's local loop
+    and the ranks' gathered stack reduce the same partials through the
+    same op sequence and give the same bits."""
+    acc = stacked[0]
+    for i in range(1, stacked.shape[0]):
+        acc = acc + stacked[i]
+    return acc
+
+
+def _shard_partial(x_loc, z_s, s_s, t, *, nbits, esc_s):
+    """One in-feature shard's (m, n) partial product.
+
+    A packed shard goes through the packed kernel with its row scale and
+    its escapes (local columns); every shard's ragged tail carries code 0
+    and scale 0 at the END of its own block (``shard_planar_codes``), so
+    the single-shard pad is exact.  An int8 shard goes through the int8
+    kernel with t = 1, the shared row scale applied once after the chain
+    sum, where the reference applies it; a raw fp shard is a plain
+    product."""
+    if z_s.dtype == torch.uint8:
+        return _packed(x_loc, z_s, s_s, t, nbits, esc_s)
+    if z_s.dtype == torch.int8:
+        return _int8(x_loc, z_s.transpose(-1, -2), s_s, torch.ones_like(t))
+    return x_loc @ z_s.to(x_loc.dtype)
+
+
+def dequant_matmul_sharded(x, z, col_scale=None, row_scale=None, *,
+                           escapes=None, axis_name=None, shards=None):
+    """k-sharded matmul with an ordered chain-sum epilogue (DESIGN.md §13).
+
+    ``z`` stacks per-shard weight blocks on a leading shard axis: uint8
+    planar payloads ``(S, n, …, kg_loc)``, int8 codes ``(S, k_loc, n)``
+    or raw fp blocks ``(S, k_loc, n)``; ``col_scale`` is ``(S, k_loc)``,
+    ``row_scale`` ``(n,)`` and ``escapes`` an optional COO triple of
+    ``(S, cap_loc)`` arrays with local column indices.  ``x`` (m, k) is
+    zero-padded to S·k_loc and cut into contiguous per-shard blocks.
+
+    * ``axis_name=None``: the single-process oracle loops over the S
+      shards, stacks the partials and chain-sums them.
+    * ``axis_name`` set (a rank's local view, ``shards`` = S): ``z`` et al.
+      hold this rank's shard on a shard axis of size 1; the rank computes
+      only its partial, and the all-gather of the active mesh
+      (``dist.sharding.all_gather``) rebuilds the oracle's (S, m, n) stack
+      for the same chain sum.  Only (m, n) activation partials cross
+      ranks, never weights.
+    """
+    if axis_name is None:
+        shards = z.shape[0]
+    elif shards is None:
+        raise ValueError("axis_name given but shards is None: the mesh path "
+                         "needs the shard count (the local shard axis is 1)")
+    nbits = payload_nbits(z) if z.dtype == torch.uint8 else None
+    if z.dtype == torch.uint8:
+        k_loc = col_scale.shape[-1]
+        _count_dispatch(FORMAT_OF_NBITS[nbits], "kshard")
+    else:
+        k_loc = z.shape[-2]
+        if z.dtype == torch.int8:
+            _count_dispatch("int8", "kshard")
+    m, k = x.shape
+    xp = F.pad(x, (0, shards * k_loc - k)) if k < shards * k_loc else x
+    xg = xp.reshape(m, shards, k_loc)
+
+    def partial(i_x, i_w):
+        esc = None if escapes is None else tuple(e[i_w] for e in escapes)
+        return _shard_partial(
+            xg[:, i_x].contiguous(), z[i_w],
+            None if col_scale is None else col_scale[i_w], row_scale,
+            nbits=nbits, esc_s=esc)
+
+    if axis_name is None:
+        stacked = torch.stack([partial(i, i) for i in range(shards)])
+    else:
+        from repro_torch.dist.sharding import all_gather, axis_index
+        stacked = all_gather(partial(axis_index(axis_name), 0), axis_name,
+                             dim=0, tiled=False)
+    out = _chain_sum(stacked)
+    if z.dtype == torch.int8:
+        out = out * row_scale.to(out.dtype)
     return out
 
 

@@ -35,10 +35,22 @@ closes.  Requires ``--continuous``; incompatible with ``--degrade``.
         --wbits 4 --continuous --retries 3 --integrity-every 2 \
         --snapshot-dir snap --snapshot-every 2 --device cpu
     python -m repro_torch.launch.serve ... --snapshot-dir snap --resume
+
+``--mesh`` (DESIGN.md §13) serves the tree k-sharded over ``--ranks N``
+rank processes (``serve.sharded``; the collective backend by
+``launch.mesh.backend_rule``) and holds their token streams bit for bit
+against the single-process oracle over the same sharded tree;
+``--mesh-json`` writes what ``benchmarks/check_mesh.py`` audits:
+
+    python -m repro_torch.launch.serve --arch minicpm-2b --reduced \
+        --wbits 4 --continuous --mesh --ranks 4 --device cpu \
+        --mesh-json mesh.json
+    python benchmarks/check_mesh.py mesh.json
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -58,7 +70,7 @@ from repro_torch.serve import (ContinuousEngine, DegradePolicy, EngineConfig,
 
 __all__ = ["quantize_for_wbits", "add_obs_flags", "obs_setup",
            "obs_export", "add_resilience_flags", "resilience_from_args",
-           "add_requant_flags", "requant_from_args", "main"]
+           "add_requant_flags", "requant_from_args", "main_mesh", "main"]
 
 
 def add_obs_flags(ap: argparse.ArgumentParser) -> None:
@@ -213,10 +225,103 @@ def quantize_for_wbits(params, wbits: int):
     return quantize_params_tree(params, nbits=wbits, packed=wbits == 4)
 
 
+#: seconds before the ranks of a ``--mesh`` run are killed
+MESH_TIMEOUT_S = 900.0
+
+
+def main_mesh(args, cfg, device):
+    """Tensor-parallel k-sharded serving (DESIGN.md §13).
+
+    Shards the serving tree ``--ranks`` ways, runs it through (a) the
+    single-process oracle (the default engine over the sharded tree, here,
+    outside any mesh) and (b) one engine per rank on its local view, and
+    requires every rank's streams to equal the oracle's.  ``--mesh-json``
+    dumps the streams, the per-leaf inventory and the collective audit
+    for ``benchmarks/check_mesh.py``.
+    """
+    import json
+
+    from repro_torch.launch.mesh import (backend_rule, launch_ranks,
+                                         staging_rule)
+    from repro_torch.quant import (leaf_format_histogram, leaf_inventory,
+                                   qweight_bytes)
+    from repro_torch.serve import (MeshJob, run_oracle, serve_mesh_jobs,
+                                   shard_params_tree)
+
+    shards = args.ranks or (torch.cuda.device_count()
+                            if device.type == "cuda" else 1)
+    if device.type == "cuda":
+        from repro_torch.kernels._build import build_all
+        build_all()           # here, before the ranks would race to build
+    params = quantize_for_wbits(init_params(cfg, 0, device=device),
+                                args.wbits)
+    params = shard_params_tree(params, shards)
+    qb, _ = qweight_bytes(params)
+    backend, why = backend_rule(shards, device)
+    print(f"mesh serving: {shards}-way in-feature sharding over {shards} "
+          f"ranks on {device}, backend {backend} ({why}), staging "
+          f"{staging_rule(backend, device)} ({qb / 1e6:.2f} MB stored, "
+          "per-shard pad included)")
+    max_len = args.prompt_len + args.max_new + 2
+    rng = np.random.default_rng(0)
+    workload = [(0, i, rng.integers(0, cfg.vocab, args.prompt_len)
+                 .astype(np.int32), args.max_new, None)
+                for i in range(args.requests)]
+    config = EngineConfig(n_slots=args.slots, max_len=max_len,
+                          prefill_chunk=args.prefill_chunk or None,
+                          resilience=resilience_from_args(args, params))
+    job = MeshJob("serve", cfg, params, config, workload,
+                  continuous=args.continuous)
+    t0 = time.perf_counter()
+    oracle = run_oracle(job)["streams"]
+    print(f"  single-process oracle: {len(oracle)} requests in "
+          f"{time.perf_counter() - t0:.2f}s")
+    t0 = time.perf_counter()
+    ranks = [r[0] for r in launch_ranks(serve_mesh_jobs, shards,
+                                         ([job], shards), device=device,
+                                         timeout_s=MESH_TIMEOUT_S)]
+    print(f"  {shards}-rank mesh: {time.perf_counter() - t0:.2f}s with the "
+          "ranks' start")
+    meshed = ranks[0]["streams"]
+    identical = all(r["streams"] == oracle for r in ranks)
+    bad = sorted({line for r in ranks for line in r["integer_allgathers"]})
+    n_ag = ranks[0]["allgathers"]
+    print(f"  streams bit-identical on every rank: {identical}")
+    print(f"  rank 0: {n_ag} all-gathers of {ranks[0]['allgather_dtypes']} "
+          f"({ranks[0]['allgather_bytes']} B), {len(bad)} integer-payload "
+          "all-gathers on any rank")
+    if args.mesh_json:
+        payload = {
+            "shards": shards, "wbits": args.wbits,
+            "continuous": bool(args.continuous),
+            "weight_bytes": int(qb),
+            "weight_formats": leaf_format_histogram(params),
+            "inventory": leaf_inventory(params),
+            "streams_oracle": oracle, "streams_mesh": meshed,
+            "identical": identical,
+            "allgather_lines": int(n_ag),
+            "integer_allgathers": bad,
+            "backend": backend,
+        }
+        with open(args.mesh_json, "w") as f:
+            json.dump(payload, f, indent=1, sort_keys=True)
+        print(f"wrote {args.mesh_json}")
+    obs_export(args)
+    if not identical:
+        raise SystemExit("mesh streams diverged from the oracle")
+    if bad:
+        raise SystemExit("weight payload bytes crossed ranks:\n"
+                         + "\n".join(bad))
+    return meshed
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--n-layers", type=int, default=0,
+                    help="cut the depth to N layers at the config's width "
+                         "(0: the config's depth)")
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=8)
@@ -229,6 +334,16 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' runs the plain "
                          "PyTorch twins)")
+    ap.add_argument("--mesh", action="store_true",
+                    help="tensor-parallel k-sharded serving over --ranks "
+                         "rank processes, checked bit-identical against the "
+                         "single-process oracle")
+    ap.add_argument("--ranks", type=int, default=None,
+                    help="with --mesh: rank processes = shards (default: "
+                         "the card count, 1 on the CPU)")
+    ap.add_argument("--mesh-json", default=None, metavar="PATH",
+                    help="with --mesh: dump streams + storage inventory + "
+                         "collective audit (input to check_mesh.py)")
     add_obs_flags(ap)
     add_resilience_flags(ap)
     add_requant_flags(ap)
@@ -239,6 +354,8 @@ def main(argv=None):
         if args.degrade:
             ap.error("--requant is incompatible with --degrade (both "
                      "hot-swap the served tree)")
+        if args.mesh:
+            ap.error("--requant does not support --mesh yet")
     if args.resume and not (args.continuous and args.snapshot_dir):
         ap.error("--resume needs --continuous and --snapshot-dir")
     device = resolve_device(args.device)
@@ -248,6 +365,10 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if args.n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
+    if args.mesh:
+        return main_mesh(args, cfg, device)
     params = init_params(cfg, 0, device=device)
     if not args.requant:
         params = quantize_for_wbits(params, args.wbits)

@@ -17,6 +17,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import (all_gather, axis_index,
+                                       manual_axis_info)
 from repro_torch.kernels import flash
 
 __all__ = ["rmsnorm", "layernorm", "dense", "rope", "sinusoidal_positions",
@@ -50,14 +52,35 @@ def layernorm(p, x, eps=1e-5):
 
 
 def dense(p, x):
-    """y = x @ W (+ b) for a raw (in, out) weight, an int8 code leaf, or a
+    """y = x @ W (+ b) for a raw (in, out) weight, an int8 code leaf, a
     packed uint8 leaf (the fused dequant-matmuls: the hand-written kernels
-    on CUDA, their plain twins on the CPU)."""
+    on CUDA, their plain twins on the CPU) or a k-sharded leaf.
+
+    A k-sharded leaf (``serve/sharded.py``, DESIGN.md §13) carries an
+    explicit shard axis, one contiguous in-feature block per entry.  On a
+    rank's local view the ``manual_axes`` context names the mesh axis and
+    the rank computes its one partial; with no context (the oracle) every
+    partial is computed here.  Both combine the partials by the same
+    ordered chain sum, so the two give the same bits."""
     w = p["w"]
     if isinstance(w, dict) and "kshard" in w:
-        raise NotImplementedError("k-sharded serving leaves belong to the "
-                                  "multi-device slice (ROADMAP item 11)")
-    if isinstance(w, dict) and "codes" in w:
+        from repro_torch.kernels.dequant import dequant_matmul_sharded
+        ctx = manual_axis_info()
+        axis = ctx.get("axis") if ctx else None
+        shards = ctx.get("shards") if ctx else None
+        lead = x.shape[:-1]
+        x2d = x.reshape(-1, x.shape[-1])
+        if "codes" in w:
+            esc = ((w["esc_row"], w["esc_col"], w["esc_dval"])
+                   if "esc_row" in w else None)
+            y = dequant_matmul_sharded(x2d, w["codes"], w["s"], w["t"],
+                                       escapes=esc, axis_name=axis,
+                                       shards=shards)
+        else:
+            y = dequant_matmul_sharded(x2d, w["wsh"], axis_name=axis,
+                                       shards=shards)
+        y = y.reshape(lead + (y.shape[-1],)).to(x.dtype)
+    elif isinstance(w, dict) and "codes" in w:
         from repro_torch.kernels.dequant import dequant_matmul
         lead = x.shape[:-1]
         x2d = x.reshape(-1, x.shape[-1])
@@ -237,9 +260,20 @@ def attention_decode(p, x_t, cache: KVCache, pos, *, n_q, n_kv, head_dim,
     stepped past max_len) is dropped, never clamped onto live data; a
     scalar write start is clamped into the buffer like
     ``dynamic_update_slice``.  Both without a device-to-host sync.
+
+    Sharded serving (DESIGN.md §13): under a ``manual_axes`` context with
+    ``cache_sharded`` each rank holds one contiguous 1/S block of the
+    buffer axis.  Slot arithmetic and masks stay global; a rank writes only
+    the rows whose slot falls in its block (the others are dropped), and
+    K/V (with the int8 scales) are re-assembled by a tiled all-gather
+    before the scores: shard s holds global slots [s·buf_loc,
+    (s+1)·buf_loc), so the gathered buffer is the oracle's.
     """
+    ctx = manual_axis_info()
+    kv_sharded = bool(ctx and ctx.get("cache_sharded"))
     b = x_t.shape[0]
-    buf = cache.k.shape[1]
+    buf_loc = cache.k.shape[1]
+    buf = buf_loc * ctx["shards"] if kv_sharded else buf_loc
     pos = torch.as_tensor(pos, device=x_t.device)
     per_slot = pos.ndim == 1
     q = _split_heads(dense(p["wq"], x_t), n_q, head_dim)
@@ -258,10 +292,13 @@ def attention_decode(p, x_t, cache: KVCache, pos, *, n_q, n_kv, head_dim,
                   (cache.k_scale, ks_t), (cache.v_scale, vs_t))
     else:
         writes = ((cache.k, k_t), (cache.v, v_t))
-    if per_slot:
+    if per_slot or kv_sharded:
         rows = torch.arange(b, device=x_t.device)
-        valid = (slot >= 0) & (slot < buf)
-        safe = torch.where(valid, slot, torch.zeros_like(slot)).long()
+        loc = slot if per_slot else slot.expand(b)
+        if kv_sharded:
+            loc = loc - axis_index(ctx["axis"]) * buf_loc
+        valid = (loc >= 0) & (loc < buf_loc)
+        safe = torch.where(valid, loc, torch.zeros_like(loc)).long()
         for big, new in writes:
             # dropped rows rewrite their slot-0 entry with its own value
             keep = torch.where(valid[:, None, None],
@@ -271,11 +308,16 @@ def attention_decode(p, x_t, cache: KVCache, pos, *, n_q, n_kv, head_dim,
         start = slot.clamp(0, buf - 1).reshape(1).long()
         for big, new in writes:
             big.index_copy_(1, start, new.to(big.dtype))
+    kv = cache
+    if kv_sharded:
+        # this step's K/V are activations: the gather moves no weights
+        kv = KVCache(*(all_gather(t, ctx["axis"], dim=1, tiled=True)
+                       if isinstance(t, torch.Tensor) else t for t in cache))
     if int8_kv:
-        k_eff = cache.k.to(q.dtype) * cache.k_scale.to(q.dtype)
-        v_eff = cache.v.to(q.dtype) * cache.v_scale.to(q.dtype)
+        k_eff = kv.k.to(q.dtype) * kv.k_scale.to(q.dtype)
+        v_eff = kv.v.to(q.dtype) * kv.v_scale.to(q.dtype)
     else:
-        k_eff, v_eff = cache.k, cache.v
+        k_eff, v_eff = kv.k, kv.v
     scores = _attn_scores(q, k_eff, 1.0 / math.sqrt(head_dim))
     idx = torch.arange(buf, device=x_t.device)
     if per_slot:

@@ -36,7 +36,8 @@ from repro_torch.core.packing import (pack_codes_torch, pack_int2_planar,
 
 __all__ = ["quantize_params_tree", "from_watersic", "is_qweight",
            "is_packed_qweight",
-           "is_packed3_qweight", "is_packed2_qweight", "qweight_bytes",
+           "is_packed3_qweight", "is_packed2_qweight", "is_kshard_qweight",
+           "qweight_bytes",
            "leaf_format", "leaf_format_histogram", "leaf_inventory",
            "serving_formats_from_plan"]
 
@@ -66,6 +67,14 @@ def is_packed_qweight(x) -> bool:
     """Packed-int4 leaf: uint8 planar payload (…, out, ceil(in/2))."""
     return is_qweight(x) and x["codes"].dtype == torch.uint8 \
         and not is_packed3_qweight(x) and not is_packed2_qweight(x)
+
+
+def is_kshard_qweight(x) -> bool:
+    """In-feature-sharded serving leaf (``serve/sharded.py``): the
+    ``kshard`` marker tags leaves whose codes, scales and escapes carry an
+    explicit shard axis (each entry one contiguous in-feature block,
+    packed on its own)."""
+    return is_qweight(x) and "kshard" in x
 
 
 def leaf_format(node) -> str:
@@ -302,7 +311,10 @@ def leaf_inventory(tree) -> list:
     vocabulary, audited by ``benchmarks/check_bytes.py``): one
     ``{path, format, in, out, stack, esc_capacity, payload_bytes,
     scale_bytes, esc_bytes, bytes}`` per quantized leaf, then one
-    ``{"path": "<other>"}`` record for every remaining array."""
+    ``{"path": "<other>"}`` record for every remaining array.  A k-sharded
+    leaf reports its padded global width and its ``shards``; the
+    ``kshard`` marker is metadata and counts nowhere (nor in
+    :func:`qweight_bytes`)."""
     records: list = []
     other = 0
 
@@ -310,12 +322,24 @@ def leaf_inventory(tree) -> list:
         nonlocal other
         if isinstance(node, dict):
             if is_qweight(node):
-                n_in = int(node["s"].shape[-1])
+                if is_kshard_qweight(node):
+                    # s is (…, S, k_loc): report the padded global width
+                    # S·k_loc and the shard count, so the stdlib audits
+                    # recompute each shard's payload bytes
+                    shards = int(node["s"].shape[-2])
+                    n_in = shards * int(node["s"].shape[-1])
+                    lead = node["s"].shape[:-2]
+                    cap = shards * int(node["esc_row"].shape[-1]) \
+                        if "esc_row" in node else 0
+                else:
+                    shards = 1
+                    n_in = int(node["s"].shape[-1])
+                    lead = node["s"].shape[:-1]
+                    cap = int(node["esc_row"].shape[-1]) \
+                        if "esc_row" in node else 0
                 stack = 1
-                for d in node["s"].shape[:-1]:
+                for d in lead:
                     stack *= int(d)
-                cap = int(node["esc_row"].shape[-1]) if "esc_row" in node \
-                    else 0
                 payload = int(node["codes"].numel())
                 scale = _nbytes(node["s"]) + _nbytes(node["t"])
                 esc = sum(_nbytes(node[k]) for k in
@@ -326,6 +350,8 @@ def leaf_inventory(tree) -> list:
                     "stack": stack, "esc_capacity": cap,
                     "payload_bytes": payload, "scale_bytes": scale,
                     "esc_bytes": esc, "bytes": payload + scale + esc})
+                if shards > 1:
+                    records[-1]["shards"] = shards
                 return
             for k, v in node.items():
                 if k != "kshard":

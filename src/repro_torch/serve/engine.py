@@ -208,10 +208,15 @@ class _EngineBase:
             lambda p, c, tok: decode_step(cfg, p, c, tok))
         self._decode_chunk = config.decode_chunk_fn or (
             lambda p, c, toks: decode_chunk(cfg, p, c, toks))
+        # a rank's injected dispatches (serve.sharded) bring the rank's
+        # cache factory (its block of the buffer axis) and rank 0's clock
+        self._init_cache = getattr(config.decode_fn, "init_cache", init_cache)
+        self._clock = getattr(config.decode_fn, "clock", None)
 
     def _fresh_cache(self, batch: int, per_slot: bool = False):
-        return init_cache(self.cfg, batch, self.max_len, self.cache_dtype,
-                          per_slot=per_slot, device=self.device)
+        return self._init_cache(self.cfg, batch, self.max_len,
+                                self.cache_dtype, per_slot=per_slot,
+                                device=self.device)
 
     def _prefill(self, cache, prompts: np.ndarray):
         return _run_prefill(self._decode, self._decode_chunk,
@@ -256,8 +261,25 @@ class _EngineBase:
         """Wall-clock stamp source for stats/latency accounting:
         perf_counter plus the chaos clock-skew offset (skew-vulnerable BY
         DESIGN, so the clock-skew fault visibly lands in the stats clock
-        while deadlines, which ride ``time.monotonic``, never see it)."""
-        return time.perf_counter() + self._clock_skew_s
+        while deadlines, which ride ``time.monotonic``, never see it).
+        On a mesh rank: rank 0's reading at the step's start plus the time
+        since (``serve.sharded.MeshClock``)."""
+        now = time.perf_counter() if self._clock is None \
+            else self._clock.perf_counter()
+        return now + self._clock_skew_s
+
+    def _mono(self) -> float:
+        """The monotonic clock of every decision (deadlines, arrivals).
+        On a mesh rank it is rank 0's reading, broadcast at the top of the
+        step, so every rank takes the same decisions in the same order;
+        a request submitted between steps is stamped with the last
+        step's reading."""
+        return time.monotonic() if self._clock is None \
+            else self._clock.monotonic()
+
+    def _sync_clock(self) -> None:
+        if self._clock is not None:
+            self._clock.sync()
 
     def _submit_common(self, req: Request) -> bool:
         """Arrival stamping + deadline default + load shedding.  Returns
@@ -266,7 +288,7 @@ class _EngineBase:
         if req.arrival_s is None:
             req.arrival_s = self._now()
         if req.arrival_mono is None:
-            req.arrival_mono = time.monotonic()
+            req.arrival_mono = self._mono()
         res = self.resilience
         if res is not None:
             if req.deadline_s is None:
@@ -299,7 +321,7 @@ class _EngineBase:
         worst way to spend a dispatch)."""
         if self.resilience is None or not self.queue:
             return
-        now_mono = time.monotonic()
+        now_mono = self._mono()
         keep: deque = deque()
         for r in self.queue:
             if self._deadline_expired(r, now_mono):
@@ -519,6 +541,7 @@ class ServeEngine(_EngineBase):
     def run_round(self) -> List[Request]:
         """One static-batching round; returns the finished requests."""
         self._tick += 1
+        self._sync_clock()
         self._apply_pending_swap()      # round boundary: a staged tree lands
         if chaos.enabled():
             # the static engine's one hook site; nothing is admitted yet,
@@ -736,7 +759,7 @@ class ContinuousEngine(_EngineBase):
     def _expire_slots(self) -> None:
         """Cancel in-flight requests whose deadline passed; free the slot
         (its stale row is handled exactly like an eviction's)."""
-        now_mono = time.monotonic()
+        now_mono = self._mono()
         for i, r in enumerate(self.slots):
             if r is not None and self._deadline_expired(r, now_mono):
                 self._free_slot(i)
@@ -773,6 +796,7 @@ class ContinuousEngine(_EngineBase):
         transient admission/decode faults and snapshots periodically."""
         finished: List[Request] = []
         self._tick += 1
+        self._sync_clock()
         self._apply_pending_swap()      # step boundary: a staged tree lands
         t0 = self._now()
         if chaos.enabled():
@@ -943,7 +967,7 @@ class ContinuousEngine(_EngineBase):
         eng.cache = state["cache"]
         eng._last = np.asarray(state["last"]).astype(np.int32)
 
-        now_mono = time.monotonic()
+        now_mono = eng._mono()
 
         def revive(rec: dict) -> Request:
             req = Request(rid=rec["rid"],
