@@ -304,14 +304,48 @@ CUDA IPC; the weights, shared with the ranks the same way, never cross):
    repro_torch.launch.serve --mesh --ranks 4`` at 4 layers and
    ``benchmarks/check_mesh.py`` unchanged on its JSON.
 
+Last the training-mesh phases (``training_mesh_phases``): 4 ranks share
+the card under gloo and their collectives meet in the CUDA-IPC mailboxes:
+
+18. (a) compressed DP: minicpm-2b at full width cut to 4 layers, 4 ranks
+   × 2 rows of 64 tokens, 6 steps of ``make_compressed_step`` (bf16,
+   deterministic algorithms): every rank's (params, opt) checksum equal
+   after every step and equal to an in-process oracle that runs the 4
+   shards one after another with the same compress and int32 sum, each
+   rank's error buffers equal to its shard's in the oracle, losses within
+   1e-6 of the oracle's (an f32 sum of 4 losses), finite loss and grad
+   norm, non-zero errors, B3 4 per rank per step, and the collective log
+   1 B of int8 per parameter and one scalar max per leaf; each rank's step
+   time (median of steps 2–6), collectives, bytes and peak printed;
+18b. (d) elastic restore, in the same rank launch: the 4-layer params
+   saved once and restored onto a (2, 2) mesh with ``param_specs_tree``'s
+   specs: every block equal to its slice of the saved tree, the blocks
+   gathered back equal to it, each rank's bytes against the whole;
+18c. (b) ``launch.train --ranks 4`` (deterministic algorithms, which
+   ``launch_ranks`` passes on to the ranks) at 4 layers, 8 × 64
+   tokens per step, 6 steps: the uninterrupted run (its rank body, in the
+   same rank launch), then ``launch.train.main`` resuming its step-3
+   checkpoint with 4 ranks (each driver checks that its ranks' states are
+   equal and records the checksum in its manifests): the two step-6
+   states equal; one process over the whole batch within 1e-2 relative of
+   the last loss and 2·lr per step of the params;
+18d. (c) phi3.5-moe at full width, one layer, capacity factor 8 (no pair
+   dropped on either path), on a (1, 4) mesh with ``moe_a2a``: the
+   ``moe`` layer forward and backward on 8 × 64 tokens, its output,
+   x-grad, router grad and each rank's expert-block grads within 1e-4 of
+   max of the local ``moe`` in this process; then two bf16 train steps
+   with the experts cut by ``expert_specs``: the replicated params
+   bit-identical across ranks, each loss within 1e-2 relative of the
+   single-process step's.
+
 The second-to-last line is the kernel summary JSON (six entries: the
 packed kernel per payload, the int8 kernel, ZSIC and flash; B1 int4's and
 B2's launches include the recurrent, whisper and paligemma serve runs and
 int8 steps, the lifecycle's served codes and the mesh phases' oracle and
 rank runs, flash's whisper's encode and
 prefill and the training phases' (the driver's steps, the lifecycle's
-training, ``model_ppl`` and fine-tune), ZSIC's the lifecycle's hptq and
-GPTQ), the last line
+training, ``model_ppl`` and fine-tune, the compressed DP ranks and their
+oracle), ZSIC's the lifecycle's hptq and GPTQ), the last line
 ``{"ok": true, "device": {...}}``.  Per-case numbers also go to
 ``chiprun_out/chip_smoke_detail.json``.  Tolerances:
 
@@ -385,6 +419,7 @@ from repro_torch.kernels.dequant import (LAUNCHES, PLANE_GROUPS,  # noqa: E402
                                          unpack_payload_ref)
 from repro_torch.launch import plan as launch_plan  # noqa: E402
 from repro_torch.launch.serve import quantize_for_wbits  # noqa: E402
+from repro_torch.launch.train import device_batch  # noqa: E402
 from repro_torch.models import (capture_cross_kv,  # noqa: E402
                                 decode_chunk, decode_layers, decode_step,
                                 encode, forward_train, loss_fn, prefill,
@@ -4815,6 +4850,722 @@ def mesh_phases(dev, gen) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# training on a mesh of ranks (slice 13)
+# ---------------------------------------------------------------------------
+
+TRAIN_MESH_RANKS = 4
+#: the compressed DP step: rows of 64 tokens per rank, and steps (the step
+#: time is the median of steps 2-6)
+CDP_ROWS, CDP_SEQ, CDP_STEPS = 2, 64, 6
+#: launch.train's DP runs: global batch 8 x 64, steps, the checkpointed step
+DP_BATCH, DP_STEPS, DP_STOP = 8, 6, 3
+#: the expert-parallel cells: phi3.5-moe at full width, 8 x 64 tokens,
+#: capacity factor 8 (no pair dropped, on either path), one layer
+EP_BATCH, EP_SEQ, EP_CF, EP_LAYERS = 8, 64, 8.0, 1
+EP_TOL = 1e-4
+EP_KEYS = ("w_gate", "w_up", "w_out")
+TRAIN_MESH_TIMEOUT_S = 600.0
+
+
+def _rank_device(kind: str):
+    """This rank's device (its card, set by the launcher) with the
+    smoke's settings: no TF32, deterministic algorithms."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.use_deterministic_algorithms(True)
+    if kind == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(kind)
+
+
+def _reset_peak(dev):
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def _peak(dev) -> int:
+    return torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+
+
+def _checksum(tree) -> list:
+    from repro_torch.dist.fault import tree_checksum
+    return tree_checksum(tree).tolist()
+
+
+def _mesh_cfg():
+    return dataclasses.replace(get_config(TRAIN_ARCH),
+                               n_layers=MESH_SHORT_LAYERS)
+
+
+def _ep_cfg():
+    return dataclasses.replace(get_config(MOE_ARCH), n_layers=EP_LAYERS,
+                               capacity_factor=EP_CF)
+
+
+#: the model arguments of launch.train's DP runs (the cfg of ``_mesh_cfg``)
+DP_MODEL_ARGS = ["--arch", TRAIN_ARCH, "--n-layers", str(MESH_SHORT_LAYERS)]
+
+
+def compressed_oracle(cfg, dev, dcfg, opt) -> dict:
+    """The compressed DP step of TRAIN_MESH_RANKS ranks run in this
+    process, shard after shard: each shard's grads of the bf16 cast tree
+    (``train_loop._value_and_grad``), then per leaf the common scale from
+    the shards' max|g + e| (a max in rank order), each shard's int8 codes
+    and error (``grad_compress``'s in-place arithmetic), the codes summed
+    into int32 in rank order and dequantized, the loss summed in rank
+    order; AdamW in place.  Per step: the losses and the checksums of
+    (params, opt) and of each shard's error buffers."""
+    from repro_torch.train import adamw_update, init_train_state
+    from repro_torch.train.grad_compress import _div
+    from repro_torch.train.train_loop import _cast, _value_and_grad
+    n = TRAIN_MESH_RANKS
+    state = init_train_state(init_params(cfg, 0, device=dev))
+    errs = [tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                           device=dev), state.params)
+            for _ in range(n)]
+    four = torch.full((), float(n), device=dev)
+    rec = {"losses": [], "state_sums": [], "err_sums": []}
+    for s in range(CDP_STEPS):
+        batch = device_batch(dcfg, s, dev)
+        losses, grads = [], []
+        for r in range(n):
+            shard = {k: v[r * CDP_ROWS:(r + 1) * CDP_ROWS]
+                     for k, v in batch.items()}
+            loss, g = _value_and_grad(cfg, _cast(state.params,
+                                                 torch.bfloat16), shard)
+            losses.append(loss)
+            grads.append(g)
+        flat = [tree_leaves(g) for g in grads]
+        err_leaves = [tree_leaves(e) for e in errs]
+        means = []
+        with torch.no_grad():
+            for i, g0 in enumerate(flat[0]):
+                gfs = [flat[r][i].to(torch.float32) + err_leaves[r][i]
+                       for r in range(n)]
+                gmax = torch.max(torch.abs(gfs[0]))
+                for gf in gfs[1:]:
+                    gmax = torch.maximum(gmax, torch.max(torch.abs(gf)))
+                scale = _div(gmax, 127.0) + 1e-12
+                summed = None
+                for r, gf in enumerate(gfs):
+                    t = torch.div(gf, scale).round_().clamp_(-127, 127)
+                    q = t.to(torch.int8)
+                    torch.sub(gf, t.mul_(scale), out=err_leaves[r][i])
+                    summed = q.to(torch.int32) if summed is None \
+                        else summed.add_(q)
+                del gfs
+                deq = summed.to(torch.float32)
+                means.append(_div(deq.mul_(scale), n).to(g0.dtype))
+            loss = losses[0]
+            for other in losses[1:]:
+                loss = loss + other
+            loss = loss / four
+        del grads, flat
+        it = iter(means)
+        mean_tree = tree_map(lambda _: next(it), state.params)
+        params, opt_state, m = adamw_update(opt, state.params, mean_tree,
+                                            state.opt)
+        state = state._replace(params=params, opt=opt_state)
+        del means, mean_tree
+        rec["losses"].append(float(loss))
+        rec["state_sums"].append(_checksum((state.params, state.opt)))
+        rec["err_sums"].append([_checksum(e) for e in errs])
+    return rec
+
+
+def _compressed_rank(rank, dev, cfg, dcfg, opt) -> dict:
+    """One rank of phase (a): CDP_STEPS compressed DP steps on its 2 rows
+    of each global batch; per step its wall time (host clock around a
+    synchronize), loss, grad norm, B3 launches, collectives and bytes, and
+    the checksums of (params, opt) and of its error buffers."""
+    from repro_torch.dist.sharding import use_mesh
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train import init_train_state, make_compressed_step
+    mesh = make_host_mesh(device=dev)
+    _reset_peak(dev)
+    steps = []
+    with use_mesh(mesh):
+        state = init_train_state(init_params(cfg, 0, device=dev),
+                                 use_compression=True)
+        step = make_compressed_step(cfg, opt, mesh)
+        for s in range(CDP_STEPS):
+            batch = device_batch(dcfg, s, dev)
+            _sync(dev)
+            reset_flash_launches()
+            start = len(mesh.log)
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            _sync(dev)
+            wall = 1e3 * (time.perf_counter() - t0)
+            log = mesh.log[start:]
+            steps.append({
+                "wall_ms": wall, "loss": float(m["loss"]),
+                "grad_norm": float(m["grad_norm"]),
+                "b3": flash_attention_cuda.launches,
+                "collectives": len(log),
+                "bytes": sum(b for *_, b in log),
+                "int8_bytes": sum(b for op, dt, _, b in log
+                                  if dt == "int8"),
+                "max_ops": sum(op == "all_reduce_max" and dt == "float32"
+                               and b == 4 for op, dt, _, b in log),
+                "state_sum": _checksum((state.params, state.opt)),
+                "err_sum": _checksum(state.err)})
+    err_nonzero = all(float(e.abs().max()) > 0
+                      for e in tree_leaves(state.err))
+    n_params = sum(t.numel() for t in tree_leaves(state.params))
+    n_leaves = len(tree_leaves(state.params))
+    peak = _peak(dev)
+    del state, step
+    mesh.close()
+    torch.cuda.empty_cache()
+    return {"steps": steps, "err_nonzero": err_nonzero, "peak_bytes": peak,
+            "n_params": n_params, "n_leaves": n_leaves,
+            "backend": mesh.backend, "staging": mesh.staging}
+
+
+def _gather_full(mesh, block, spec):
+    """A leaf put back together from the ranks' blocks of ``spec``."""
+    out = block
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        for name in reversed((entry,) if isinstance(entry, str) else entry):
+            out = mesh.all_gather(out.contiguous(), name, dim, tiled=True)
+    return out
+
+
+def _restore_rank(rank, dev, cfg, ckpt, saved) -> dict:
+    """One rank of phase (d): the checkpoint restored onto the (2, 2) mesh
+    with ``param_specs_tree``'s specs; each block against the saved tree's
+    slice (``saved``: the parent's tensors, shared through CUDA IPC), then
+    every leaf gathered back against the whole."""
+    from repro_torch.dist.checkpoint import restore_checkpoint
+    from repro_torch.dist.sharding import NamedSharding, use_mesh
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import param_specs_tree
+    mesh = make_host_mesh(model_parallel=2, device=dev)
+    with use_mesh(mesh):
+        specs = param_specs_tree(cfg)
+    pairs = []
+    tree_map(lambda leaf, spec: pairs.append((leaf, spec)), saved, specs)
+    shardings = tree_map(lambda _, spec: NamedSharding(mesh, spec), saved,
+                         specs)
+    _sync(dev)
+    t0 = time.perf_counter()
+    state, manifest = restore_checkpoint(ckpt, saved, shardings=shardings)
+    _sync(dev)
+    secs = time.perf_counter() - t0
+    blocks = tree_leaves(state)
+    equal = all(torch.equal(b, NamedSharding(mesh, spec).block(full))
+                for b, (full, spec) in zip(blocks, pairs))
+    cut = sum(b.numel() < full.numel() for b, (full, _) in zip(blocks, pairs))
+    gathered = all(torch.equal(_gather_full(mesh, b, spec), full)
+                   for b, (full, spec) in zip(blocks, pairs))
+    out = {"coord": (mesh.axis_index("data"), mesh.axis_index("model")),
+           "step": manifest["step"], "blocks_equal": equal,
+           "gathered_equal": gathered, "cut_leaves": cut,
+           "leaves": len(blocks), "restore_s": secs,
+           "bytes": sum(b.numel() * b.element_size() for b in blocks),
+           "whole_bytes": sum(f.numel() * f.element_size()
+                              for f, _ in pairs)}
+    del state, blocks
+    mesh.close()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ep_rank(rank, dev, cfg, full, x, oracle, opt, batches) -> dict:
+    """One rank of phase (c) on the (1, 4) mesh under ``moe_a2a``: layer
+    0's ``moe`` forward and backward on its expert block (cut from the
+    parent's stack, shared through CUDA IPC) against the parent's local
+    ``moe`` (output, x-grad, router grad, the block of each expert grad);
+    then two bf16 train steps of the 1-layer model with the experts cut by
+    ``expert_specs`` (``make_train_step`` finds the blocks).  The layer runs
+    twice and the second call is timed (the first grows the mailboxes and
+    warms the libraries), as is the second step."""
+    from repro_torch.dist.sharding import NamedSharding, use_mesh
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import expert_specs
+    from repro_torch.train import init_train_state, make_train_step
+    os.environ["REPRO_OPTS"] = "moe_a2a"
+    mesh = make_host_mesh(model_parallel=TRAIN_MESH_RANKS, device=dev)
+    cut = NamedSharding(mesh, ("model", None, None))
+    lp = full["layers"]["moe"]
+    p = {"router": {"w": lp["router"]["w"][0].clone().requires_grad_()},
+         **{k: cut.block(lp[k][0]).clone().requires_grad_()
+            for k in EP_KEYS}}
+    xx = x.clone().requires_grad_()
+    _reset_peak(dev)
+    with use_mesh(mesh):
+        for _ in range(2):          # the second call is timed and held
+            for t in (xx, p["router"]["w"], *(p[k] for k in EP_KEYS)):
+                t.grad = None
+            _sync(dev)
+            start = len(mesh.log)
+            t0 = time.perf_counter()
+            y = moe(p, xx, n_experts=cfg.n_experts, top_k=cfg.top_k,
+                    capacity_factor=EP_CF, activation=cfg.activation)
+            y.sum().backward()
+            _sync(dev)
+            layer_ms = 1e3 * (time.perf_counter() - t0)
+    log = mesh.log[start:]
+
+    def rel(got, want):
+        return float((got - want).abs().max() / want.abs().max())
+    errs = {"y": rel(y.detach(), oracle["y"]),
+            "x_grad": rel(xx.grad, oracle["x_grad"]),
+            "router": rel(p["router"]["w"].grad, oracle["router"]),
+            **{k: rel(p[k].grad, cut.block(oracle[k])) for k in EP_KEYS}}
+    layer = {"rel_err": errs, "ms": layer_ms, "collectives": len(log),
+             "a2a": sum(op == "all_to_all" for op, *_ in log),
+             "a2a_bytes": sum(b for op, _, _, b in log if op == "all_to_all"),
+             "bytes": sum(b for *_, b in log),
+             "peak_bytes": _peak(dev)}
+    del p, xx, y
+    # one train step with the experts cut
+    specs = expert_specs(cfg)
+    params = tree_map(lambda leaf, spec: leaf.detach().clone() if spec
+                      is None else NamedSharding(mesh, spec).block(leaf)
+                      .clone(), full, specs)
+    state = init_train_state(params)
+    step = make_train_step(cfg, opt)
+    _reset_peak(dev)
+    losses, norms = [], []
+    with use_mesh(mesh):
+        for b in batches:           # the second step is timed
+            _sync(dev)
+            start = len(mesh.log)
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            _sync(dev)
+            step_ms = 1e3 * (time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+    log = mesh.log[start:]
+    replicated = []
+    tree_map(lambda leaf, spec: replicated.append(leaf) if spec is None
+             else None, state.params, specs)
+    out = {"layer": layer,
+           "step": {"ms": step_ms, "losses": losses, "grad_norms": norms,
+                    "replicated_sum": _checksum(replicated),
+                    "collectives": len(log),
+                    "bytes": sum(b for *_, b in log),
+                    "params": sum(t.numel()
+                                  for t in tree_leaves(state.params)),
+                    "peak_bytes": _peak(dev)}}
+    del state, params, step
+    mesh.close()
+    os.environ.pop("REPRO_OPTS", None)
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_mesh_rank(rank, kind, jobs) -> dict:
+    """A rank of the training-mesh phases on a device of type ``kind``:
+    the jobs named in ``jobs`` (``compressed``, ``restore`` and
+    ``driver``, or ``ep``), in that order.  ``driver`` is the rank body of
+    ``launch.train --ranks 4`` (``train_rank``, what its ``main`` spawns)
+    on the given arguments: the uninterrupted run of phase (b), here so
+    that it needs no launch of its own."""
+    dev = _rank_device(kind)
+    out = {}
+    if "compressed" in jobs:
+        out["compressed"] = _compressed_rank(rank, dev, **jobs["compressed"])
+    if "restore" in jobs:
+        out["restore"] = _restore_rank(rank, dev, **jobs["restore"])
+    if "driver" in jobs:
+        from repro_torch.launch import train as launch_train
+        t0 = time.perf_counter()
+        loss = launch_train.train_rank(rank, jobs["driver"],
+                                       TRAIN_MESH_RANKS)
+        out["driver"] = {"loss": loss, "s": time.perf_counter() - t0}
+    if "ep" in jobs:
+        out["ep"] = _ep_rank(rank, dev, **jobs["ep"])
+    return out
+
+
+def _reckon(what, per_rank_params, bytes_per_param, dev):
+    """Print the state a phase's ranks will hold, before they start."""
+    per_rank = per_rank_params * bytes_per_param
+    free = torch.cuda.mem_get_info(dev)[0] if dev.type == "cuda" else 0
+    print(f"train mesh {what}, reckoned before the run: {per_rank_params} "
+          f"params per rank x {bytes_per_param} B = {per_rank / 1e9:.2f} GB "
+          f"of state per rank plus transients, "
+          f"{TRAIN_MESH_RANKS * per_rank / 1e9:.2f} GB for "
+          f"{TRAIN_MESH_RANKS} ranks; {free / 1e9:.2f} GB free on the card "
+          f"[{CARD}]", flush=True)
+    return per_rank
+
+
+def _same(values, what):
+    if any(v != values[0] for v in values[1:]):
+        raise AssertionError(f"{what} differ across ranks: {values}")
+    return values[0]
+
+
+def compressed_and_restore_phases(dev, cfg, driver_argv) -> dict:
+    """Phases (a) and (d), and phase (b)'s uninterrupted driver run on
+    ``driver_argv``, in one rank launch; their oracles first."""
+    import shutil
+    import tempfile
+
+    from repro_torch.data import DataConfig
+    from repro_torch.dist.checkpoint import save_checkpoint
+    from repro_torch.launch.mesh import launch_ranks
+    from repro_torch.train import AdamWConfig
+    n = TRAIN_MESH_RANKS
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=CDP_SEQ,
+                      global_batch=n * CDP_ROWS)
+    opt = AdamWConfig(lr=3e-3, schedule=cfg.lr_schedule,
+                      total_steps=CDP_STEPS, warmup_steps=1)
+    t0 = time.perf_counter()
+    torch.use_deterministic_algorithms(True)
+    try:
+        reset_flash_launches()
+        oracle = compressed_oracle(cfg, dev, dcfg, opt)
+        oracle_b3 = flash_attention_cuda.launches
+    finally:
+        torch.use_deterministic_algorithms(False)
+    oracle_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()        # the oracle's state, for the ranks
+    saved = init_params(cfg, 0, device=dev)
+    # f32 params, m, v and error buffers, the bf16 cast and its grads
+    n_params = sum(t.numel() for t in tree_leaves(saved))
+    reckoned = _reckon("(a) compressed DP", n_params, 20, dev)
+    # (b)'s ranks: f32 params, m and v, the bf16 cast and its grads
+    _reckon("(b) launch.train --ranks", n_params, 16, dev)
+    (ROOT / "scratch").mkdir(exist_ok=True)
+    ckpt = tempfile.mkdtemp(dir=ROOT / "scratch", prefix="elastic_")
+    try:
+        save_checkpoint(ckpt, 5, saved)
+        t0 = time.perf_counter()
+        ranks = launch_ranks(train_mesh_rank, n, (dev.type, {
+            "compressed": dict(cfg=cfg, dcfg=dcfg, opt=opt),
+            "restore": dict(cfg=cfg, ckpt=ckpt, saved=saved),
+            "driver": driver_argv},),
+            device=dev, timeout_s=TRAIN_MESH_TIMEOUT_S)
+        ranks_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    del saved
+    torch.cuda.empty_cache()
+    comp = [r["compressed"] for r in ranks]
+    n_params, n_leaves = comp[0]["n_params"], comp[0]["n_leaves"]
+    per_step = cfg.n_layers                   # B3: layers x 1 microbatch
+    for s in range(CDP_STEPS):
+        rows = [c["steps"][s] for c in comp]
+        want = oracle["state_sums"][s]
+        _same([r["state_sum"] for r in rows], f"step {s} (params, opt)")
+        if rows[0]["state_sum"] != want:
+            raise AssertionError(f"compressed step {s}: the ranks' (params, "
+                                 f"opt) differ from the in-process oracle's")
+        for r, row in enumerate(rows):
+            if row["err_sum"] != oracle["err_sums"][s][r]:
+                raise AssertionError(f"compressed step {s}: rank {r}'s error"
+                                     f" buffers differ from the oracle's")
+            _finite(row["loss"], f"compressed step {s} loss")
+            _finite(row["grad_norm"], f"compressed step {s} grad norm")
+            if row["b3"] != per_step:
+                raise AssertionError(f"compressed step {s} rank {r}: B3 "
+                                     f"{row['b3']}, expected {per_step}")
+            if row["int8_bytes"] != n_params or row["max_ops"] != n_leaves:
+                raise AssertionError(
+                    f"compressed step {s} rank {r}: {row['int8_bytes']} int8"
+                    f" bytes for {n_params} params, {row['max_ops']} scalar "
+                    f"maxes for {n_leaves} leaves")
+        loss = _same([r["loss"] for r in rows], "losses")
+        # the f32 sum of 4 shard losses: in rank order on the mailbox
+        # route, in the backend's order on the others
+        if abs(loss - oracle["losses"][s]) > 1e-6 * abs(oracle["losses"][s]):
+            raise AssertionError(f"compressed step {s}: loss {loss} differs "
+                                 f"from the oracle's {oracle['losses'][s]}")
+    if not all(c["err_nonzero"] for c in comp):
+        raise AssertionError("compressed step: an error buffer stayed zero")
+    walls = [statistics.median(row["wall_ms"] for row in c["steps"][1:])
+             for c in comp]
+    rec = {"cfg": {"arch": cfg.name, "n_layers": cfg.n_layers,
+                   "params": n_params, "leaves": n_leaves},
+           "backend": comp[0]["backend"], "staging": comp[0]["staging"],
+           "step_ms_median_per_rank": walls,
+           "steps": comp, "oracle": oracle, "oracle_s": oracle_s,
+           "reckoned_state_bytes_per_rank": reckoned,
+           "oracle_b3": oracle_b3, "ranks_s": ranks_s,
+           "b3_launches": sum(row["b3"] for c in comp
+                              for row in c["steps"]) + oracle_b3}
+    st = comp[0]["steps"][-1]
+    print(f"train mesh (a) compressed DP {cfg.name} L={cfg.n_layers} "
+          f"({n_params} params), {n} ranks x {CDP_ROWS}x{CDP_SEQ} tokens, "
+          f"backend {rec['backend']} staging {rec['staging']}: step "
+          + ", ".join(f"{w:.1f}" for w in walls)
+          + f" ms per rank (median of steps 2-{CDP_STEPS}); per rank per "
+          f"step {st['collectives']} collectives, {st['bytes']} B "
+          f"({st['int8_bytes']} B int8, {st['max_ops']} scalar maxes); "
+          f"B3 {per_step} per rank per step; peak "
+          + ", ".join(f"{c['peak_bytes'] / 1e9:.2f}" for c in comp)
+          + f" GB; ranks and in-process oracle bit-identical over "
+          f"{CDP_STEPS} steps (losses "
+          + ", ".join(f"{x:.4f}" for x in oracle["losses"])
+          + f"); oracle {oracle_s:.1f}s, ranks {ranks_s:.1f}s [{CARD}]",
+          flush=True)
+    rec["driver"] = ranks[0]["driver"]
+    res = [r["restore"] for r in ranks]
+    for r in res:
+        if not (r["blocks_equal"] and r["gathered_equal"]) \
+                or r["cut_leaves"] == 0 or r["step"] != 5:
+            raise AssertionError(f"elastic restore rank {r['coord']}: "
+                                 f"{r}")
+    rec["restore"] = res
+    print(f"train mesh (d) elastic restore {cfg.name} L={cfg.n_layers} onto "
+          f"(2, 2): every block equal to the saved slice, the gathered tree "
+          f"equal to the saved one; {res[0]['cut_leaves']} of "
+          f"{res[0]['leaves']} leaves cut; per rank "
+          + ", ".join(f"{r['bytes'] / 1e9:.3f}" for r in res)
+          + f" GB of {res[0]['whole_bytes'] / 1e9:.3f} GB, restored in "
+          + ", ".join(f"{r['restore_s']:.2f}" for r in res)
+          + f" s [{CARD}]", flush=True)
+    return rec
+
+
+def dp_argv(ckpt) -> list:
+    """``launch.train``'s arguments of phase (b): 4 layers at full width,
+    DP_STEPS steps of DP_BATCH x CDP_SEQ, checkpoints every DP_STOP
+    steps."""
+    return DP_MODEL_ARGS + [
+        "--steps", str(DP_STEPS), "--batch", str(DP_BATCH), "--seq",
+        str(CDP_SEQ), "--save-every", str(DP_STOP), "--log-every", "1",
+        "--ckpt", ckpt]
+
+
+def dp_driver_phase(dev, cfg, root, full) -> dict:
+    """Phase (b): ``launch.train --ranks 4`` under deterministic
+    algorithms (``launch_ranks`` passes the setting on).  The
+    uninterrupted run (``full``: its last loss and seconds) ran in the (a)
+    launch and checkpointed at DP_STOP and DP_STEPS under ``root/full``;
+    its step-DP_STOP checkpoint, linked into a fresh directory, is resumed
+    through ``launch.train.main`` with 4 ranks (a preempted run's restart:
+    the same schedule, every rank restoring), whose step-DP_STEPS state
+    must equal the uninterrupted run's (the checksum each driver checks
+    equal across its ranks and records in the manifest); then one process
+    over the whole batch, its last loss within 1e-2 relative and its
+    params within 2·lr per step of the 4-rank run's."""
+    from repro_torch.dist.checkpoint import read_manifest
+    from repro_torch.launch import train as launch_train
+    ranks = ["--ranks", str(TRAIN_MESH_RANKS)]
+    ck = {k: os.path.join(root, k) for k in ("full", "resumed", "one")}
+    losses, runs_s = {"full": full["loss"]}, {"full": full["s"]}
+    stop = f"step_{DP_STOP:08d}"
+    os.makedirs(os.path.join(ck["resumed"], stop))
+    for name in os.listdir(os.path.join(ck["full"], stop)):
+        os.link(os.path.join(ck["full"], stop, name),
+                os.path.join(ck["resumed"], stop, name))
+    torch.use_deterministic_algorithms(True)     # launch_ranks passes it on
+    try:
+        for name, extra in (("resumed", ranks),
+                            ("one", ["--save-every", str(DP_STEPS)])):
+            t0 = time.perf_counter()
+            losses[name] = launch_train.main(dp_argv(ck[name]) + extra)
+            runs_s[name] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    t0 = time.perf_counter()
+    step_dir = f"step_{DP_STEPS:08d}"
+    man = read_manifest(ck["full"], DP_STEPS)
+    sums = [read_manifest(ck[k], DP_STEPS)["meta"]["checksum"]
+            for k in ("full", "resumed")]
+    if sums[0] != sums[1]:
+        raise AssertionError(f"launch.train --ranks: the resumed run's "
+                             f"state checksum {sums[1]} differs from the "
+                             f"uninterrupted run's {sums[0]}")
+    if losses["resumed"] != losses["full"]:
+        raise AssertionError("launch.train --ranks: resumed last loss "
+                             f"{losses['resumed']} != {losses['full']}")
+    lr = 3e-3
+    worst = 0.0
+    for rec in man["leaves"]:
+        if not rec["key"].startswith(".params"):
+            continue
+        a = np.load(os.path.join(ck["full"], step_dir, rec["file"]))
+        b = np.load(os.path.join(ck["one"], step_dir, rec["file"]))
+        worst = max(worst, float(np.abs(a - b).max()))
+    if worst > 2 * lr * DP_STEPS:
+        raise AssertionError(f"launch.train --ranks 4 vs one process: "
+                             f"params {worst} apart")
+    l4, l1 = losses["full"], losses["one"]
+    if abs(l4 - l1) > 1e-2 * abs(l1):
+        raise AssertionError(f"launch.train --ranks 4 vs one process: "
+                             f"last loss {l4} vs {l1}")
+    runs_s["compare"] = time.perf_counter() - t0
+    rec = {"runs_s": runs_s, "last_loss": losses, "checksum": sums[0],
+           "params_max_abs_vs_one": worst}
+    print(f"train mesh (b) launch.train --ranks {TRAIN_MESH_RANKS} "
+          f"{cfg.name} L={cfg.n_layers}, {DP_BATCH}x{CDP_SEQ} per step: "
+          f"resumed from step {DP_STOP} equal bit for bit to the "
+          f"uninterrupted run; last loss {l4:.6f} vs one process {l1:.6f}, "
+          f"params within {worst:.2e}; "
+          + ", ".join(f"{k} {v:.1f}s" for k, v in runs_s.items())
+          + f" [{CARD}]", flush=True)
+    return rec
+
+
+def ep_phase(dev) -> dict:
+    """Phase (c): phi3.5-moe at full width, 1 layer, on the (1, 4) mesh."""
+    from repro_torch.data import DataConfig
+    from repro_torch.launch.mesh import launch_ranks
+    from repro_torch.train import (AdamWConfig, init_train_state,
+                                   make_train_step)
+    cfg = _ep_cfg()
+    full = init_params(cfg, 0, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    x = torch.randn((EP_BATCH, EP_SEQ, cfg.d_model), generator=gen,
+                    device=dev)
+    lp = full["layers"]["moe"]
+    p = {"router": {"w": lp["router"]["w"][0].clone().requires_grad_()},
+         **{k: lp[k][0].clone().requires_grad_() for k in EP_KEYS}}
+    xx = x.clone().requires_grad_()
+    for _ in range(2):              # the second call is timed
+        for t in (xx, p["router"]["w"], *(p[k] for k in EP_KEYS)):
+            t.grad = None
+        _sync(dev)
+        t0 = time.perf_counter()
+        y = moe(p, xx, n_experts=cfg.n_experts, top_k=cfg.top_k,
+                capacity_factor=EP_CF, activation=cfg.activation)
+        y.sum().backward()
+        _sync(dev)
+        local_ms = 1e3 * (time.perf_counter() - t0)
+    oracle = {"y": y.detach(), "x_grad": xx.grad,
+              "router": p["router"]["w"].grad,
+              **{k: p[k].grad for k in EP_KEYS}}
+    del p, xx, y
+    torch.cuda.empty_cache()
+    opt = AdamWConfig(lr=3e-3, total_steps=10, warmup_steps=1)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=EP_SEQ, global_batch=EP_BATCH)
+    batches = [device_batch(dcfg, s, dev) for s in range(2)]
+    experts = sum(lp[k].numel() for k in EP_KEYS)
+    # f32 params, m and v, the bf16 cast and its grads; E/4 experts a rank
+    reckoned = _reckon("(c) EP train step", sum(
+        t.numel() for t in tree_leaves(full)) - experts
+        + experts // TRAIN_MESH_RANKS, 16, dev)
+    t0 = time.perf_counter()
+    ranks = launch_ranks(train_mesh_rank, TRAIN_MESH_RANKS, (dev.type, {
+        "ep": dict(cfg=cfg, full=full, x=x, oracle=oracle, opt=opt,
+                   batches=batches)},), device=dev,
+        timeout_s=TRAIN_MESH_TIMEOUT_S)
+    ranks_s = time.perf_counter() - t0
+    del oracle
+    torch.cuda.empty_cache()
+    # the single-process steps on the whole tree (the local MoE path)
+    state = init_train_state(full)
+    step = make_train_step(cfg, opt)
+    one_losses, one_norms = [], []
+    for b in batches:
+        _sync(dev)
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        _sync(dev)
+        one_ms = 1e3 * (time.perf_counter() - t0)
+        one_losses.append(float(m["loss"]))
+        one_norms.append(float(m["grad_norm"]))
+    del state, full, m, batches
+    torch.cuda.empty_cache()
+    eps = [r["ep"] for r in ranks]
+    for r, e in enumerate(eps):
+        bad = {k: v for k, v in e["layer"]["rel_err"].items() if v > EP_TOL}
+        if bad:
+            raise AssertionError(f"EP layer rank {r}: {bad} past {EP_TOL} "
+                                 "of max")
+    _same([e["step"]["replicated_sum"] for e in eps],
+          "EP train step replicated params")
+    losses = _same([e["step"]["losses"] for e in eps],
+                   "EP train step losses")
+    norms = _same([e["step"]["grad_norms"] for e in eps],
+                  "EP train step grad norms")
+    for s, (loss, one) in enumerate(zip(losses, one_losses)):
+        _finite(loss, f"EP train step {s} loss")
+        if abs(loss - one) > 1e-2 * abs(one):
+            raise AssertionError(f"EP train step {s} loss {loss} vs the "
+                                 f"single process's {one}")
+    rec = {"cfg": {"arch": cfg.name, "n_layers": cfg.n_layers,
+                   "capacity_factor": EP_CF},
+           "ranks": eps, "local_layer_ms": local_ms, "ranks_s": ranks_s,
+           "reckoned_state_bytes_per_rank": reckoned,
+           "losses": losses, "one_losses": one_losses, "grad_norms": norms,
+           "one_grad_norms": one_norms, "one_step_ms": one_ms}
+    lay = eps[0]["layer"]
+    print(f"train mesh (c) EP {cfg.name} at full width: moe layer "
+          f"{EP_BATCH}x{EP_SEQ} tokens on (1, {TRAIN_MESH_RANKS}), worst rel "
+          f"err {max(max(e['layer']['rel_err'].values()) for e in eps):.2e}"
+          f" of max; layer fwd+bwd "
+          + ", ".join(f"{e['layer']['ms']:.1f}" for e in eps)
+          + f" ms per rank (second call; local {local_ms:.1f} ms), "
+          f"{lay['collectives']} collectives, {lay['a2a']} "
+          f"all-to-alls of {lay['a2a_bytes']} B per rank; train step "
+          f"L={cfg.n_layers} "
+          + ", ".join(f"{e['step']['ms']:.1f}" for e in eps)
+          + f" ms per rank (second step; {eps[0]['step']['params']} params"
+          f" per rank, peak "
+          f"{max(e['step']['peak_bytes'] for e in eps) / 1e9:.2f} GB, "
+          f"{eps[0]['step']['collectives']} collectives of "
+          f"{eps[0]['step']['bytes']} B), losses "
+          + ", ".join(f"{x:.6f}" for x in losses) + " vs one process "
+          + ", ".join(f"{x:.6f}" for x in one_losses)
+          + f" ({one_ms:.1f} ms), replicated params bit-identical across "
+          f"ranks; ranks {ranks_s:.1f}s [{CARD}]", flush=True)
+    return rec
+
+
+def training_mesh_phases(dev) -> dict:
+    """Multi-device training on 4 ranks sharing the card (gloo; the
+    collectives meet in the CUDA-IPC mailboxes): (a) the compressed DP
+    step and (d) the elastic restore of minicpm-2b at full width, 4
+    layers, and (b) ``launch.train --ranks 4`` (its uninterrupted run in
+    the same rank launch); (c) the expert-parallel MoE of phi3.5-moe at
+    full width; each phase's wall time."""
+    import gc
+    t_phase = time.perf_counter()
+    gc.collect()
+    rec = {}
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info(dev)
+        rec = {"parent_allocated_bytes": torch.cuda.memory_allocated(dev),
+               "parent_reserved_bytes": torch.cuda.memory_reserved(dev),
+               "device_free_bytes": free}
+        print(f"training mesh phases: this process holds "
+              f"{rec['parent_allocated_bytes'] / 1e9:.2f} GB "
+              f"({rec['parent_reserved_bytes'] / 1e9:.2f} GB reserved), the "
+              f"card has {free / 1e9:.2f} of {total / 1e9:.2f} GB free "
+              f"[{CARD}]", flush=True)
+    import shutil
+    import tempfile
+    cfg = _mesh_cfg()
+    (ROOT / "scratch").mkdir(exist_ok=True)
+    root = tempfile.mkdtemp(dir=ROOT / "scratch", prefix="dp_")
+    try:
+        t0 = time.perf_counter()
+        rec["compressed_restore"] = compressed_and_restore_phases(
+            dev, cfg, dp_argv(os.path.join(root, "full")))
+        rec["compressed_restore_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rec["dp_driver"] = dp_driver_phase(
+            dev, cfg, root, rec["compressed_restore"]["driver"])
+        rec["dp_driver_s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    rec["ep"] = ep_phase(dev)
+    rec["ep_s"] = time.perf_counter() - t0
+    rec["phase_s"] = time.perf_counter() - t_phase
+    rec["b3_launches"] = rec["compressed_restore"]["b3_launches"]
+    print(f"training mesh phases: {rec['phase_s']:.1f}s ((a)+(d) and (b)'s "
+          f"uninterrupted run {rec['compressed_restore_s']:.1f}, the rest of "
+          f"(b) {rec['dp_driver_s']:.1f}, (c) {rec['ep_s']:.1f}) [{CARD}]",
+          flush=True)
+    return rec
+
+
 T_START = time.perf_counter()
 #: ``nvidia-smi``'s name and power limit of the card, set by ``main``;
 #: every report line of the slice-7 phases carries it
@@ -4963,6 +5714,8 @@ def main() -> int:
     print(f"smoke so far {time.perf_counter() - T_START:.1f}s", flush=True)
     mesh = mesh_phases(dev, gen)
     print(f"smoke so far {time.perf_counter() - T_START:.1f}s", flush=True)
+    train_mesh = training_mesh_phases(dev)
+    print(f"smoke so far {time.perf_counter() - T_START:.1f}s", flush=True)
     life = training["lifecycle"]
     rec_cases = [v["int4"] for v in recurrent["kernels"]] \
         + [v["int4"] for v in encdec["kernels"]["m8"]] \
@@ -5055,7 +5808,7 @@ def main() -> int:
         "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": FLASH_REPLACES,
         "launches": sum(p["flash_launches"] for p in ptq["ppl"].values())
-        + whisper_b3 + train_b3,
+        + whisper_b3 + train_b3 + train_mesh["b3_launches"],
         "max_abs_err": max(c["max_abs_err"] for c in flash_cases
                            + [encdec["kernels"]["flash"]]),
         "ms": path["ms"], "plain_ms": path["plain_ms"],
@@ -5074,6 +5827,7 @@ def main() -> int:
               "requant_full": requant_full, "slice7_phase_s": phase_s,
               "moe": moe_rec, "recurrent": recurrent,
               "encdec_vlm": encdec, "training": training, "mesh": mesh,
+              "train_mesh": train_mesh,
               "total_s": time.perf_counter() - T_START}
     (out / "chip_smoke_detail.json").write_text(json.dumps(detail, indent=1,
                                                            default=float))

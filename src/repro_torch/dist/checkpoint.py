@@ -1,5 +1,6 @@
-"""Atomic step-directory checkpoints on one device (port of
-``repro/dist/checkpoint.py``, DESIGN.md §5).
+"""Atomic step-directory checkpoints (port of ``repro/dist/checkpoint.py``,
+DESIGN.md §5): written whole by one process, restored whole or as a rank's
+blocks on a mesh.
 
 Layout (one directory per step, rename-committed):
 
@@ -25,8 +26,10 @@ leaf's kind: a tensor on the template tensor's device, else a numpy
 array.  A bfloat16 leaf is written as the reference writes it through
 numpy's ``bfloat16`` extension type: its raw 16-bit words under the
 ``.npy`` descriptor ``'<V2'``, with ``"bfloat16"`` in the manifest; it
-restores only onto a tensor template (numpy has no bfloat16).  Re-laying leaves out on a device mesh (the reference's
-``shardings=``) belongs to the multi-device slice (ROADMAP item 11).
+restores only onto a tensor template (numpy has no bfloat16).  With
+``shardings`` (the elastic restart on another mesh) each rank reads only
+its block of every sharded leaf (the file is memory-mapped) and places it
+on its mesh's device.
 """
 from __future__ import annotations
 
@@ -40,6 +43,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.dist.sharding import NamedSharding
 from repro_torch.tree import tree_leaves_with_path, tree_map_with_path
 
 __all__ = ["save_checkpoint", "restore_checkpoint", "read_manifest",
@@ -253,15 +257,25 @@ def read_manifest(ckpt_dir: str, step: Optional[int] = None
     return manifest
 
 
-def _place(arr: np.ndarray, dtype: str, key: str, template_leaf):
+def _place(arr: np.ndarray, dtype: str, key: str, template_leaf,
+           sharding: Optional[NamedSharding] = None):
+    """The saved ``arr`` as a leaf like ``template_leaf``; with a
+    ``sharding``, only this rank's block, on its mesh's device."""
+    if sharding is not None:
+        arr = np.array(sharding.block(arr))       # read from the map
+        device = sharding.mesh.device
+    elif isinstance(template_leaf, torch.Tensor):
+        device = template_leaf.device
+    else:
+        device = None
     if dtype == _BF16:
-        if not isinstance(template_leaf, torch.Tensor):
+        if device is None:
             raise TypeError(f"bfloat16 leaf {key!r} needs a tensor "
                             f"template (numpy has no bfloat16)")
         t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16))
-        return t.view(torch.bfloat16).to(template_leaf.device)
-    if isinstance(template_leaf, torch.Tensor):
-        return torch.from_numpy(arr).to(template_leaf.device)
+        return t.view(torch.bfloat16).to(device)
+    if device is not None:
+        return torch.from_numpy(arr).to(device)
     return arr
 
 
@@ -272,14 +286,13 @@ def restore_checkpoint(ckpt_dir: str, template, *,
     ``(state, manifest)``.
 
     ``step=None`` picks the latest committed step.  Template leaves
-    missing from the checkpoint raise ``KeyError``.  ``shardings`` (the
-    reference's elastic re-layout onto a mesh) is the multi-device slice's
-    and raises here.
+    missing from the checkpoint raise ``KeyError``.  ``shardings`` is an
+    optional tree, shaped like ``template``, of
+    :class:`~repro_torch.dist.sharding.NamedSharding` leaves (``None``
+    keeps a leaf whole, placed as without shardings): the elastic path,
+    on which each saved array is re-laid out onto the *current* mesh
+    whatever mesh wrote it, this rank reading and placing only its block.
     """
-    if shardings is not None:
-        raise NotImplementedError(
-            "restore_checkpoint(shardings=...): mesh re-layout belongs to "
-            "the multi-device slice (ROADMAP item 11)")
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -290,6 +303,7 @@ def restore_checkpoint(ckpt_dir: str, template, *,
         manifest = json.load(f)
     _note_read(ckpt_dir, step)
     by_key = {leaf["key"]: leaf for leaf in manifest["leaves"]}
+    shard_by_key = dict(tree_leaves_with_path(shardings))
 
     def load(key, leaf):
         if key not in by_key:
@@ -297,7 +311,9 @@ def restore_checkpoint(ckpt_dir: str, template, *,
                 f"checkpoint step {step} has no leaf {key!r} "
                 f"(template/schema drift)")
         rec = by_key[key]
-        return _place(np.load(os.path.join(d, rec["file"])), rec["dtype"],
-                      key, leaf)
+        sharding = shard_by_key.get(key)
+        arr = np.load(os.path.join(d, rec["file"]),
+                      mmap_mode="r" if sharding is not None else None)
+        return _place(arr, rec["dtype"], key, leaf, sharding)
 
     return tree_map_with_path(load, template), manifest

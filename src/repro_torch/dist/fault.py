@@ -10,6 +10,9 @@
   backoff driving resume-from-latest-checkpoint through the single-device
   checkpoints of ``dist/checkpoint.py``: a step either made it into a
   committed checkpoint or is re-run identically after restore.
+* :func:`tree_checksum` — an order-sensitive digest of a tree's bits on
+  its device, by which ranks that hold replicated state find out that
+  they diverged.
 """
 from __future__ import annotations
 
@@ -22,10 +25,50 @@ from collections import deque
 from statistics import median
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import torch
+
+from repro_torch.tree import tree_leaves
 from .checkpoint import latest_step, restore_checkpoint, save_checkpoint
 
 __all__ = ["Heartbeat", "StragglerMonitor", "RestartPolicy",
-           "run_with_restarts"]
+           "run_with_restarts", "tree_checksum"]
+
+_INT_OF_SIZE = {1: torch.int8, 2: torch.int16, 4: torch.int32,
+                8: torch.int64}
+
+
+#: the digest's index weights: (flat index · 2654435761) mod 2**32, an odd
+#: multiplier, so the weights of the first 2**32 entries are all distinct
+_WEIGHT_MULT = 2654435761
+_CHUNK = 1 << 24
+
+
+@torch.no_grad()
+def tree_checksum(tree) -> torch.Tensor:
+    """An order-sensitive digest of the bits of every tensor leaf of
+    ``tree``: two int64 sums (wrapping) over its entries in tree order,
+    each entry read as an integer of its width, the plain sum and the sum
+    weighted by each entry's index weight (``_WEIGHT_MULT``).  One changed
+    entry changes the first; two unequal entries swapped, anywhere in the
+    tree, change the second, since no two entries share a weight.  Equal
+    trees give equal digests; trees that differ in several entries give
+    equal ones only when the differences cancel in both sums.  Computed on
+    the leaves' device, 2**24 entries at a time."""
+    total = None
+    offset = 0
+    for t in tree_leaves(tree):
+        bits = t.detach().contiguous().view(
+            _INT_OF_SIZE[t.element_size()]).reshape(-1)
+        for lo in range(0, bits.numel(), _CHUNK):
+            x = bits[lo:lo + _CHUNK].to(torch.int64)
+            idx = torch.arange(offset + lo, offset + lo + x.numel(),
+                               device=t.device)
+            w = (idx * _WEIGHT_MULT) & 0xFFFFFFFF
+            part = torch.stack([x.sum(), (x * w).sum()])
+            total = part if total is None else total + part
+        offset += bits.numel()
+    return total
+
 
 _HB_SUFFIX = ".hb"
 

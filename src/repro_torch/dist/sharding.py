@@ -17,11 +17,25 @@ process per rank (``launch.mesh``), each executing the body on its local
 view of the weights; :class:`HostMesh` is that seam.  It knows the rank's
 coordinate on each mesh axis (:meth:`HostMesh.axis_index`) and carries
 every collective of the port (:meth:`HostMesh.all_gather`,
-:meth:`HostMesh.broadcast`), appending ``(op, dtype, shape, bytes)`` of
-each one to its collective log, which ``serve.sharded.integer_allgathers``
-audits.  Model code reaches the active mesh through :func:`current_mesh`
-(thread-local, like the reference's) and the module-level
-:func:`axis_index` / :func:`all_gather`.
+:meth:`HostMesh.broadcast`, :meth:`HostMesh.all_reduce` for the
+reference's ``psum``/``pmax``/``pmean``, :meth:`HostMesh.all_to_all`),
+appending ``(op, dtype, shape, bytes)`` of each one to its collective
+log, which ``serve.sharded.integer_allgathers`` audits.  Model code
+reaches the active mesh through :func:`current_mesh` (thread-local, like
+the reference's) and the module-level :func:`axis_index` /
+:func:`all_gather`.
+
+A region that runs on a rank's block (the body of the reference's
+``shard_map`` inside a differentiated function: the expert-parallel MoE)
+enters and leaves through differentiable collectives: :func:`shard_in` /
+:func:`gather_out` (slice on entry, gather on exit; backward gather on
+entry, slice on exit, so a grad replicated across the axis stays
+replicated and no rank sums a redundant copy), :func:`replicate_in` (the
+identity, whose backward sums the rank's partial grad across the axis)
+and :func:`all_to_all` (backward: the reverse all-to-all).
+
+:class:`NamedSharding` pairs a mesh with a spec and cuts a rank's block
+out of a full array (``dist.checkpoint``'s elastic restore).
 """
 from __future__ import annotations
 
@@ -35,7 +49,8 @@ __all__ = [
     "Axis", "default_rules", "spec_for_axes", "batch_spec",
     "use_mesh", "current_mesh", "logical_shard",
     "manual_axes", "in_manual_axes", "manual_axis_info",
-    "HostMesh", "axis_index", "all_gather",
+    "HostMesh", "NamedSharding", "axis_index", "all_gather",
+    "shard_in", "gather_out", "replicate_in", "all_to_all",
 ]
 
 # A rule value: one mesh axis, a tuple of mesh axes, or None (replicate).
@@ -190,7 +205,9 @@ class HostMesh:
     (nccl, or host tensors: the backend moves it), ``"host"`` (gloo across
     cards: copied to the host, gathered, copied back) or ``"device"``
     (gloo, every rank on one card: :class:`_Mailboxes` in device memory,
-    gloo carrying only a barrier).
+    gloo carrying only a barrier).  A mesh whose axes all hold one rank
+    (``make_host_mesh`` without a process group) needs no groups: its
+    collectives move nothing.
     """
 
     def __init__(self, shape: Dict[str, int], rank: int, groups: Dict,
@@ -237,12 +254,10 @@ class HostMesh:
         import torch.distributed as dist
         n = self.shape[axis]
         src = x.contiguous()
-        if self.staging == "device" and src.is_cuda:
-            box = self._mail.get(axis)
-            if box is None:
-                box = self._mail[axis] = _Mailboxes(
-                    self._groups[axis], n, self.axis_index(axis), src.device)
-            parts = box.exchange(src)
+        if n == 1:
+            parts = [src]
+        elif self.staging == "device" and src.is_cuda:
+            parts = self._box(axis, src.device).exchange(src)
         else:
             if self._staged(src):
                 src = src.cpu()
@@ -258,14 +273,125 @@ class HostMesh:
         """Global rank ``src``'s ``x`` on every rank of the mesh."""
         import torch.distributed as dist
         buf = x.contiguous().clone()
-        if self.backend == "nccl" and not buf.is_cuda:
-            buf = buf.cuda()
-        elif self._staged(buf):
-            buf = buf.cpu()
+        if self.size == 1:
+            return buf
+        buf = self._via_backend(buf)
         dist.broadcast(buf, src)
         out = buf.to(x.device)
         self._record("broadcast", out)
         return out
+
+    def _box(self, axis: str, device) -> "_Mailboxes":
+        box = self._mail.get(axis)
+        if box is None:
+            box = self._mail[axis] = _Mailboxes(
+                self._groups[axis], self.shape[axis], self.axis_index(axis),
+                device)
+        return box
+
+    def _via_backend(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` where the backend can move it: on the card for nccl, on
+        the host for gloo across cards."""
+        if self.backend == "nccl" and not x.is_cuda:
+            return x.cuda()
+        return x.cpu() if self._staged(x) else x
+
+    def all_reduce(self, x: torch.Tensor, axis: Union[str, Sequence[str]],
+                   op: str = "sum", *, acc_dtype=None) -> torch.Tensor:
+        """Every rank's ``x`` summed (``op="sum"``) or maxed (``"max"``)
+        along ``axis`` (a name, or a tuple of names reduced one after the
+        other), in the same bits on every rank: the reference's ``psum``
+        and ``pmax`` (``pmean`` is the sum over the axis size).  ``x``
+        crosses in its own dtype; with ``acc_dtype`` the receiving rank
+        widens each block and adds it in that dtype (an int8 payload
+        summed exactly into int32).  With one rank on the axes, ``x``
+        itself (in ``acc_dtype``) comes back.
+
+        Routes: nccl's ``all_reduce``, gloo's on the host (CUDA blocks
+        staged through it across cards); ranks sharing the card
+        (``staging == "device"``) read the peers' blocks from the
+        mailboxes and add them in rank order into one accumulator, 256 MB
+        at a time, so no (n, …) stack is built.  With ``acc_dtype`` the
+        nccl and gloo routes gather the blocks and add them in rank
+        order."""
+        if op not in ("sum", "max"):
+            raise ValueError(f"all_reduce op {op!r}: 'sum' or 'max'")
+        for name in ((axis,) if isinstance(axis, str) else tuple(axis)):
+            if self.shape[name] > 1:
+                x = self._all_reduce_axis(x, name, op, acc_dtype)
+        return x if acc_dtype is None else x.to(acc_dtype)
+
+    def _all_reduce_axis(self, x, axis, op, acc_dtype):
+        import torch.distributed as dist
+        src = x.contiguous()
+        dt = acc_dtype or src.dtype
+        if self.staging == "device" and src.is_cuda:
+            box = self._box(axis, src.device)
+            flat = src.reshape(-1)
+            out = torch.empty(flat.shape, dtype=dt, device=src.device)
+            step = max(1, _CHUNK_BYTES // src.element_size())
+            for lo in range(0, flat.numel(), step):
+                parts = box.exchange(flat[lo:lo + step])
+                acc = out[lo:lo + step]
+                acc.copy_(parts[0])
+                for part in parts[1:]:
+                    if op == "sum":
+                        acc.add_(part)
+                    else:
+                        torch.maximum(acc, part.to(dt), out=acc)
+            out = out.view(src.shape)
+        elif dt != src.dtype:
+            sent = self._via_backend(src)
+            parts = [torch.empty_like(sent) for _ in range(self.shape[axis])]
+            dist.all_gather(parts, sent, group=self._groups[axis])
+            out = parts[0].to(dt)
+            for part in parts[1:]:
+                if op == "sum":
+                    out.add_(part)
+                else:
+                    torch.maximum(out, part.to(dt), out=out)
+            out = out.to(x.device)
+        else:
+            buf = self._via_backend(src)
+            buf = buf.clone() if buf is src else buf
+            dist.all_reduce(buf, op=dist.ReduceOp.SUM if op == "sum"
+                            else dist.ReduceOp.MAX,
+                            group=self._groups[axis])
+            out = buf.to(x.device)
+        self._record(f"all_reduce_{op}", src)
+        return out
+
+    def all_to_all(self, x: torch.Tensor, axis: str, split_dim: int,
+                   concat_dim: int) -> torch.Tensor:
+        """``jax.lax.all_to_all(x, axis, split_dim, concat_dim,
+        tiled=True)``: ``x`` is cut into n equal blocks along
+        ``split_dim``, block j goes to the rank at coordinate j of
+        ``axis``, and the blocks received are concatenated along
+        ``concat_dim`` in axis order.  Routes: nccl's and gloo's
+        ``all_to_all_single`` (CUDA blocks through the host across cards);
+        ranks sharing the card read their block of each peer's mailbox."""
+        import torch.distributed as dist
+        n = self.shape[axis]
+        if n == 1:
+            return x
+        size = x.shape[split_dim]
+        if size % n:
+            raise ValueError(f"all_to_all: dim {split_dim} of {tuple(x.shape)}"
+                             f" does not split into {n} blocks")
+        moved = x.movedim(split_dim, 0)
+        send = moved.reshape((n, size // n) + tuple(moved.shape[1:]))
+        send = send.contiguous()
+        if self.staging == "device" and send.is_cuda:
+            me = self.axis_index(axis)
+            recv = [part[me] for part in self._box(axis, send.device)
+                    .exchange(send)]
+        else:
+            sent = self._via_backend(send)
+            got = torch.empty_like(sent)
+            dist.all_to_all_single(got, sent, group=self._groups[axis])
+            recv = list(got.to(x.device).unbind(0))
+        self._record("all_to_all", send)
+        return torch.cat([r.movedim(0, split_dim) for r in recv], concat_dim)
 
 
     def close(self) -> None:
@@ -274,6 +400,10 @@ class HostMesh:
         for box in self._mail.values():
             box.close()
         self._mail.clear()
+
+
+#: the largest piece of one mailbox exchange of ``HostMesh.all_reduce``
+_CHUNK_BYTES = 1 << 28
 
 
 class _Mailboxes:
@@ -340,6 +470,48 @@ class _Mailboxes:
             dist.barrier(group=self.group)
 
 
+class NamedSharding:
+    """The port's ``jax.sharding.NamedSharding``: a :class:`HostMesh` and
+    a spec, one entry per leading dim (``None``, a mesh axis name or a
+    tuple of names; dims past the spec replicate).  :meth:`block` cuts
+    this rank's block out of a full array: along a dim whose entry names
+    axes, the block at this rank's row-major coordinate over them (the
+    dim must divide evenly)."""
+
+    def __init__(self, mesh: HostMesh, spec: Sequence):
+        self.mesh = mesh
+        self.spec = tuple(spec)
+
+    def __repr__(self) -> str:
+        return f"NamedSharding({self.mesh!r}, {self.spec})"
+
+    def index(self, shape: Sequence[int]) -> Tuple[slice, ...]:
+        """The slices of this rank's block of an array of ``shape``."""
+        if len(self.spec) > len(shape):
+            raise ValueError(f"spec {self.spec} has more entries than "
+                             f"shape {tuple(shape)} has dims")
+        out = []
+        for dim, entry in zip(shape, self.spec + (None,) * len(shape)):
+            names = () if entry is None else (
+                (entry,) if isinstance(entry, str) else tuple(entry))
+            n, coord = 1, 0
+            for name in names:
+                n *= self.mesh.shape[name]
+                coord = coord * self.mesh.shape[name] \
+                    + self.mesh.axis_index(name)
+            if dim % n:
+                raise ValueError(f"dim {dim} of {tuple(shape)} does not "
+                                 f"split {n} ways (spec {self.spec})")
+            per = dim // n
+            out.append(slice(coord * per, (coord + 1) * per))
+        return tuple(out)
+
+    def block(self, full):
+        """This rank's block of ``full`` (a tensor or numpy array: a view
+        of it)."""
+        return full[self.index(full.shape)]
+
+
 def _mesh() -> HostMesh:
     mesh = current_mesh()
     if mesh is None:
@@ -356,3 +528,95 @@ def all_gather(x: torch.Tensor, axis: str, dim: int = 0,
                tiled: bool = False) -> torch.Tensor:
     """:meth:`HostMesh.all_gather` on the active mesh."""
     return _mesh().all_gather(x, axis, dim, tiled)
+
+
+# ---------------------------------------------------------------------------
+# Differentiable region boundaries
+# ---------------------------------------------------------------------------
+
+
+def _block_of(x: torch.Tensor, mesh: HostMesh, axis: str, dim: int):
+    n = mesh.shape[axis]
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                         f"into {n} blocks along {axis!r}")
+    per = x.shape[dim] // n
+    return x.narrow(dim, mesh.axis_index(axis) * per, per)
+
+
+class _ShardIn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return _block_of(x, mesh, axis, dim).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return (ctx.mesh.all_gather(g.contiguous(), ctx.axis, ctx.dim,
+                                    tiled=True), None, None, None)
+
+
+class _GatherOut(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return mesh.all_gather(x.contiguous(), axis, dim, tiled=True)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_block_of(g, ctx.mesh, ctx.axis, ctx.dim).contiguous(),
+                None, None, None)
+
+
+class _ReplicateIn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_reduce(g.contiguous(), ctx.axis), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, split_dim, concat_dim):
+        ctx.mesh, ctx.axis = mesh, axis
+        ctx.split_dim, ctx.concat_dim = split_dim, concat_dim
+        return mesh.all_to_all(x, axis, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (ctx.mesh.all_to_all(g.contiguous(), ctx.axis, ctx.concat_dim,
+                                    ctx.split_dim), None, None, None, None)
+
+
+def shard_in(x: torch.Tensor, axis: str, dim: int, *,
+             mesh: Optional[HostMesh] = None) -> torch.Tensor:
+    """This rank's block of ``x`` (replicated across ``axis``) along
+    ``dim``; backward: the block grads gathered along ``axis``, so the
+    grad of ``x`` is whole and equal on every rank."""
+    return _ShardIn.apply(x, mesh or _mesh(), axis, dim)
+
+
+def gather_out(x: torch.Tensor, axis: str, dim: int, *,
+               mesh: Optional[HostMesh] = None) -> torch.Tensor:
+    """Every rank's block ``x`` concatenated along ``dim`` in ``axis``
+    order; backward: this rank's block of the (replicated) grad, not a
+    sum of the ranks' copies."""
+    return _GatherOut.apply(x, mesh or _mesh(), axis, dim)
+
+
+def replicate_in(x: torch.Tensor, axis: str, *,
+                 mesh: Optional[HostMesh] = None) -> torch.Tensor:
+    """``x`` (replicated across ``axis``) itself, for use on this rank's
+    block; backward: the ranks' partial grads summed across ``axis``."""
+    return _ReplicateIn.apply(x, mesh or _mesh(), axis)
+
+
+def all_to_all(x: torch.Tensor, axis: str, split_dim: int, concat_dim: int,
+               *, mesh: Optional[HostMesh] = None) -> torch.Tensor:
+    """:meth:`HostMesh.all_to_all`, differentiable: its backward is the
+    reverse all-to-all (``concat_dim`` split, ``split_dim`` joined)."""
+    return _AllToAll.apply(x, mesh or _mesh(), axis, split_dim, concat_dim)

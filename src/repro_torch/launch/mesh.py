@@ -5,14 +5,17 @@
 as the reference's ``(data, model)`` mesh.  :func:`launch_ranks` starts N
 rank processes (the ``spawn`` start method: every rank gets a fresh CUDA
 context), joins them under a timeout and returns each rank's result;
-``make_production_mesh`` (the 16×16 pods) belongs to the training slice.
+``make_production_mesh`` (the 16×16 pods, which only the reference's
+dry-run tooling lowers onto) belongs to the cost tooling (ROADMAP A item
+2).
 
 The collective backend is chosen by one rule, :func:`backend_rule`:
 ``nccl`` when every rank has a card of its own, ``gloo`` otherwise (NCCL
 refuses two ranks on one device).  Under gloo a CUDA tensor crosses ranks
 through device memory shared by CUDA IPC when every rank is on the one
 card, else through the host (:func:`staging_rule`); the weights never
-cross at all, only activation partials and K/V rows (``serve.sharded``).
+cross at all, only activation partials and K/V rows (``serve.sharded``);
+training sends grads (``train``) and MoE token blocks (``layers.moe``).
 """
 from __future__ import annotations
 
@@ -63,11 +66,14 @@ def make_host_mesh(model_parallel: int = 1, *, device=None) -> HostMesh:
     process group: ``model`` is ``min(model_parallel, world)`` wide, rank r
     at ``(r // model, r % model)``.  ``device`` is where the rank's
     tensors live (default: its CUDA device when the group runs nccl, else
-    the host)."""
+    the host).  With no process group, the ``(1, 1)`` mesh of this
+    process (the reference's mesh over its one device): its collectives
+    move nothing."""
     import torch.distributed as dist
     if not dist.is_initialized():
-        raise RuntimeError("make_host_mesh needs an initialized process "
-                           "group (launch.mesh.launch_ranks starts one)")
+        return HostMesh({"data": 1, "model": 1}, 0, {}, backend="none",
+                        staging="none",
+                        device=torch.device(device or "cpu"))
     n, rank = dist.get_world_size(), dist.get_rank()
     mp = min(model_parallel, n)
     if n % mp:
@@ -96,12 +102,13 @@ def make_host_mesh(model_parallel: int = 1, *, device=None) -> HostMesh:
 
 def _rank_main(rank: int, n: int, fn: Callable, args: Sequence[Any],
                rdzv: str, backend: str, device: str, threads: int,
-               timeout_s: float, results) -> None:
+               deterministic: bool, timeout_s: float, results) -> None:
     """One rank: join the group, run ``fn(rank, *args)``, report.  A
     failure is reported (with its wall time) before the group is torn
     down, whose teardown then fails the peers' collectives too."""
     import torch.distributed as dist
     torch.set_num_threads(threads)
+    torch.use_deterministic_algorithms(deterministic)
     try:
         if torch.device(device).type == "cuda":
             torch.cuda.set_device(rank % torch.cuda.device_count())
@@ -134,7 +141,8 @@ def launch_ranks(fn: Callable, n: int, args: Sequence[Any] = (), *,
     The group meets through a ``file://`` rendezvous in a fresh temporary
     directory (no TCP port to collide on) with the backend of
     :func:`backend_rule`; each rank runs with this process's intra-op
-    thread count (a CPU matmul's bits can depend on it).  A rank's
+    thread count (a CPU matmul's bits can depend on it) and its
+    ``torch.use_deterministic_algorithms`` setting.  A rank's
     exception is re-raised here with its traceback as a note, after the
     other ranks are killed; past ``timeout_s`` every rank is killed and
     ``TimeoutError`` raised.
@@ -148,7 +156,9 @@ def launch_ranks(fn: Callable, n: int, args: Sequence[Any] = (), *,
     procs = [ctx.Process(
         target=_rank_main, daemon=True,
         args=(r, n, fn, tuple(args), rdzv, backend, str(device),
-              torch.get_num_threads(), timeout_s, results))
+              torch.get_num_threads(),
+              torch.are_deterministic_algorithms_enabled(), timeout_s,
+              results))
         for r in range(n)]
     out = {}
     deadline = time.monotonic() + timeout_s

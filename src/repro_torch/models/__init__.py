@@ -7,13 +7,15 @@ from .convert import (from_jax_calib_stats, from_jax_params,
 from .transformer import (DecodeCache, cache_reset_slot, cache_rows,
                           cache_write_slot, capture_cross_kv, decode_chunk,
                           decode_layers, decode_step, encode, forward_train,
-                          init_cache, init_params, layer_kv, loss_fn,
-                          prefill, prefill_layers, split_layers)
+                          expert_specs, init_cache, init_params, layer_kv,
+                          loss_fn, param_axes, param_specs_tree, prefill,
+                          prefill_layers, split_layers)
 
 __all__ = ["DecodeCache", "cache_reset_slot", "cache_rows", "cache_write_slot",
            "capture_cross_kv", "decode_chunk", "decode_layers", "decode_step",
-           "encode", "forward_train",
+           "encode", "expert_specs", "forward_train",
            "from_jax_calib_stats", "from_jax_params",
            "from_jax_quantized_linear",
-           "init_cache", "init_params", "layer_kv", "loss_fn", "prefill",
+           "init_cache", "init_params", "layer_kv", "loss_fn", "param_axes",
+           "param_specs_tree", "prefill",
            "prefill_layers", "rglru", "rwkv6", "split_layers"]

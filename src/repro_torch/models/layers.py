@@ -17,9 +17,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import sharding as _sh
 from repro_torch.dist.sharding import (all_gather, axis_index,
                                        manual_axis_info)
 from repro_torch.kernels import flash
+from repro_torch.opts import enabled as _opt
 
 __all__ = ["rmsnorm", "layernorm", "dense", "rope", "sinusoidal_positions",
            "KVCache", "q8", "attention_train", "attention_decode",
@@ -503,17 +505,30 @@ def moe_experts(p, xt, *, n_experts, top_k, capacity, activation="silu"):
 
 
 def moe(p, x, *, n_experts, top_k, capacity_factor=1.25, activation="silu"):
-    """Top-k token-choice MoE with a sort-based capacity buffer (the local
-    path of the reference's ``moe``).
+    """Top-k token-choice MoE with a sort-based capacity buffer.
 
     Tokens are flattened, routed, sorted by expert and packed into an (E,
     C, d) buffer, pushed through the experts' FFNs as batched products and
     combined back with their gates.  Over-capacity pairs are dropped
     (GShard semantics), so the rows of one call share each expert's
-    capacity.  With one device there is no expert-parallel exchange: the
-    reference's ``moe_a2a`` path needs a mesh (ROADMAP item 11) and its
-    ``moe_dispatch_shard`` is a sharding annotation, a no-op here.
+    capacity.  ``moe_dispatch_shard`` is a sharding annotation of the
+    reference, a no-op here.
+
+    ``moe_a2a`` (``REPRO_OPTS``): under an active mesh with a ``model``
+    axis that divides the experts and the sequence, and outside a
+    ``manual_axes`` scope (k-sharded serving keeps the local path), the
+    experts run expert-parallel with explicit all-to-alls
+    (:func:`_moe_a2a`), the reference's conditions exactly.
     """
+    if _opt("moe_a2a"):
+        mesh = _sh.current_mesh()
+        if mesh is not None and not _sh.in_manual_axes() \
+                and "model" in mesh.axis_names \
+                and n_experts % mesh.shape["model"] == 0 \
+                and x.shape[1] % mesh.shape["model"] == 0:
+            return _moe_a2a(p, x, mesh, n_experts=n_experts, top_k=top_k,
+                            capacity_factor=capacity_factor,
+                            activation=activation)
     b, s, d = x.shape
     t = b * s
     capacity = max(int(math.ceil(t * top_k / n_experts * capacity_factor)),
@@ -521,6 +536,74 @@ def moe(p, x, *, n_experts, top_k, capacity_factor=1.25, activation="silu"):
     out = moe_experts(p, x.reshape(t, d), n_experts=n_experts, top_k=top_k,
                       capacity=capacity, activation=activation)[0]
     return out.reshape(b, s, d)
+
+
+def _expert_block(w, mesh, n_experts: int):
+    """This rank's (E/model, …) block of an expert leaf: the leaf itself
+    when it already is one, else cut from the whole stack by
+    ``sharding.shard_in`` (its grad comes back whole on every rank)."""
+    if isinstance(w, dict):
+        raise ValueError("the expert-parallel MoE runs float expert "
+                         "weights (the reference's a2a einsums take no "
+                         "code leaves)")
+    n = mesh.shape["model"]
+    if w.shape[0] == n_experts:
+        return _sh.shard_in(w, "model", 0, mesh=mesh)
+    if w.shape[0] * n != n_experts:
+        raise ValueError(f"expert leaf {tuple(w.shape)}: neither the "
+                         f"{n_experts} experts nor this rank's "
+                         f"{n_experts // n}")
+    return w
+
+
+def _moe_a2a(p, x, mesh, *, n_experts, top_k, capacity_factor, activation):
+    """Expert parallelism with explicit all-to-alls (the reference's
+    ``_moe_a2a``, whose ``shard_map`` region is entered and left here
+    through ``dist.sharding``'s differentiable boundaries).
+
+    ``x`` is this rank's rows of the batch (its block along the DP axes,
+    as every layer under a DP mesh sees it), replicated across ``model``.
+    On entry each rank takes its block of the sequence (:func:`shard_in`)
+    and routes those tokens into an (E, C, d) buffer at the reference's
+    local capacity, ``t_loc = b·s / (model · dp)`` of the global batch;
+    the all-to-all over ``model`` sends each expert-major slice to the
+    rank that owns those experts, which runs its E/model experts as
+    batched products on all the tokens routed to them; the reverse
+    all-to-all brings the outputs back, the local combine follows, and
+    the blocks are gathered along the sequence on exit
+    (:func:`gather_out`).  The router is replicated (its grad is summed
+    across ``model``, :func:`replicate_in`); each expert leaf is this
+    rank's block of the stacked (E, …) leaf (spec ``("model", None,
+    None)``) or the whole stack, cut on entry.  Grads across the DP axes
+    are the train step's to average."""
+    n_model = mesh.shape["model"]
+    b, s, d = x.shape
+    t_loc = (b * s) // n_model
+    capacity = max(int(math.ceil(t_loc * top_k / n_experts
+                                 * capacity_factor)), top_k)
+    act = _ACTIVATIONS[activation]
+    x_blk = _sh.shard_in(x, "model", 1, mesh=mesh)
+    bb, ss, _ = x_blk.shape
+    xt = x_blk.reshape(bb * ss, d)
+    router = p["router"]["w"]
+    if isinstance(router, dict):
+        raise ValueError("the expert-parallel MoE runs a float router")
+    router = _sh.replicate_in(router, "model", mesh=mesh)
+    top_g, top_e = _moe_top_k(_moe_router_logits({"w": router}, xt), top_k)
+    buf, disp = _moe_local_pack(xt, top_e, top_g, n_experts, capacity, top_k)
+    # (E, C, d) -> (E/model, model·C, d): expert-major slices to their owner
+    ex = _sh.all_to_all(buf, "model", 0, 1, mesh=mesh)
+    w = {k: _expert_block(p[k], mesh, n_experts)
+         for k in ("w_gate", "w_up", "w_in", "w_out") if k in p}
+    if "w_gate" in w:
+        h = act(_expert_matmul(ex, w["w_gate"])) \
+            * _expert_matmul(ex, w["w_up"])
+    else:
+        h = act(_expert_matmul(ex, w["w_in"]))
+    back = _sh.all_to_all(_expert_matmul(h, w["w_out"]), "model", 1, 0,
+                          mesh=mesh)                         # (E, C, d)
+    out = _moe_combine(back, disp).reshape(bb, ss, d)
+    return _sh.gather_out(out, "model", 1, mesh=mesh)
 
 
 # ---------------------------------------------------------------------------

@@ -27,8 +27,8 @@ import torch.nn.functional as F
 
 from .layers import dense
 
-__all__ = ["rglru_init", "rglru_train", "rglru_decode", "rglru_init_state",
-           "RGLRUState", "RG_LRU_C", "rglru_lambda"]
+__all__ = ["rglru_init", "rglru_axes", "rglru_train", "rglru_decode",
+           "rglru_init_state", "RGLRUState", "RG_LRU_C", "rglru_lambda"]
 
 RG_LRU_C = 8.0
 
@@ -72,6 +72,25 @@ def rglru_init(normal, d_model, lru_width, *, conv_width=4,
         "w_x": lin(lru_width, lru_width, bias=True),
         "lam": lam.to(dtype).contiguous(),
     }
+
+
+def rglru_axes(stacked: bool):
+    """The logical axes of :func:`rglru_init`'s tree, layer-stacked or
+    not (the reference's ``Px`` axes)."""
+    lead = ("layers",) if stacked else ()
+
+    def lin(a_in, a_out, bias=False):
+        p = {"w": lead + (a_in, a_out)}
+        if bias:
+            p["b"] = lead + (a_out,)
+        return p
+
+    return {"w_in": lin("d_model_w", "state"),
+            "w_out": lin("state", "d_model_w"),
+            "conv_w": lead + (None, "state"),
+            "w_a": lin("d_model_w", "state", bias=True),
+            "w_x": lin("d_model_w", "state", bias=True),
+            "lam": lead + ("state",)}
 
 
 def _softplus(x):

@@ -28,8 +28,9 @@ import torch.nn.functional as F
 
 from .layers import dense, rmsnorm
 
-__all__ = ["rwkv6_init", "rwkv_time_mix_train", "rwkv_time_mix_decode",
-           "rwkv_channel_mix_train", "rwkv_channel_mix_decode", "RWKVState"]
+__all__ = ["rwkv6_init", "rwkv6_axes", "rwkv_time_mix_train",
+           "rwkv_time_mix_decode", "rwkv_channel_mix_train",
+           "rwkv_channel_mix_decode", "RWKVState"]
 
 
 class RWKVState(NamedTuple):
@@ -70,6 +71,24 @@ def rwkv6_init(normal, d_model, d_ff, *, head_dim=64, decay_lora=64,
     }
     cm = {"mu": vec((2, d_model)), "w_k": lin(d_model, d_ff),
           "w_v": lin(d_ff, d_model), "w_r": lin(d_model, d_model)}
+    return {"tm": tm, "cm": cm}
+
+
+def rwkv6_axes():
+    """The logical axes of :func:`rwkv6_init`'s layer-stacked tree (the
+    reference's ``Px`` axes)."""
+    def lin(a_in, a_out):
+        return {"w": ("layers", a_in, a_out)}
+
+    tm = {"mu": ("layers", None, None),
+          "w_r": lin("d_model_w", "heads"), "w_k": lin("d_model_w", "heads"),
+          "w_v": lin("d_model_w", "heads"), "w_g": lin("d_model_w", "heads"),
+          "w_o": lin("heads", "d_model_w"),
+          "decay_a": lin("d_model_w", None), "decay_b": lin(None, "heads"),
+          "w0": ("layers", None), "u": ("layers", "state", None),
+          "ln_out": {"scale": ("layers", None)}}
+    cm = {"mu": ("layers", None, None), "w_k": lin("d_model_w", "ff"),
+          "w_v": lin("ff", "d_model_w"), "w_r": lin("d_model_w", None)}
     return {"tm": tm, "cm": cm}
 
 

@@ -39,6 +39,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist.sharding import spec_for_axes
 from repro_torch.opts import enabled as _opt
 from repro_torch.tree import tree_leaves, tree_map
 from . import rglru as rg
@@ -52,7 +53,7 @@ __all__ = ["init_params", "forward_train", "loss_fn", "init_cache",
            "decode_step", "decode_chunk", "prefill", "cache_write_slot",
            "cache_reset_slot", "cache_rows", "layer_kv", "split_layers",
            "decode_layers", "prefill_layers", "encode", "capture_cross_kv",
-           "DecodeCache"]
+           "DecodeCache", "param_axes", "param_specs_tree", "expert_specs"]
 
 _FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 #: the stacked layer trees of a param tree
@@ -205,6 +206,114 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device=None,
                             "ln_mlp": norm(), "mlp": mlp_p()}
     params["ln_f"] = norm(())
     return params
+
+
+def param_axes(cfg: ArchConfig):
+    """The logical axes of every leaf of :func:`init_params`'s tree: the
+    same tree, each leaf a tuple with one name (or None) per dim, as the
+    reference's init attaches them to its ``Px`` leaves."""
+    _check_family(cfg)
+    L = ("layers",)
+
+    def lin(a_in, a_out, bias, lead=L):
+        p = {"w": lead + (a_in, a_out)}
+        if bias:
+            p["b"] = lead + (a_out,)
+        return p
+
+    def norm(lead=L):
+        p = {"scale": lead + (None,)}
+        if cfg.norm == "layernorm":
+            p["bias"] = lead + (None,)
+        return p
+
+    def attn(lead=L, qkv_bias=cfg.qkv_bias, out_bias=cfg.out_bias):
+        return {"wq": lin("d_model_w", "heads", qkv_bias, lead),
+                "wk": lin("d_model_w", "kv_heads", qkv_bias, lead),
+                "wv": lin("d_model_w", "kv_heads", qkv_bias, lead),
+                "wo": lin("heads", "d_model_w", out_bias, lead)}
+
+    def mlp_p(lead=L, bias=cfg.out_bias, gated=cfg.gated_mlp):
+        p = {"w_out": lin("ff", "d_model_w", bias, lead)}
+        for key in (("w_gate", "w_up") if gated else ("w_in",)):
+            p[key] = lin("d_model_w", "ff", bias, lead)
+        return p
+
+    axes = {"embed": {"w": ("vocab", "d_model_w")}}
+    if cfg.family == "ssm":
+        axes["layers"] = {"ln_tm": norm(), "ln_cm": norm(), **rk.rwkv6_axes()}
+    elif cfg.family == "hybrid":
+        pat = cfg.block_pattern
+        n_groups = cfg.n_layers // len(pat)
+
+        def block(kind, lead):
+            sub = {"ln_t": norm(lead), "ln_mlp": norm(lead),
+                   "mlp": mlp_p(lead, bias=False)}
+            if kind == "attn":
+                sub["attn"] = attn(lead, qkv_bias=False, out_bias=False)
+            else:
+                sub["rec"] = rg.rglru_axes(stacked=bool(lead))
+            return sub
+
+        axes["groups"] = {f"b{i}": block(kind, L)
+                          for i, kind in enumerate(pat)}
+        axes["tail"] = [block(pat[k], ())
+                        for k in range(cfg.n_layers - n_groups * len(pat))]
+    elif cfg.n_experts:
+        ffn = {"router": lin("d_model_w", "experts", False),
+               "w_out": L + ("experts", None, "d_model_w")}
+        for key in (("w_gate", "w_up") if cfg.gated_mlp else ("w_in",)):
+            ffn[key] = L + ("experts", "d_model_w", None)
+        axes["layers"] = {"ln_attn": norm(), "attn": attn(),
+                          "ln_mlp": norm(), "moe": ffn}
+    elif cfg.family == "encdec":
+        axes["enc_layers"] = {"ln_attn": norm(), "attn": attn(L, True, True),
+                              "ln_mlp": norm(),
+                              "mlp": mlp_p(L, True, False)}
+        axes["enc_ln_f"] = norm(())
+        axes["dec_layers"] = {
+            "ln_self": norm(), "self_attn": attn(L, True, True),
+            "ln_cross": norm(), "cross_attn": attn(L, True, True),
+            "ln_mlp": norm(), "mlp": mlp_p(L, True, False)}
+        axes["dec_pos"] = (None, None)
+    else:
+        axes["layers"] = {"ln_attn": norm(), "attn": attn(),
+                          "ln_mlp": norm(), "mlp": mlp_p()}
+    axes["ln_f"] = norm(())
+    return axes
+
+
+def param_specs_tree(cfg: ArchConfig, rules=None):
+    """The mesh spec of every leaf of :func:`init_params`'s tree (the
+    reference's ``param_specs_tree(px)[1]``, each ``PartitionSpec`` a
+    tuple): ``dist.sharding.spec_for_axes`` of :func:`param_axes`, under
+    ``rules`` (default: the active mesh's, multi-pod iff it has a ``pod``
+    axis).  The argument is the config, not the params: a tensor carries
+    no axes.  The leaves are tuples, so walk the tree alongside the params
+    (``tree.tree_map(fn, params, specs)``)."""
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v) for v in node]
+        return spec_for_axes(node, rules)
+    return walk(param_axes(cfg))
+
+
+def expert_specs(cfg: ArchConfig, rules=None):
+    """The expert-parallel cut of a MoE tree: each stacked expert leaf
+    (``moe`` but not its router) keeps the ``model`` entry of its
+    :func:`param_specs_tree` spec, so each rank holds E/model whole
+    experts; every other leaf gets None (replicated)."""
+    def walk(node, path):
+        if isinstance(node, dict):
+            return {k: walk(v, path + (k,)) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v, path) for v in node]
+        if "moe" in path and "router" not in path:
+            return tuple(e if e == "model" else None for e in node)
+        return None
+    return walk(param_specs_tree(cfg, rules), ())
 
 
 # ---------------------------------------------------------------------------

@@ -17,11 +17,16 @@ Flags the port reads:
                      grads to bf16 before the float32 accumulator adds
                      them (the reference narrows them ahead of the
                      cross-DP reduction; on one device it only rounds).
+  moe_a2a          — under a mesh with a ``model`` axis that divides the
+                     experts and the sequence, ``layers.moe`` runs
+                     expert-parallel with explicit all-to-alls
+                     (``layers._moe_a2a``).
 
-The reference's other flags (``kv_seq_shard``, ``flat_remat``,
-``moe_bf16_dispatch``, ``seq_shard_train``) belong to the multi-device
-slice that the port has not reached; the parser accepts them and nothing
-reads them yet.
+The reference's other flags are sharding annotations or layout choices
+of its GSPMD lowering (``kv_seq_shard``, ``moe_dispatch_shard``,
+``flat_remat``, ``moe_bf16_dispatch``, ``seq_shard_train``); the port has
+no GSPMD (``dist.sharding.logical_shard`` is the identity), so the parser
+accepts them and nothing reads them.
 """
 from __future__ import annotations
 

@@ -1,7 +1,7 @@
-"""repro_torch.train — training on one device: AdamW and its schedules,
-the microbatched train step and the rescaler fine-tune (``distill``).
-``make_compressed_step`` is the multi-device slice's (ROADMAP item 11) and
-raises."""
+"""repro_torch.train — AdamW and its schedules, the microbatched train
+step (data-parallel under a mesh of ranks), the compressed DP step with
+the int8 error-feedback all-reduce (``grad_compress``) and the rescaler
+fine-tune (``distill``)."""
 from .optimizer import (AdamWConfig, AdamWState, adamw_init, adamw_update,
                         cosine_schedule, global_norm, wsd_schedule)
 from .train_loop import (TrainState, init_train_state, make_compressed_step,

@@ -122,12 +122,15 @@ def clip_by_norm(tree, max_norm):
 
 
 @torch.no_grad()
-def adamw_update(cfg: AdamWConfig, params, grads, state: AdamWState):
+def adamw_update(cfg: AdamWConfig, params, grads, state: AdamWState, *,
+                 grad_norm=None):
     """One AdamW step; returns (params, new_state, metrics).  ``params``,
     ``state.m`` and ``state.v`` are updated in place (module docstring);
     ``grads`` is read only.  Each leaf is clipped, upcast and updated in
-    turn, so the temporaries are a few float32 copies of one leaf."""
-    gnorm = global_norm(grads)
+    turn, so the temporaries are a few float32 copies of one leaf.
+    ``grad_norm`` replaces ``global_norm(grads)`` where the grads are
+    this rank's blocks of a larger tree (``train_loop._mesh_norm``)."""
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = _clip_scale(gnorm, cfg.clip_norm) if cfg.clip_norm else None
     step = state.step + 1
     lr = _lr(cfg, step)

@@ -1,16 +1,27 @@
-"""The train step on one device (port of ``repro/train/train_loop.py``).
+"""Train steps (port of ``repro/train/train_loop.py``).
 
 ``make_train_step`` — microbatched gradient accumulation, bf16 compute
                       over float32 master weights, AdamW; the step updates
                       the state's tensors in place (``optimizer`` module
-                      docstring) and returns it.
+                      docstring) and returns it.  Under an active mesh
+                      whose DP axes hold more than one rank (each rank
+                      stepping on its slice of the batch), the grads and
+                      the loss are averaged across them by ``all_reduce``:
+                      the reduction GSPMD inserts into the reference's
+                      jitted step when its batch is sharded.
 ``make_compressed_step`` — the reference's DP ``shard_map`` step with the
-                      int8 error-feedback all-reduce: it belongs to the
-                      multi-device slice (ROADMAP item 11) and raises.
+                      int8 error-feedback all-reduce
+                      (``train/grad_compress.py``): params replicated,
+                      each rank on its slice of the batch.
 
-The reference's step is ``jax.jit``-ed with sharded params (FSDP + TP +
-EP); this one runs eagerly on the device of the params, and its
-attention layers reach the flash kernel (B3) through ``models.loss_fn``.
+The reference's step is ``jax.jit``-ed by the driver (FSDP × TP × EP
+layouts are lowered only by its dry-run tooling, ROADMAP A item 2); this
+one runs eagerly on the device of the params, and its attention layers
+reach the flash kernel (B3) through ``models.loss_fn``.  Under
+``moe_a2a`` on a mesh whose ``model`` axis holds several ranks, params may
+hold this rank's blocks of the expert stacks (``models.expert_specs``):
+the step finds them by their size and sums their squared norms across
+``model``, so every rank clips by the same global norm.
 
 TrainState is a plain NamedTuple so checkpointing (dist/checkpoint.py) can
 treat it as a tree of tensors.
@@ -22,28 +33,26 @@ from typing import Any, Callable, NamedTuple, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import loss_fn
+from repro_torch.dist.sharding import batch_spec, current_mesh
+from repro_torch.models import expert_specs, loss_fn
 from repro_torch.opts import enabled as _opt
 from repro_torch.tree import tree_leaves, tree_map
+from .grad_compress import compressed_psum_tree, init_error_buf
 from .optimizer import AdamWConfig, AdamWState, adamw_init, adamw_update
 
 __all__ = ["TrainState", "init_train_state", "make_train_step",
            "make_compressed_step", "microbatch_grads"]
 
-_ITEM_11 = ("belongs to the multi-device slice (ROADMAP item 11): the "
-            "int8 error-feedback gradient all-reduce over the DP axes")
-
 
 class TrainState(NamedTuple):
     params: Any
     opt: AdamWState
-    err: Any = None          # grad-compression error feedback (item 11)
+    err: Any = None          # grad-compression error feedback (optional)
 
 
 def init_train_state(params, use_compression=False) -> TrainState:
-    if use_compression:
-        raise NotImplementedError(f"use_compression=True {_ITEM_11}")
-    return TrainState(params=params, opt=adamw_init(params), err=None)
+    return TrainState(params=params, opt=adamw_init(params),
+                      err=init_error_buf(params) if use_compression else None)
 
 
 def _cast(params, compute_dtype):
@@ -107,23 +116,99 @@ def microbatch_grads(cfg: ArchConfig, params, batch, n_micro: int,
     return loss_sum / n_micro, acc
 
 
+def _dp_axes(mesh) -> Tuple[str, ...]:
+    return tuple(a for a in batch_spec(mesh) if mesh.shape[a] > 1)
+
+
+def _dp_slice(batch, mesh):
+    """This rank's rows of ``batch`` along the mesh's DP axes (pod, data):
+    the block at its row-major coordinate over them."""
+    n, coord = 1, 0
+    for a in batch_spec(mesh):
+        n *= mesh.shape[a]
+        coord = coord * mesh.shape[a] + mesh.axis_index(a)
+    b = next(iter(batch.values())).shape[0]
+    if b % n:
+        raise ValueError(f"batch {b} does not split over {n} DP ranks")
+    per = b // n
+    return {k: v[coord * per:(coord + 1) * per] for k, v in batch.items()}
+
+
+@torch.no_grad()
+def _mesh_norm(grads, specs, mesh) -> torch.Tensor:
+    """The global norm of ``grads`` whose leaves may be this rank's block
+    (a ``specs`` entry naming mesh axes): each block's squared sum is
+    summed across its axes first, so every rank gets the same bits."""
+    per_leaf = []
+    tree_map(lambda _, s: per_leaf.append(s), grads, specs)
+    total = None
+    for g, spec in zip(tree_leaves(grads), per_leaf):
+        sq = torch.sum(torch.square(g.to(torch.float32)))
+        axes = tuple(a for e in (spec or ()) if e is not None
+                     for a in ((e,) if isinstance(e, str) else e))
+        if axes:
+            sq = mesh.all_reduce(sq, axes)
+        total = sq if total is None else total + sq
+    return torch.sqrt(total)
+
+
+def _block_specs(cfg: ArchConfig, params, mesh):
+    """The specs of the leaves of ``params`` that hold this rank's block
+    of an expert stack (``models.expert_specs``; every other leaf None),
+    or None when none can: expert parallelism runs under ``moe_a2a`` on a
+    mesh whose ``model`` axis holds more than one rank.  A leaf counts as
+    a block by its size along ``model``: E/model experts, not E (a whole
+    stack is cut on entry to the layer and its grad comes back whole)."""
+    if not (cfg.n_experts and _opt("moe_a2a")
+            and mesh.shape.get("model", 1) > 1):
+        return None
+    n = mesh.shape["model"]
+
+    def spec_of(leaf, spec):
+        if spec is None:
+            return None
+        return spec if leaf.shape[spec.index("model")] * n \
+            == cfg.n_experts else None
+    return tree_map(spec_of, params, expert_specs(cfg))
+
+
 def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *,
                     n_micro: int = 1, compute_dtype=torch.bfloat16
                     ) -> Callable[[TrainState, Any], Tuple[TrainState, Any]]:
     """``step(state, batch) -> (state, {"loss", "lr", "grad_norm"})``;
     ``batch`` holds ``tokens`` and ``targets`` tensors on the params'
-    device.  The returned state holds the input state's tensors, updated
-    in place."""
+    device (under a mesh: this rank's slice of the global batch).  The
+    returned state holds the input state's tensors, updated in place.
+    Under expert parallelism the params may hold this rank's blocks of
+    the expert stacks (``_block_specs``): the clip norm then sums each
+    block's squares across ``model``, so every rank clips alike."""
 
     def step(state: TrainState, batch):
+        mesh = current_mesh()
         if n_micro > 1:
             loss, grads = microbatch_grads(cfg, state.params, batch, n_micro,
                                            compute_dtype)
         else:
             loss, grads = _value_and_grad(
                 cfg, _cast(state.params, compute_dtype), batch)
+        gnorm = None
+        if mesh is not None:
+            dp = _dp_axes(mesh)
+            if dp:
+                with torch.no_grad():
+                    n = 1
+                    for a in dp:
+                        n *= mesh.shape[a]
+                    div = torch.full((), float(n), device=loss.device)
+                    loss = mesh.all_reduce(loss, dp) / div
+                    grads = tree_map(
+                        lambda g: mesh.all_reduce(g, dp) / div.to(g.dtype),
+                        grads)
+            specs = _block_specs(cfg, state.params, mesh)
+            if specs is not None:
+                gnorm = _mesh_norm(grads, specs, mesh)
         new_params, new_opt, metrics = adamw_update(
-            opt_cfg, state.params, grads, state.opt)
+            opt_cfg, state.params, grads, state.opt, grad_norm=gnorm)
         del grads
         metrics["loss"] = loss
         return TrainState(params=new_params, opt=new_opt, err=state.err), \
@@ -134,6 +219,35 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *,
 
 def make_compressed_step(cfg: ArchConfig, opt_cfg: AdamWConfig, mesh, *,
                          compute_dtype=torch.bfloat16):
-    """The reference's DP ``shard_map`` step with the int8 error-feedback
-    all-reduce; not ported yet."""
-    raise NotImplementedError(f"make_compressed_step {_ITEM_11}")
+    """The reference's DP step with the int8 error-feedback all-reduce.
+
+    ``step(state, batch)`` takes the global batch and steps on this
+    rank's slice of it along the DP axes (``pod``, ``data``) of ``mesh``:
+    grads of the cast tree, ``compressed_psum_tree`` over those axes (the
+    errors in ``state.err`` updated in place), the loss averaged across
+    them, then AdamW in place.  Params stay replicated: every rank feeds
+    the same dequantized grads into the same update, so their params stay
+    equal bit for bit.  ``state.err`` must hold the error buffers
+    (``init_train_state(params, use_compression=True)``)."""
+    dp_axes = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+    nper = 1
+    for a in dp_axes:
+        nper *= mesh.shape[a]
+
+    def step(state: TrainState, batch):
+        if state.err is None:
+            raise ValueError("make_compressed_step needs the error buffers "
+                             "(init_train_state(..., use_compression=True))")
+        loss, grads = _value_and_grad(cfg, _cast(state.params, compute_dtype),
+                                      _dp_slice(batch, mesh))
+        grads, err = compressed_psum_tree(grads, state.err, dp_axes, mesh)
+        with torch.no_grad():
+            loss = mesh.all_reduce(loss, dp_axes) / torch.full(
+                (), float(nper), device=loss.device)
+        new_params, new_opt, metrics = adamw_update(opt_cfg, state.params,
+                                                    grads, state.opt)
+        del grads
+        metrics["loss"] = loss
+        return TrainState(new_params, new_opt, err), metrics
+
+    return step

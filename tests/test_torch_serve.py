@@ -139,19 +139,28 @@ def test_continuous_matches_static_in_the_port(fmt):
 
 
 def test_engine_config_rejects_later_slices_and_bad_kwargs(tmp_path):
-    """The item-10 subsystems are accepted now (the engine carries them);
-    the multi-device slice's mesh re-layout (item 11) still raises."""
+    """The item-10 subsystems are accepted now (the engine carries them),
+    and so is the mesh re-layout of a restore (``shardings=``, item 11):
+    a ``None`` leaf comes back whole, a ``NamedSharding`` leaf as this
+    process's block (all of it on the ``(1, 1)`` mesh)."""
     from repro_torch.dist.checkpoint import (restore_checkpoint,
                                              save_checkpoint)
+    from repro_torch.dist.sharding import NamedSharding
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.serve import ResilienceConfig
     res = ResilienceConfig(queue_cap=3)
     eng = ServeEngine(TArchConfig(**CFG), from_jax_params(_tree("fp"), "cpu"),
                       config=EngineConfig(n_slots=2, resilience=res))
     assert eng.resilience is res and eng.config.resilience is res
-    save_checkpoint(str(tmp_path), 1, {"x": np.zeros(2)})
-    with pytest.raises(NotImplementedError, match="item 11"):
-        restore_checkpoint(str(tmp_path), {"x": np.zeros(2)},
-                           shardings={"x": None})
+    save_checkpoint(str(tmp_path), 1, {"x": np.arange(4.0), "y": np.ones(2)})
+    got, manifest = restore_checkpoint(
+        str(tmp_path), {"x": np.zeros(4), "y": np.zeros(2)},
+        shardings={"x": NamedSharding(make_host_mesh(), ("data",)),
+                   "y": None})
+    assert manifest["step"] == 1
+    assert isinstance(got["x"], torch.Tensor) and got["x"].tolist() \
+        == [0.0, 1.0, 2.0, 3.0]
+    assert isinstance(got["y"], np.ndarray) and got["y"].tolist() == [1, 1]
     with pytest.raises(TypeError, match="unknown engine option"):
         ServeEngine(TArchConfig(**CFG), from_jax_params(_tree("fp"), "cpu"),
                     n_slot=2)

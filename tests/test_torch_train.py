@@ -39,7 +39,7 @@ from repro_torch.models import from_jax_params
 from repro_torch.train import (AdamWConfig, AdamWState, TrainState,
                                adamw_init, adamw_update, cosine_schedule,
                                global_norm, init_train_state,
-                               make_compressed_step, make_train_step,
+                               make_train_step,
                                microbatch_grads, wsd_schedule)
 from repro_torch.train.optimizer import clip_by_norm
 
@@ -340,13 +340,6 @@ def test_loss_decreases():
         state, m = step(state, _tbatch(s))
         losses.append(float(m["loss"]))
     assert np.mean(losses[-10:]) < np.mean(losses[:10]) - 0.05
-
-
-def test_compression_belongs_to_the_multi_device_slice():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        init_train_state({"w": torch.zeros(2)}, use_compression=True)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        make_compressed_step(TCFG, AdamWConfig(), mesh=None)
 
 
 # ---------------------------------------------------------------------------
