@@ -72,29 +72,32 @@ Phases, in order; any mismatch raises and the run exits non-zero:
    ``benchmarks/check_obs.py`` and ``check_bytes.py`` run on them
    unchanged (a nonzero exit fails the smoke);
 6. ladder phase: the same at full width and 4 layers for int3 and int2;
-7. PTQ phase: minicpm-2b at full width cut to 2 layers, weights from the
+7. PTQ phase: minicpm-2b at full width cut to 1 layer (PTQ_LAYERS, for
+   the smoke's time), weights from the
    port's ``init_params`` (seed 0), calibration 2 batches of 4 × 128 and
    evaluation 1 batch of 4 × 257 numpy tokens.  ``quantize_model`` runs
    ``watersic`` (the LMMSE column loop) and ``hptq`` (the ZSIC kernel) at
    3 bits; each prints its realized rate (within 0.05 of 3), seconds per
    matrix, ZSIC-kernel launches (> 0 for hptq) and, from the same run, the
    synchronized host time of its main spans; ``model_ppl`` of the
-   float, watersic and hptq models runs through the flash kernel (2 layers
-   × 1 batch launches per call) and through the twin;
+   float, watersic and hptq models runs through the flash kernel (one
+   launch per layer and batch) and through the twin;
 8. serve-after-PTQ phase: the watersic codes installed as packed int4
    leaves (``from_watersic``, escapes included) serve 4 requests (prompt
    16, 8 new tokens) twice (equal streams); first-step logits against the
    model with ``QuantizedLinear.dequant()`` weights; each escaped leaf's
    product equal bit for bit on a rerun and for a permuted COO;
-8b. gptq phase: the PTQ phase's 2 layers and calibration (14 matrices):
+8b. gptq phase: the PTQ phase's model and calibration (7 matrices):
    WaterSIC (no LMMSE) at 3 bits and Huffman-GPTQ at each matrix's
    WaterSIC rate, both through the ZSIC kernel; each method's rate and
    weighted distortion Σ N·D; for one (2304, 2304) matrix the card's GPTQ
    codes against float64 ``gptq_frantar`` on the flipped order (≥ 99.9 %
-   equal) and the rANS bits per entry beside the empirical entropy;
+   equal; the oracle runs in a host process of its own beside the later
+   phases and is read at the end) and the rANS bits per entry beside the
+   empirical entropy;
 8c. flash grad phase: q/k/v grads through the flash wrapper (forward: the
    kernel) against the twin's at the ``model_ppl`` shape, and
-   ``loss_fn``'s wq/wk/wv grads on the 2-layer model against the twin
+   ``loss_fn``'s wq/wk/wv grads on the PTQ phase's model against the twin
    path's (GRAD_TOL);
 9. plan phase: ``python -m repro_torch.launch.plan build`` in process
    (minicpm-2b at full width cut to 2 layers, numpy weights and tokens
@@ -123,12 +126,13 @@ carries the card's name and power limit; every kernel count is zeroed
 just before a phase and read just after, and the phase fails if a kernel
 of its path never launched):
 
-5d. resilience serve: the serve phase's traffic at 40 layers with
+5d. resilience serve: the serve phase's traffic at full width and
+   CHECK_LAYERS (8) layers (a fresh int4 tree of that depth) with
    ``ResilienceConfig(retry, integrity_every=8, snapshot_every=5)``
    against the same traffic with it off: equal streams; both step times,
    one integrity check's time (crc32 of every payload, copied to the
    host) and one snapshot's;
-5e. int8 KV (``REPRO_OPTS=int8_kv``) at 40 layers: the exact prefill's
+5e. int8 KV (``REPRO_OPTS=int8_kv``) on that tree: the exact prefill's
    int8 cache equals ``q8`` of the f32 prefill's cache at every layer and
    after the first decode step the new layer-0 rows equal ``q8`` of the
    f32 cache's new rows, bit for bit (deeper rows attend to a dequantized
@@ -269,9 +273,9 @@ Training on one device (minicpm-2b, the WSD schedule), last:
    (``train_kernel_oracle``: loss, grads and updated params, the
    tolerance in its docstring);
 16. lifecycle (tests/test_system.py::test_full_lifecycle at full width,
-   2 layers): 120 bf16 steps under ``torch.use_deterministic_algorithms``
-   uninterrupted and through ``run_with_restarts`` (a checkpoint every 20
-   steps, one failure at step 50): losses and final state equal bit for
+   1 layer): 60 bf16 steps under ``torch.use_deterministic_algorithms``
+   uninterrupted and through ``run_with_restarts`` (a checkpoint every 30
+   steps, failures at steps 10 and 40): losses and final state equal bit for
    bit, the loss falling; WaterSIC, HPTQ (B4) and Huffman-GPTQ (B4, at
    WaterSIC's per-matrix rate) of the trained weights at 2.5 bits on 6144
    calibration tokens (Σ_X full rank), realized rates within 0.05 and
@@ -290,13 +294,14 @@ CUDA IPC; the weights, shared with the ranks the same way, never cross):
 17. shard kernels: B1 (packed int4) and B2 against their twins at the
    k-shard shapes of minicpm-2b at 4 shards, (k_loc, n) ∈ {(576, 2304),
    (576, 5760), (1440, 2304)}, m ∈ {8, 256}, timed as in the kernel phase;
-17b. mesh: minicpm-2b packed int4 at full width and depth, sharded 4 ways
+17b. mesh: minicpm-2b packed int4 at full width cut to MESH_FULL_LAYERS
+   (20 of its 40, for the smoke's time), sharded 4 ways
    (``serve.shard_params_tree``): the single-process oracle's first step
    (the sharded tree here) within LOGIT_TOL of the unsharded dequantized
-   model, 4 × 280 B1 launches per step; then one launch of 4 ranks serves
-   the serve phase's traffic (max_len 64: the K/V buffer shards), every
-   rank's streams equal to the oracle's bit for bit, 280 B1 launches per
-   rank per decode step, float all-gathers only (no integer one: no
+   model, 4 × 7 × 20 B1 launches per step; then one launch of 4 ranks
+   serves the serve phase's traffic (max_len 64: the K/V buffer shards),
+   every rank's streams equal to the oracle's bit for bit, 7 × 20 B1
+   launches per rank per decode step, float all-gathers only (no integer one: no
    weight byte crossed), each rank's step time, B1 time, all-gathers and
    bytes printed; the reference test's crc32 format mix at 4 layers (B2 on
    its int8 shards) equal to its oracle; seeded device-loss chaos at 2
@@ -336,16 +341,46 @@ the card under gloo and their collectives meet in the CUDA-IPC mailboxes:
    max of the local ``moe`` in this process; then two bf16 train steps
    with the experts cut by ``expert_specs``: the replicated params
    bit-identical across ranks, each loss within 1e-2 relative of the
-   single-process step's.
+   single-process step's;
+19. the cost tooling (``launch.hlo_cost``, ``launch.roofline`` with the
+   H100 SXM's published peaks, ``launch.dryrun``): (a), right after the
+   serve phase's step breakdown, one int4 decode step at 8 slots under
+   the step cost counter, its counted B1 launches equal to the wrapper's
+   count and to the CUDA graph's kernel nodes (7 × 40), its modeled
+   bound beside the measured step (the roofline fraction); (b) the
+   one-process train step of phase 20 (8 × 64 tokens in 2
+   microbatches) counted likewise, 80 B3 launches; (c) the counter's
+   trace of one rank's mesh decode step on meta tensors under
+   ``ShapeMesh(data=1, model=4)``, its collective log equal op for op to
+   each rank's ``HostMesh`` log of its measured step in phase 17b; (d)
+   minicpm-2b's train_4k, prefill_32k and decode_32k dry-run cells on
+   the 256-rank mesh and decode_32k on the 512-rank one, traced on meta
+   tensors in a process of their own while the kernels build, each
+   ``ok``;
+20. FSDP × TP (run after phase 16, before the mesh phases, whose rank
+   launches leave CUDA tensors shared with their ranks in this process):
+   minicpm-2b at full width and depth trained by 4 ranks
+   sharing the card on a (data 2, model 2) mesh (gloo, CUDA-IPC
+   mailboxes), 4 bf16 steps of 8 × 64 tokens (each rank's 4 rows in one
+   microbatch): the one-process step first (in 2 microbatches; alone:
+   its 56 GB do not fit beside the ranks), its final params saved for
+   the ranks; each rank's first loss
+   within 1e-3 and last loss within 1e-2 relative of the one process's,
+   its blocks within 2·lr per step of the same cut of the one process's
+   params and equal to their ``NamedSharding`` cut of the gathered
+   leaves, B3 40 per rank per step, and its collective log of step 1
+   equal op for op to the counter's ``ShapeMesh(data=2, model=2)``
+   trace of that rank's step.
 
 The second-to-last line is the kernel summary JSON (six entries: the
 packed kernel per payload, the int8 kernel, ZSIC and flash; B1 int4's and
 B2's launches include the recurrent, whisper and paligemma serve runs and
-int8 steps, the lifecycle's served codes and the mesh phases' oracle and
-rank runs, flash's whisper's encode and
-prefill and the training phases' (the driver's steps, the lifecycle's
-training, ``model_ppl`` and fine-tune, the compressed DP ranks and their
-oracle), ZSIC's the lifecycle's hptq and GPTQ), the last line
+int8 steps, the lifecycle's served codes, the mesh phases' oracle and
+rank runs and the counted decode step of phase 19, flash's whisper's
+encode and prefill and the training phases' (the driver's steps, the
+lifecycle's training, ``model_ppl`` and fine-tune, the compressed DP
+ranks and their oracle, phase 20's one process and ranks), ZSIC's the
+lifecycle's hptq and GPTQ), the last line
 ``{"ok": true, "device": {...}}``.  Per-case numbers also go to
 ``chiprun_out/chip_smoke_detail.json``.  Tolerances:
 
@@ -393,10 +428,8 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch import obs  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import (CODE_RANGE, RansCodec, chol_lower,  # noqa: E402
-                              empirical_entropy, gptq_frantar,
-                              gptq_via_zsic, layer_distortion,
-                              quantize_at_rate, random_covariance,
-                              zsic_numpy)
+                              empirical_entropy, gptq_via_zsic, layer_distortion,
+                              quantize_at_rate, random_covariance)
 from repro_torch.core.packing import pack_codes_torch  # noqa: E402
 from repro_torch.kernels import _build, flash  # noqa: E402
 from repro_torch.kernels.flash import (attention_ref,  # noqa: E402
@@ -451,14 +484,19 @@ from repro_torch.quant.pipeline import matrix_tap_map  # noqa: E402
 from repro_torch.quant.calibrate import forward_with_taps  # noqa: E402
 from repro_torch.tree import (tree_leaves, tree_leaves_with_path,  # noqa: E402
                               tree_map)
+# the H100 SXM's published rates (HBM, f32 outside the tensor cores, bf16
+# tensor cores dense): one source, the port's roofline
+from repro_torch.launch.roofline import (BF16_FLOP_PER_S,  # noqa: E402
+                                         F32_FLOP_PER_S, HBM_BYTES_PER_S)
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
-F32_FLOP_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
 F32_INSTR_PER_S = F32_FLOP_PER_S / 2  # f32 instructions/s (an FMA is 2 flops)
-BF16_FLOP_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
 #: bf16 tensor-core products per f32 product done exactly (x·s in 3 terms)
 BF16_TERMS = 3
 PATH_SHAPES = [(2304, 2304), (2304, 5760), (5760, 2304)]
+#: depth of the PTQ, serve-after-PTQ, gptq and flash-grad phases' model
+PTQ_LAYERS = 1
+#: depth of the resilience and int8-KV serve checks (minicpm-2b's width)
+CHECK_LAYERS = 8
 #: per decoder layer: wq wk wv wo at (2304, 2304), w_gate w_up at
 #: (2304, 5760), w_out at (5760, 2304)
 PER_LAYER = {(2304, 2304): 4, (2304, 5760): 2, (5760, 2304): 1}
@@ -1242,19 +1280,34 @@ def zsic_phase(dev, flush):
             f"{float((r - rt).abs().max()):.3e}")
     print("zsic_quantize (2304, 2304) through the kernel equals the same run "
           "through the twin bit for bit", flush=True)
-    t0 = time.perf_counter()
-    z_ref, _ = zsic_numpy(y64, l64, a64)
-    agree = float((z.cpu().numpy() == z_ref).mean())
     bound = 0.5 * a64 * np.abs(np.diag(l64))
     lemma = bool(np.all(np.abs(r.cpu().numpy())
                         <= bound[None, :] * (1 + 1e-4) + 1e-6))
+    print(f"zsic_quantize (2304, 2304): Lemma 3.2 "
+          f"{'holds' if lemma else 'FAILS'}", flush=True)
+    if not lemma:
+        raise AssertionError("full ZSIC breaks Lemma 3.2's residual bound")
+    return {"cases": cases, "full_lemma": lemma,
+            "full_twin_code_mismatches": strided_mismatches,
+            "full_codes": z.cpu().numpy(),
+            "full_job": start_host_job("repro_torch.core:zsic_numpy", y64,
+                                       l64, a64)}
+
+
+def finish_zsic_oracle(rec) -> dict:
+    """The zsic phase's float64 ``zsic_numpy`` oracle, read: the full
+    (2304, 2304) run through the kernel must agree with it on at least
+    0.999 of the codes."""
+    codes = rec.pop("full_codes")
+    (z_ref, _), oracle_s = finish_host_job(rec.pop("full_job"))
+    agree = float((codes == z_ref).mean())
+    rec.update(full_agreement=agree, full_oracle_s=oracle_s)
     print(f"zsic_quantize (2304, 2304) vs zsic_numpy float64: code agreement "
-          f"{agree:.6f}, Lemma 3.2 {'holds' if lemma else 'FAILS'} "
-          f"(oracle {time.perf_counter() - t0:.1f}s)", flush=True)
-    if agree < 0.999 or not lemma:
+          f"{agree:.6f} (oracle {oracle_s:.1f}s on the host, beside the "
+          f"later phases)", flush=True)
+    if agree < 0.999:
         raise AssertionError("full ZSIC disagrees with the float64 oracle")
-    return {"cases": cases, "full_agreement": agree, "full_lemma": lemma,
-            "full_twin_code_mismatches": strided_mismatches}
+    return rec
 
 
 def flash_twin(q, k, v, *, causal=True, window=0):
@@ -1598,6 +1651,32 @@ def execute(plan, weights, stats, dev, workers):
                "weighted_distortion": weighted_distortion(plan)}
 
 
+class shared_plan_model:
+    """``launch.plan.model_from_provenance`` memoized while the block
+    runs: ``launch.plan build`` and the phase's own execution rebuild the
+    same numpy weights and tokens from one provenance, and a full-width
+    draw takes seconds of host time (about 30 s for one phi3.5-moe
+    layer).  The weights are only read by either."""
+
+    KEYS = ("arch", "reduced", "n_layers", "seed", "calib_batches",
+            "seq_len", "global_batch", "init")
+
+    def __enter__(self):
+        self.real, memo = launch_plan.model_from_provenance, {}
+
+        def cached(prov, device):
+            key = tuple(repr(prov.get(k)) for k in self.KEYS)
+            if key not in memo:
+                memo[key] = self.real(prov, device)
+            return memo[key]
+        launch_plan.model_from_provenance = cached
+        return self
+
+    def __exit__(self, *exc):
+        launch_plan.model_from_provenance = self.real
+        return False
+
+
 def plan_phase(dev, out):
     """``launch.plan build`` (minicpm-2b at full width, 2 layers, numpy
     weights and tokens from seed 0, 2 × PLAN_CALIB_ROWS × 128 calibration
@@ -1880,8 +1959,8 @@ def gptq_at_rate(w, sigma_d, target, alpha0):
 
 
 def gptq_phase(cfg, dev):
-    """The PTQ phase's 2-layer full-width model and calibration (14
-    matrices): WaterSIC at 3 bits (ZSIC through the in-block kernel, no
+    """The PTQ phase's full-width model (PTQ_LAYERS deep, 7 matrices a
+    layer) and calibration: WaterSIC at 3 bits (ZSIC through the in-block kernel, no
     LMMSE) and Huffman-GPTQ through the same kernel at each matrix's
     WaterSIC rate; each method's rate and Σ N·D (weighted distortion on the
     undamped Σ_X).  Then for one (2304, 2304) matrix: the card's GPTQ
@@ -1947,18 +2026,11 @@ def gptq_phase(cfg, dev):
     card = gptq_via_zsic(w[:, flip].contiguous(),
                          sigma_d[flip][:, flip].contiguous(), alpha)
     codes = card["codes"].flip(1).cpu().numpy()
-    t0 = time.perf_counter()
-    ref = gptq_frantar(w.double().cpu().numpy(),
-                       sigma_d.double().cpu().numpy(), alpha)
-    frantar_s = time.perf_counter() - t0
-    agree = float((codes == ref["codes"]).mean())
-    print(f"gptq {name} {tuple(w.shape)}: card (f32, ZSIC kernel) vs "
-          f"gptq_frantar float64 flipped: code agreement {agree:.6f}, "
-          f"distortion {card['distortion']:.6e} vs {ref['distortion']:.6e} "
-          f"(oracle {frantar_s:.1f}s)", flush=True)
-    if agree < 0.999:
-        raise AssertionError(f"GPTQ through the kernel agrees on {agree} of "
-                             "the codes with float64 Frantar")
+    frantar = {"matrix": name, "shape": list(w.shape), "codes": codes,
+               "card_distortion": card["distortion"],
+               "job": start_host_job("repro_torch.core.gptq:gptq_frantar",
+                                     w.double().cpu().numpy(),
+                                     sigma_d.double().cpu().numpy(), alpha)}
     t0 = time.perf_counter()
     codec = RansCodec.from_data(codes)
     payload = codec.encode(codes)
@@ -1974,12 +2046,76 @@ def gptq_phase(cfg, dev):
     return {"matrices": rows, "summary": summary,
             "gptq_over_watersic_distortion": ratio, "wall_s": wall,
             "zsic_launches": launches,
-            "frantar": {"matrix": name, "code_agreement": agree,
-                        "card_distortion": card["distortion"],
-                        "frantar_distortion": ref["distortion"],
-                        "oracle_s": frantar_s},
+            "frantar": frantar,
             "rans": {"bits_per_entry": rans_bits, "entropy": ent_bits,
                      "encode_s": rans_s}}
+
+
+def start_host_job(fn, *args) -> dict:
+    """``fn(*args)`` (a ``repro_torch`` function named "module:attr", on
+    numpy arguments) in a process of its own on the host, beside the
+    phases that follow: the float64 oracles' loops take tens of seconds of
+    CPU that the card need not wait for.  ``finish_host_job`` returns its
+    result; the process is stopped at exit if it still runs."""
+    import atexit
+    import pickle
+    import tempfile
+    (ROOT / "scratch").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(dir=ROOT / "scratch", prefix="host_job_"))
+    with open(tmp / "in.pkl", "wb") as f:
+        pickle.dump(args, f)
+    code = ("import importlib, pickle, sys, time\n"
+            "d, (mod, attr) = sys.argv[1], sys.argv[2].split(':')\n"
+            "fn = getattr(importlib.import_module(mod), attr)\n"
+            "args = pickle.load(open(d + '/in.pkl', 'rb'))\n"
+            "t0 = time.perf_counter()\n"
+            "out = fn(*args)\n"
+            "pickle.dump((out, time.perf_counter() - t0), "
+            "open(d + '/out.pkl', 'wb'))\n")
+    threads = "2"
+    proc = subprocess.Popen(
+        [sys.executable, "-c", code, str(tmp), fn], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                 OMP_NUM_THREADS=threads, OPENBLAS_NUM_THREADS=threads,
+                 MKL_NUM_THREADS=threads))
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return {"fn": fn, "proc": proc, "dir": tmp}
+
+
+def finish_host_job(job) -> tuple:
+    """(result, seconds) of ``start_host_job``'s job, once it ends."""
+    import pickle
+    import shutil
+    try:
+        _, err = job["proc"].communicate(timeout=900)
+        if job["proc"].returncode != 0:
+            raise AssertionError(f"{job['fn']} exited "
+                                 f"{job['proc'].returncode}: {err[-3000:]}")
+        with open(job["dir"] / "out.pkl", "rb") as f:
+            return pickle.load(f)
+    finally:
+        shutil.rmtree(job["dir"], ignore_errors=True)
+
+
+def finish_frantar(rec) -> dict:
+    """The gptq phase's float64 Frantar oracle, read: the card's codes
+    (f32, ZSIC kernel) must agree with it on at least 0.999 of the
+    entries."""
+    codes = rec.pop("codes")
+    ref, oracle_s = finish_host_job(rec.pop("job"))
+    agree = float((codes == ref["codes"]).mean())
+    rec.update(code_agreement=agree, frantar_distortion=ref["distortion"],
+               oracle_s=oracle_s)
+    print(f"gptq {rec['matrix']} {tuple(rec['shape'])}: card (f32, ZSIC "
+          f"kernel) vs gptq_frantar float64 flipped: code agreement "
+          f"{agree:.6f}, distortion {rec['card_distortion']:.6e} vs "
+          f"{ref['distortion']:.6e} (oracle {oracle_s:.1f}s on the host, "
+          f"beside the later phases)", flush=True)
+    if agree < 0.999:
+        raise AssertionError(f"GPTQ through the kernel agrees on {agree} of "
+                             "the codes with float64 Frantar")
+    return rec
 
 
 def engine_run(cfg, tree, prompts, new_tokens, dev, *, slots, max_len,
@@ -2339,7 +2475,7 @@ def quality_requant_phase(dev, out, *, cfg_kw=None, budget=24) -> dict:
 def flash_grad_phase(cfg, dev, gen):
     """Gradients through the flash wrapper on the card: q/k/v grads at the
     ``model_ppl`` shape (B·H = 4·36, S = 256, d = 64) against the twin's
-    autograd, and ``loss_fn``'s wq/wk/wv grads on the 2-layer model
+    autograd, and ``loss_fn``'s wq/wk/wv grads on the PTQ_LAYERS model
     against the same loss with the twin in the kernel's place."""
     b, s, h, d = 4, 256, 36, 64
     q, k, v = [torch.randn((b, s, h, d), generator=gen, device=dev)
@@ -2511,7 +2647,7 @@ def _pairs(run_a, run_b):
 
 def resilience_serve_phase(cfg, params, dev, *, n_req, prompt_len,
                            new_tokens, max_len, slots, chunk) -> dict:
-    """The serve cell's int4 traffic at full depth with the resilience
+    """The serve cell's int4 traffic (at CHECK_LAYERS) with the resilience
     layer off and on (retry policy, integrity check every 8 steps,
     snapshots every 5 steps), in turns off, on, on, off: equal streams;
     the step times of each run, the time of one integrity check (crc32 of
@@ -2594,7 +2730,7 @@ def resilience_serve_phase(cfg, params, dev, *, n_req, prompt_len,
 
 def int8kv_phase(cfg, params, dev, *, n_req, prompt_len, new_tokens,
                  max_len, slots, chunk) -> dict:
-    """``REPRO_OPTS=int8_kv`` at full depth against the f32 cache: the
+    """``REPRO_OPTS=int8_kv`` (at CHECK_LAYERS) against the f32 cache: the
     exact prefill's int8 cache equals ``q8`` of the f32 prefill's, every
     layer, bit for bit; after the first decode step the new layer-0 rows
     equal ``q8`` of the f32 cache's new rows bit for bit (deeper layers
@@ -3181,6 +3317,11 @@ def moe_plan_phase(dev, out) -> dict:
     return rec
 
 
+def shared_moe_plan(dev, out) -> dict:
+    with shared_plan_model():
+        return moe_plan_phase(dev, out)
+
+
 def moe_phases(dev, out, gen) -> dict:
     """The MoE cells, in order: serve (with expert codes and prefill),
     PTQ, plan; each one's wall time."""
@@ -3190,7 +3331,7 @@ def moe_phases(dev, out, gen) -> dict:
                 dev, gen, n_req=8, prompt_len=32, new_tokens=16, max_len=64,
                 slots=8, chunk=16)),
             ("ptq", lambda: moe_ptq_phase(dev)),
-            ("plan", lambda: moe_plan_phase(dev, out))):
+            ("plan", lambda: shared_moe_plan(dev, out))):
         t0 = time.perf_counter()
         rec[name] = fn()
         torch.cuda.empty_cache()
@@ -3996,7 +4137,7 @@ def encdec_vlm_phases(dev, gen) -> dict:
 # Training on one device (slice 11): minicpm-2b trained at full width
 # through the train driver, then the lifecycle (train with a restart, PTQ
 # of the trained weights, rescaler fine-tune, serving the trained codes)
-# at full width and 2 layers
+# at full width and LIFE_LAYERS layers
 # ---------------------------------------------------------------------------
 
 TRAIN_ARCH = "minicpm-2b"
@@ -4005,14 +4146,17 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = 8, 64, 2
 #: the driver's steps, and the steps of ``make_train_step`` timed after it
 #: (the medians skip the first two)
 TRAIN_MAIN_STEPS, TRAIN_TIMED_STEPS = 4, 6
-#: the lifecycle: the reference test's schedule and step count, a
-#: checkpoint every 20 steps and two injected failures: one before the
-#: first periodic save (replayed from the step-0 checkpoint) and one after
-#: the checkpoint of step 40.  These 120 steps leave the model above
-#: ln V; a schedule that goes below it makes WaterSIC's rescaler fit fail
-#: (ROADMAP queue C, ``rescaler_probe.py``)
-LIFE_LAYERS, LIFE_STEPS, LIFE_LR, LIFE_SAVE_EVERY = 2, 120, 2e-3, 20
-LIFE_CRASHES = (10, 50)
+#: depth of the f32 kernel-vs-twin train step (``train_kernel_oracle``)
+TRAIN_ORACLE_LAYERS = 2
+#: the lifecycle: the reference test's schedule at 1 layer, cut from its
+#: 120 steps to 60 (the smoke's time), a checkpoint every 30 steps and two
+#: injected failures: one before the first periodic save (replayed from
+#: the step-0 checkpoint) and one after the checkpoint of step 30.  These
+#: steps leave
+#: the model above ln V; a schedule that goes below it makes WaterSIC's
+#: rescaler fit fail (ROADMAP queue C, ``rescaler_probe.py``)
+LIFE_LAYERS, LIFE_STEPS, LIFE_LR, LIFE_SAVE_EVERY = 1, 60, 2e-3, 30
+LIFE_CRASHES = (10, 40)
 LIFE_BITS = 2.5
 #: calibration batches of 8 × 64 tokens: 6144 ≥ 5760, the largest
 #: in-features, so every Σ_X can have full rank
@@ -4260,7 +4404,7 @@ def train_phase(dev) -> dict:
                           in rec["step"]["top_kernels"][:5])
               + ")") + f" [{CARD}]", flush=True)
     rec["oracle"] = train_kernel_oracle(
-        dataclasses.replace(cfg, n_layers=LIFE_LAYERS), dev,
+        dataclasses.replace(cfg, n_layers=TRAIN_ORACLE_LAYERS), dev,
         launch_train.device_batch(dcfg, 0, dev))
     torch.cuda.empty_cache()
     return rec
@@ -4632,6 +4776,8 @@ MESH_RANKS = 4
 SHARD_SHAPES = [(576, 2304), (576, 5760), (1440, 2304)]
 SHARD_PER_LAYER = {(576, 2304): 4, (576, 5760): 2, (1440, 2304): 1}
 MESH_M = (8, 256)
+#: depth of the mesh serve of the int4 tree (minicpm-2b has 40 layers)
+MESH_FULL_LAYERS = 20
 #: depth of the mixed tree's and the gate's mesh runs, and of the chaos run
 MESH_SHORT_LAYERS = 4
 MESH_CHAOS_LAYERS = 2
@@ -4673,13 +4819,14 @@ def _mesh_work(cfg, n_req, prompt_len, new_tokens):
 def mesh_phases(dev, gen) -> dict:
     """Tensor-parallel k-sharded serving on 4 ranks sharing the card.
 
-    B1/B2 at the shard shapes; minicpm-2b at full width and depth, packed
-    int4, sharded 4 ways: the oracle's first step (the sharded tree in
-    this process) against the unsharded dequantized model and its 1120 B1
-    launches per step; then one rank launch (gloo, tensors staged through
-    the host; the weights shared through CUDA IPC, not copied) serves the
-    full-depth tree (streams equal to the oracle's, 280 B1 per rank per
-    decode step, no integer all-gather), the mixed tree at 4 layers (B2 on
+    B1/B2 at the shard shapes; minicpm-2b at full width and
+    MESH_FULL_LAYERS layers, packed int4, sharded 4 ways: the oracle's
+    first step (the sharded tree in this process) against the unsharded
+    dequantized model and its 4 × 7 B1 launches per layer and step; then
+    one rank launch (gloo, tensors staged through the host; the weights
+    shared through CUDA IPC, not copied) serves that tree (streams equal
+    to the oracle's, 7 B1 per layer per rank per decode step, no integer
+    all-gather), the mixed tree at 4 layers (B2 on
     its int8 shards) and the device-loss chaos case at 2 layers
     (recovered streams equal to the clean mesh run's); last the
     ``launch.serve --mesh`` gate at 4 layers through ``check_mesh.py``."""
@@ -4701,7 +4848,9 @@ def mesh_phases(dev, gen) -> dict:
     econf = EngineConfig(n_slots=8, max_len=64, cache_dtype=torch.float32,
                          prefill_chunk=16)
 
-    cfg = get_config("minicpm-2b")
+    cfg = dataclasses.replace(get_config("minicpm-2b"),
+                              n_layers=MESH_FULL_LAYERS)
+    rec["n_layers"] = cfg.n_layers
     t0 = time.perf_counter()
     params = quantize_for_wbits(init_params(cfg, 0, device=dev), 4)
     sp = shard_params_tree(params, MESH_RANKS)
@@ -4813,6 +4962,7 @@ def mesh_phases(dev, gen) -> dict:
               f"backend {r['backend']}, staging {r['staging']} [{CARD}]",
               flush=True)
     rec["per_rank"] = per_step
+    rec["step_logs"] = {r["rank"]: r["step"].pop("log") for r in by_job["full"]}
     rec["b1_device_ms_per_step"] = b1_step_ms
     rec["b1_launches"] = oracle_launches[4] + oracle_b1 + sum(
         r["launches"][4] + r.get("step", {}).get("launches", {}).get(4, 0)
@@ -5566,7 +5716,456 @@ def training_mesh_phases(dev) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# the cost tooling and the FSDP × TP step (slice 14)
+# ---------------------------------------------------------------------------
+
+#: the FSDP × TP cell: minicpm-2b at full width and depth, global batch of
+#: 8 x 64 tokens per step, 4 steps, on a (data, model) mesh of 4 gloo
+#: ranks sharing the card; the one-process step takes it in 2
+#: microbatches, each rank its 4 rows in one (a second microbatch's f32
+#: grad accumulator is 2.7 GB more per rank, which 4 ranks beside this
+#: process's own leftovers do not leave room for on one card)
+FSDP_MESH = {"data": 2, "model": 2}
+FSDP_BATCH, FSDP_SEQ, FSDP_MICRO, FSDP_STEPS = 8, 64, 2, 4
+FSDP_RANK_MICRO = 1
+FSDP_LR = 3e-3
+#: bf16 steps against one process, as the training-mesh phases hold them:
+#: the last loss within 1e-2 relative, params within 2·lr per step (Adam
+#: divides each grad by its own size, so bf16 rounding that flips a tiny
+#: grad moves its weight by up to 2·lr, and the next loss with it: step
+#: 3's jumps by 2.0 in one process at this lr); the first loss, before any
+#: update, within 1e-3 (the same weights through bf16 sums in another
+#: order)
+FSDP_LOSS_TOL, FSDP_FIRST_LOSS_TOL = 1e-2, 1e-3
+FSDP_TIMEOUT_S = 600.0
+#: the dry-run cells traced on meta in the cost phase
+DRY_CELLS = [("train_4k", "single"), ("prefill_32k", "single"),
+             ("decode_32k", "single"), ("decode_32k", "multi")]
+
+
+def step_roofline(cfg, costs, kind, tokens, measured_ms, chips=1) -> dict:
+    """The modeled roofline of one counted step (``launch.roofline`` with
+    the H100 SXM's published figures) beside its measured wall time:
+    roofline fraction = bound / measured."""
+    from repro_torch.launch.roofline import model_flops, report_from_costs
+    rep = report_from_costs(
+        arch=cfg.name, shape=f"{kind}", mesh="one card", chips=chips,
+        costs=costs, model_flops_total=model_flops(
+            cfg.active_param_count(), tokens,
+            "train" if kind == "train" else "serve"))
+    bound_ms = 1e3 * rep.bound_time_s
+    return {"flops": costs.dot_flops, "hbm_bytes": costs.hbm_bytes,
+            "collective_bytes": costs.collective_bytes,
+            "compute_ms": 1e3 * rep.compute_s,
+            "memory_ms": 1e3 * rep.memory_s,
+            "collective_ms": 1e3 * rep.collective_s,
+            "dominant": rep.dominant, "bound_ms": bound_ms,
+            "measured_ms": measured_ms,
+            "roofline_fraction": bound_ms / measured_ms,
+            "kernel_launches": costs.kernel_launches, "n_ops": costs.n_ops,
+            "argument_bytes": costs.argument_bytes,
+            "peak_temp_bytes": costs.peak_temp_bytes}
+
+
+def _print_roofline(what, r):
+    print(f"cost {what}: modeled {r['flops'] / 1e12:.4f} TFLOP, "
+          f"{r['hbm_bytes'] / 1e9:.4f} GB HBM, "
+          f"{r['collective_bytes'] / 1e9:.4f} GB collective -> compute "
+          f"{r['compute_ms']:.4f} ms, memory {r['memory_ms']:.4f} ms, "
+          f"collective {r['collective_ms']:.4f} ms, dominant "
+          f"{r['dominant']}, bound {r['bound_ms']:.4f} ms (H100 SXM "
+          f"published peaks); measured {r['measured_ms']:.3f} ms; roofline "
+          f"fraction {r['roofline_fraction']:.5f}; {r['n_ops']} ops, "
+          f"kernels {r['kernel_launches']} [{CARD}]", flush=True)
+
+
+def cost_decode_phase(cfg, params, dev, serve) -> dict:
+    """Cost phase (a): one int4 decode step of the served tree at 8 slots
+    under the step cost counter.  Its counted B1 launches must equal the
+    wrapper's own count in that step and the kernel nodes of a CUDA graph
+    of the step (the serve phase's ``graph_packed_kernels_per_step``);
+    the modeled roofline is set beside the engine's measured step."""
+    from repro_torch.launch.hlo_cost import count_costs
+    split = split_layers(params)
+    cache = init_cache(cfg, 8, 64, torch.float32, per_slot=True, device=dev)
+    tok = torch.zeros((8, 1), dtype=torch.long, device=dev)
+    costs, counts = _counted(dev, lambda: count_costs(
+        decode_step, cfg, split, cache, tok, trip_counts=(cfg.n_layers,)))
+    got = costs.kernel_launches.get("dequant_matmul_packed_int4", 0)
+    want = {"wrapper": counts["b1"].get(4, 0),
+            "graph": serve["graph_packed_kernels_per_step"],
+            "per_layer": 7 * cfg.n_layers}
+    if any(got != v for v in want.values()):
+        raise AssertionError(f"cost (a): the counter saw {got} B1 launches "
+                             f"in a decode step, expected {want}")
+    rec = step_roofline(cfg, costs, "decode", 8,
+                        serve["decode_step_wall_ms"])
+    rec.update(b1_counted=got, b1_expected=want,
+               b1_traced=serve.get("traced_packed_kernels_per_step"))
+    _print_roofline(f"(a) int4 decode step {cfg.name} L={cfg.n_layers} at "
+                    f"8 slots (B1 {got} = wrapper {want['wrapper']} = CUDA "
+                    f"graph {want['graph']}; profiler "
+                    f"{rec['b1_traced']})", rec)
+    return rec
+
+
+def _dp_rows(batch, mesh):
+    """This rank's rows of a global batch: its block along ``data``."""
+    n, i = mesh.shape["data"], mesh.axis_index("data")
+    per = next(iter(batch.values())).shape[0] // n
+    return {k: v[i * per:(i + 1) * per] for k, v in batch.items()}
+
+
+def _fsdp_setup(cfg, dev):
+    from repro_torch.data import DataConfig
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import AdamWConfig
+    opt = AdamWConfig(lr=FSDP_LR, schedule=cfg.lr_schedule,
+                      total_steps=FSDP_STEPS + 1, warmup_steps=1)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=FSDP_SEQ,
+                      global_batch=FSDP_BATCH)
+    return opt, [launch_train.device_batch(dcfg, s, dev)
+                 for s in range(FSDP_STEPS)]
+
+
+def fsdp_tp_oracle(cfg, dev, path) -> dict:
+    """The one-process bf16 step of the FSDP × TP cell from
+    ``init_params(cfg, 0)``: step 1 under the step cost counter (cost
+    phase (b): its counted B3 launches must be n_layers × n_micro), steps
+    2-4 timed; the final params saved to ``path`` for the ranks' check."""
+    from repro_torch.launch.hlo_cost import count_costs
+    from repro_torch.train import init_train_state, make_train_step
+    opt, batches = _fsdp_setup(cfg, dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = init_train_state(init_params(cfg, 0, device=dev))
+    n_params = sum(t.numel() for t in tree_leaves(state.params))
+    step = make_train_step(cfg, opt, n_micro=FSDP_MICRO)
+    costs, counts = _counted(dev, lambda: count_costs(
+        step, state, batches[0], trip_counts=(cfg.n_layers, FSDP_MICRO)))
+    state, m = costs.result
+    del costs.result                 # the state is 33 GB: keep one handle
+    per_step = cfg.n_layers * FSDP_MICRO
+    got = costs.kernel_launches.get("flash_attention", 0)
+    if got != per_step or counts["flash"] != per_step:
+        raise AssertionError(f"cost (b): the counter saw {got} B3 launches "
+                             f"(the wrapper {counts['flash']}), expected "
+                             f"{per_step}")
+    losses = [_finite(m["loss"], "FSDP oracle step 1 loss")]
+    walls, launches = [], [counts["flash"]]
+    for s in range(1, FSDP_STEPS):
+        _sync(dev)
+        reset_flash_launches()
+        t0 = time.perf_counter()
+        state, m = step(state, batches[s])
+        _sync(dev)
+        walls.append(1e3 * (time.perf_counter() - t0))
+        launches.append(flash_attention_cuda.launches)
+        losses.append(_finite(m["loss"], f"FSDP oracle step {s + 1} loss"))
+    peak = torch.cuda.max_memory_allocated(dev)
+    t0 = time.perf_counter()
+    torch.save(state.params, path)
+    save_s = time.perf_counter() - t0
+    del state, m, batches
+    torch.cuda.empty_cache()
+    rec = {"losses": losses, "wall_ms": walls, "peak_bytes": peak,
+           "b3_launches": launches, "params": n_params, "save_s": save_s,
+           "cost": step_roofline(cfg, costs, "train",
+                                 FSDP_BATCH * FSDP_SEQ,
+                                 statistics.median(walls))}
+    _print_roofline(f"(b) train step {cfg.name} L={cfg.n_layers}, "
+                    f"{FSDP_BATCH}x{FSDP_SEQ} tokens in {FSDP_MICRO} "
+                    f"microbatches, one process (B3 {got})", rec["cost"])
+    print(f"fsdp x tp oracle: losses {', '.join(f'{x:.6f}' for x in losses)}"
+          f"; steps 2-{FSDP_STEPS} {', '.join(f'{w:.1f}' for w in walls)} ms"
+          f"; peak {peak / 1e9:.2f} GB; final params saved in "
+          f"{save_s:.1f}s [{CARD}]", flush=True)
+    return rec
+
+
+def fsdp_tp_rank(rank, kind, oracle_path) -> dict:
+    """A rank of the FSDP × TP phase: its blocks of ``init_params(cfg, 0)``
+    (each rank draws the whole tree from the same seed on the card, keeps
+    its cut and waits for the others to drop theirs), FSDP_STEPS bf16 steps on its rows of each global
+    batch, then leaf by leaf: the leaf gathered over the mesh and the
+    block held equal to its ``NamedSharding`` cut of it, and the block to
+    the same cut of the oracle's final params (read from ``oracle_path``,
+    memory-mapped; the mesh's heads and ff divide, so no leaf is
+    padded)."""
+    from repro_torch.dist.sharding import (NamedSharding, use_layout,
+                                           use_mesh)
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import fsdp_tp_blocks, fsdp_tp_layout
+    from repro_torch.train import init_train_state, make_train_step
+    dev = _rank_device(kind)
+    cfg = get_config(TRAIN_ARCH)
+    mesh = make_host_mesh(model_parallel=FSDP_MESH["model"], device=dev)
+    lay = fsdp_tp_layout(cfg, mesh)
+    opt, batches = _fsdp_setup(cfg, dev)
+    full = init_params(cfg, 0, device=dev)
+    blocks = fsdp_tp_blocks(cfg, full, lay)
+    del full
+    torch.cuda.empty_cache()
+    # no rank steps while another still holds its whole 10.9 GB tree
+    torch.distributed.barrier()
+    _reset_peak(dev)
+    state = init_train_state(blocks)
+    step = make_train_step(cfg, opt, n_micro=FSDP_RANK_MICRO)
+    losses, walls, launches, per_step = [], [], [], []
+    first_log = None
+    with use_mesh(mesh), use_layout(lay):
+        for s in range(FSDP_STEPS):
+            rows = _dp_rows(batches[s], mesh)
+            start = len(mesh.log)
+            _sync(dev)
+            reset_flash_launches()
+            t0 = time.perf_counter()
+            state, m = step(state, rows)
+            _sync(dev)
+            walls.append(1e3 * (time.perf_counter() - t0))
+            launches.append(flash_attention_cuda.launches)
+            losses.append(float(m["loss"]))
+            log = mesh.log[start:]
+            per_step.append((len(log), sum(r[3] for r in log)))
+            if first_log is None:
+                first_log = [tuple(r) for r in log]
+        peak = _peak(dev)
+        del m, rows, batches
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        oracle = tree_leaves(torch.load(oracle_path, mmap=True,
+                                        map_location="cpu"))
+        pairs = []
+        tree_map(lambda b, spec: pairs.append((b, spec)), state.params,
+                 lay.specs)
+        worst, n_cut = 0.0, 0
+        for (blk, spec), want in zip(pairs, oracle):
+            cut = NamedSharding(mesh, spec)
+            one = cut.gather(blk)
+            if not torch.equal(cut.block(one), blk):
+                raise AssertionError(f"rank {rank}: a block differs from its"
+                                     " cut of the gathered leaf")
+            del one
+            n_cut += any(e is not None for e in spec)
+            # every rank checks its own block: together, the whole tree
+            worst = max(worst, float(
+                (blk - cut.block(want).to(dev)).abs().max()))
+        check_s = time.perf_counter() - t0
+    mesh.close()
+    return {"rank": rank, "losses": losses, "wall_ms": walls,
+            "b3_launches": launches, "collectives_per_step": per_step,
+            "log": first_log, "peak_bytes": peak, "backend": mesh.backend,
+            "staging": mesh.staging, "params_max_abs_vs_oracle": worst,
+            "leaves": len(pairs), "leaves_cut": n_cut, "check_s": check_s,
+            "block_params": sum(b.numel() for b, _ in pairs)}
+
+
+def fsdp_tp_phase(dev) -> dict:
+    """minicpm-2b at full width and depth trained FSDP × TP on a (data =
+    2, model = 2) mesh of 4 gloo ranks sharing the card (CUDA-IPC
+    mailboxes): the one-process oracle first (and alone: its 56 GB do not
+    fit beside the ranks), then the ranks; held: each step's loss and the
+    final params within the bf16 tolerances, every block equal to its cut
+    of the gathered tree, B3 n_layers × n_micro per rank per step, and
+    each rank's collective log of step 1 equal op for op to the cost
+    counter's trace of that rank's step on meta tensors under
+    ``ShapeMesh(data=2, model=2)``."""
+    import gc
+    import shutil
+    import tempfile
+
+    from repro_torch.dist.sharding import ShapeMesh, use_layout, use_mesh
+    from repro_torch.launch.hlo_cost import count_costs
+    from repro_torch.launch.mesh import launch_ranks
+    from repro_torch.models import fsdp_tp_blocks, fsdp_tp_layout
+    from repro_torch.train import init_train_state, make_train_step
+    t_phase = time.perf_counter()
+    # the earlier rank launches' shared CUDA tensors are kept for their
+    # consumers until collected, as is any garbage in reference cycles
+    gc.collect()
+    torch.cuda.ipc_collect()
+    torch.cuda.empty_cache()
+    print(f"fsdp x tp phase: this process holds "
+          f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB "
+          f"({torch.cuda.memory_reserved(dev) / 1e9:.2f} GB reserved) "
+          f"[{CARD}]", flush=True)
+    cfg = get_config(TRAIN_ARCH)
+    (ROOT / "scratch").mkdir(exist_ok=True)
+    root = tempfile.mkdtemp(dir=ROOT / "scratch", prefix="fsdp_")
+    try:
+        path = os.path.join(root, "oracle_params.pt")
+        rec = {"oracle": fsdp_tp_oracle(cfg, dev, path)}
+        rec["oracle_s"] = time.perf_counter() - t_phase
+        n = FSDP_MESH["data"] * FSDP_MESH["model"]
+        _reckon(f"fsdp x tp {cfg.name} L={cfg.n_layers} on {FSDP_MESH}",
+                rec["oracle"]["params"] // n, 16, dev)
+        t0 = time.perf_counter()
+        ranks = launch_ranks(fsdp_tp_rank, n, (dev.type, path), device=dev,
+                             timeout_s=FSDP_TIMEOUT_S)
+        rec["ranks_s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    want = rec["oracle"]["losses"]
+    per_step = cfg.n_layers * FSDP_RANK_MICRO
+    bound = 2 * FSDP_LR * FSDP_STEPS
+    opt, _ = _fsdp_setup(cfg, torch.device("cpu"))
+    for r in ranks:
+        if set(r["b3_launches"]) != {per_step}:
+            raise AssertionError(f"fsdp x tp rank {r['rank']}: B3 launches "
+                                 f"{r['b3_launches']} per step, expected "
+                                 f"{per_step}")
+        # the counter's trace of this rank's step 1 on meta tensors
+        mesh = ShapeMesh(FSDP_MESH, rank=r["rank"])
+        lay = fsdp_tp_layout(cfg, mesh)
+        state = init_train_state(fsdp_tp_blocks(
+            cfg, init_params(cfg, device="meta"), lay))
+        rows = {k: torch.empty((FSDP_BATCH // FSDP_MESH["data"], FSDP_SEQ),
+                               dtype=torch.int32, device="meta")
+                for k in ("tokens", "targets")}
+        with use_mesh(mesh), use_layout(lay):
+            count_costs(make_train_step(cfg, opt, n_micro=FSDP_RANK_MICRO),
+                        state, rows, mesh=mesh)
+        if list(mesh.log) != r["log"]:
+            diff = next((i for i, (a, b) in enumerate(zip(mesh.log, r["log"]))
+                         if a != b), min(len(mesh.log), len(r["log"])))
+            raise AssertionError(
+                f"fsdp x tp rank {r['rank']}: {len(r['log'])} collectives in"
+                f" step 1, the ShapeMesh trace {len(mesh.log)}; first "
+                f"difference at {diff}")
+    rec["per_rank"] = {r["rank"]: {k: v for k, v in r.items() if k != "log"}
+                       for r in ranks}
+    rec["b3_launches"] = sum(rec["oracle"]["b3_launches"]) + sum(
+        sum(r["b3_launches"]) for r in ranks)
+    for r in ranks:
+        step_ms = statistics.median(r["wall_ms"][1:])
+        n_coll, n_bytes = r["collectives_per_step"][0]
+        print(f"fsdp x tp rank {r['rank']} ({r['backend']}, staging "
+              f"{r['staging']}): step {step_ms:.1f} ms (median of steps "
+              f"2-{FSDP_STEPS}; all {', '.join(f'{w:.1f}' for w in r['wall_ms'])}),"
+              f" {n_coll} collectives and {n_bytes / 1e9:.4f} GB per step "
+              f"(equal op for op to the ShapeMesh trace), peak "
+              f"{r['peak_bytes'] / 1e9:.2f} GB, B3 {r['b3_launches'][0]} per "
+              f"step, losses {', '.join(f'{x:.6f}' for x in r['losses'])} "
+              f"(one process {', '.join(f'{x:.6f}' for x in want)}), params"
+              f" within {r['params_max_abs_vs_oracle']:.3e} (bound "
+              f"{bound:.1e}), {r['leaves_cut']} of {r['leaves']} leaves cut,"
+              f" blocks equal to their cuts ({r['check_s']:.1f}s) [{CARD}]",
+              flush=True)
+    for r in ranks:
+        got = r["losses"]
+        if abs(got[0] - want[0]) > FSDP_FIRST_LOSS_TOL * abs(want[0]) \
+                or abs(got[-1] - want[-1]) > FSDP_LOSS_TOL * abs(want[-1]):
+            raise AssertionError(f"fsdp x tp rank {r['rank']}: losses {got}"
+                                 f" vs one process {want}")
+        if r["params_max_abs_vs_oracle"] > bound:
+            raise AssertionError(f"fsdp x tp rank {r['rank']}: params "
+                                 f"{r['params_max_abs_vs_oracle']} from the "
+                                 f"one-process step's (bound {bound})")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"fsdp x tp phase: {rec['phase_s']:.1f}s (oracle "
+          f"{rec['oracle_s']:.1f}, ranks {rec['ranks_s']:.1f}) [{CARD}]",
+          flush=True)
+    return rec
+
+
+def cost_mesh_phase(cfg, mesh_rec) -> dict:
+    """Cost phase (c): the counter's trace of one rank's int4 decode step
+    of the mesh serve (the tree sharded 4 ways, 8 slots, max_len 64, f32
+    cache) on meta tensors under ``ShapeMesh(data=1, model=4)`` must log
+    what each real rank's ``HostMesh`` logged in its measured step."""
+    from repro_torch.dist.sharding import ShapeMesh
+    from repro_torch.launch.hlo_cost import count_costs
+    from repro_torch.serve import (build_sharded_decode_fns, local_view,
+                                   shard_params_tree)
+    tree = shard_params_tree(quantize_for_wbits(
+        init_params(cfg, device="meta"), 4), MESH_RANKS)
+    tok = torch.empty((8, 1), dtype=torch.long, device="meta")
+    rec = {}
+    for rank, log in sorted(mesh_rec["step_logs"].items()):
+        mesh = ShapeMesh({"data": 1, "model": MESH_RANKS}, rank=rank)
+        step_fn, _ = build_sharded_decode_fns(cfg, tree, mesh)
+        cache = step_fn.init_cache(cfg, 8, 64, torch.float32, per_slot=True,
+                                   device="meta")
+        # on the per-layer views, as the engine calls its dispatch
+        costs = count_costs(lambda p, c, t: step_fn(split_layers(p), c, t),
+                            local_view(tree, mesh), cache, tok, mesh=mesh)
+        if [tuple(r) for r in mesh.log] != [tuple(r) for r in log]:
+            raise AssertionError(f"cost (c): rank {rank} logged {len(log)} "
+                                 f"collectives, the ShapeMesh trace "
+                                 f"{len(mesh.log)}, not the same")
+        rec[rank] = {"collectives": costs.n_collectives,
+                     "collective_bytes": costs.collective_bytes,
+                     "b1": costs.kernel_launches}
+    r0 = rec[0]
+    print(f"cost (c) mesh serve {cfg.name} L={cfg.n_layers}, "
+          f"{MESH_RANKS} ranks: the ShapeMesh trace logs "
+          f"{r0['collectives']} with {r0['collective_bytes']:.0f} B per "
+          f"rank per step, B1 {r0['b1']}: equal op for op to every rank's "
+          f"HostMesh log [{CARD}]", flush=True)
+    return rec
+
+
+def start_dryrun_cells(out) -> subprocess.Popen:
+    """Cost phase (d), started: the dry run's cells of minicpm-2b at full
+    width traced on meta tensors under the production meshes (256 and 512
+    ranks) by ``launch.dryrun.run_cell`` in a process of their own, on the
+    host's CPU while the kernels build (it needs no card); stopped at exit
+    if it still runs."""
+    import atexit
+    code = ("from repro_torch.launch.dryrun import run_cell\n"
+            f"for shape, mesh in {DRY_CELLS!r}:\n"
+            f"    run_cell({TRAIN_ARCH!r}, shape, mesh, out_dir={str(out)!r},"
+            " force=True)\n")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", code], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc
+
+
+def cost_dryrun_phase(proc, out) -> dict:
+    """Cost phase (d), read: each cell ``ok`` with its dominant term."""
+    _, err = proc.communicate(timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError(f"cost (d): the dry run exited "
+                             f"{proc.returncode}: {err[-3000:]}")
+    rec = {}
+    for shape, mesh in DRY_CELLS:
+        r = json.loads((Path(out) / f"{TRAIN_ARCH}__{shape}__{mesh}.json")
+                       .read_text())
+        if r["status"] != "ok":
+            raise AssertionError(f"cost (d): dry-run cell {shape} {mesh}: "
+                                 f"{r.get('error')}")
+        rec[f"{shape}__{mesh}"] = {
+            k: r[k] for k in ("status", "dominant", "bound_time_s",
+                              "roofline_fraction", "chips", "n_micro",
+                              "collective_counts", "kernel_launches",
+                              "memory_analysis", "elapsed_s") if k in r}
+        print(f"cost (d) dry run {TRAIN_ARCH} {shape} {mesh} ({r['chips']} "
+              f"ranks, traced on meta in {r['elapsed_s']}s): "
+              f"{r['status']}, dominant {r['dominant']}, bound "
+              f"{r['bound_time_s']:.4f} s, roofline fraction "
+              f"{r['roofline_fraction']:.4f} (modeled, H100 SXM published "
+              f"peaks)", flush=True)
+    return rec
+
+
 T_START = time.perf_counter()
+#: each top-level phase's wall time, in the order run (``timed``)
+PHASE_S: dict = {}
+
+
+def timed(name, fn, *args, **kw):
+    """``fn(*args, **kw)``; its wall time is kept in PHASE_S and printed
+    beside the smoke's time so far."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    PHASE_S[name] = time.perf_counter() - t0
+    print(f"phase {name}: {PHASE_S[name]:.1f}s; smoke so far "
+          f"{time.perf_counter() - T_START:.1f}s", flush=True)
+    return out
 #: ``nvidia-smi``'s name and power limit of the card, set by ``main``;
 #: every report line of the slice-7 phases carries it
 CARD = "card not read"
@@ -5585,10 +6184,11 @@ def main() -> int:
     print(smi.stdout.strip(), flush=True)
     global CARD
     CARD = smi.stdout.strip()
-    t0 = time.perf_counter()
-    took = _build.build_all()
-    print(f"build: {json.dumps(took)} ({time.perf_counter() - t0:.2f}s)",
-          flush=True)
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    dry = start_dryrun_cells(out / "dryrun_torch")
+    took = timed("build", _build.build_all)
+    print(f"build: {json.dumps(took)}", flush=True)
     for stem in _build.sources():
         for line in _build.build_log(stem).splitlines():
             if "registers" in line or "spill" in line:
@@ -5603,20 +6203,23 @@ def main() -> int:
     torch.cuda.synchronize(dev)
     del a
 
-    out = ROOT / "chiprun_out"
-    out.mkdir(exist_ok=True)
-    cases = kernel_phase(dev, gen)
+    cases = timed("kernel", kernel_phase, dev, gen)
     flush = torch.ones(16 << 20, dtype=torch.float32, device=dev)  # 64 MB
-    int8_cases = int8_phase(dev, gen, flush)
-    prefill_kernels = prefill_kernel_phase(dev, gen, flush)
-    zsic = zsic_phase(dev, flush)
-    flash_cases = flash_phase(dev, gen, flush)
+    int8_cases = timed("int8 kernel", int8_phase, dev, gen, flush)
+    prefill_kernels = timed("prefill kernel", prefill_kernel_phase, dev, gen,
+                            flush)
+    zsic = timed("zsic kernel", zsic_phase, dev, flush)
+    flash_cases = timed("flash kernel", flash_phase, dev, gen, flush)
     del flush
 
     cfg = get_config("minicpm-2b")
-    serve, params = serve_path(cfg, 4, dev, n_req=8, prompt_len=32,
-                               new_tokens=16, max_len=64, slots=8, chunk=16)
-    serve.update(step_breakdown(cfg, params, dev, 8, 64, cases))
+    serve, params = timed("serve", serve_path, cfg, 4, dev, n_req=8,
+                          prompt_len=32, new_tokens=16, max_len=64, slots=8,
+                          chunk=16)
+    serve.update(timed("step breakdown", step_breakdown, cfg, params, dev, 8,
+                       64, cases))
+    serve["cost"] = timed("cost (a)", cost_decode_phase, cfg, params, dev,
+                          serve)
     busy = serve["device_busy_ms_per_step"]
     print(f"step breakdown: decode step {serve['decode_step_wall_ms']:.3f} "
           f"ms wall ({serve['decode_step_wall_ms_stacked']:.3f} ms with the "
@@ -5635,87 +6238,102 @@ def main() -> int:
           + f", unembed {serve['unembed_ms']:.5f} ms device, packed kernels "
           f"(kernel phase) {serve['packed_kernels_ms_per_step']:.5f} ms "
           "device", flush=True)
-    t0 = time.perf_counter()
-    serve["prefill"] = prefill_phase(cfg, params, "int4", dev)
-    obs_serve = obs_serve_phase(cfg, params, dev, out, n_req=8, prompt_len=32,
-                                new_tokens=16, max_len=64, slots=8, chunk=16,
-                                ladder_layers=4)
+    serve["prefill"] = timed("prefill", prefill_phase, cfg, params, "int4",
+                             dev)
+    obs_serve = timed("obs serve", obs_serve_phase, cfg, params, dev, out,
+                      n_req=8, prompt_len=32, new_tokens=16, max_len=64,
+                      slots=8, chunk=16, ladder_layers=4)
     if obs_serve["ladder"]["int4_packed"]["tokens"] != serve["tokens"]:
         raise AssertionError("the obs serve run's traffic differs from the "
                              "serve phase's")
-    print(f"prefill + obs serve phases: {time.perf_counter() - t0:.1f}s",
-          flush=True)
+    del params
+    torch.cuda.empty_cache()
     traffic = dict(n_req=8, prompt_len=32, new_tokens=16, max_len=64,
                    slots=8, chunk=16)
     t0 = time.perf_counter()
-    resilience = resilience_serve_phase(cfg, params, dev, **traffic)
-    int8kv = int8kv_phase(cfg, params, dev, **traffic)
+    # the resilience layer and the int8 cache are per-layer seams: held at
+    # a cut depth, the serve cell's traffic unchanged
+    check_cfg = dataclasses.replace(cfg, n_layers=CHECK_LAYERS)
+    params = quantize_for_wbits(init_params(check_cfg, 0, device=dev), 4)
+    resilience = timed("resilience serve", resilience_serve_phase,
+                       check_cfg, params, dev, **traffic)
+    int8kv = timed("int8 kv", int8kv_phase, check_cfg, params, dev,
+                   **traffic)
     phase_s = {"resilience_int8kv": time.perf_counter() - t0}
     del params
     torch.cuda.empty_cache()
     ladder = {}
     short = dataclasses.replace(cfg, n_layers=4)
     for wbits in (3, 2):
-        ladder[wbits], p = serve_path(short, wbits, dev, n_req=4,
-                                      prompt_len=16, new_tokens=8,
-                                      max_len=32, slots=4, chunk=16)
+        ladder[wbits], p = timed(f"ladder int{wbits}", serve_path, short,
+                                 wbits, dev, n_req=4, prompt_len=16,
+                                 new_tokens=8, max_len=32, slots=4, chunk=16)
         del p
         torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    chaos_rows = chaos_phase(cfg, dev, out)
+    chaos_rows = timed("chaos", chaos_phase, cfg, dev, out)
     torch.cuda.empty_cache()
-    degrade = degrade_phase(cfg, dev)
+    degrade = timed("degrade", degrade_phase, cfg, dev)
     torch.cuda.empty_cache()
     phase_s["chaos_degrade"] = time.perf_counter() - t0
     print(f"chaos + degrade phases: {phase_s['chaos_degrade']:.1f}s",
           flush=True)
 
     t0 = time.perf_counter()
-    ptq_cfg = dataclasses.replace(cfg, n_layers=2)
-    ptq, results = ptq_phase(ptq_cfg, dev)
-    ptq["serve"] = serve_after_ptq(ptq_cfg, *results["watersic"], dev)
+    ptq_cfg = dataclasses.replace(cfg, n_layers=PTQ_LAYERS)
+    ptq, results = timed("ptq", ptq_phase, ptq_cfg, dev)
+    ptq["serve"] = timed("serve after ptq", serve_after_ptq, ptq_cfg,
+                         *results["watersic"], dev)
     del results
     torch.cuda.empty_cache()
     print(f"ptq + serve-after-ptq phases: {time.perf_counter() - t0:.1f}s",
           flush=True)
     t0 = time.perf_counter()
-    gptq = gptq_phase(ptq_cfg, dev)
+    gptq = timed("gptq", gptq_phase, ptq_cfg, dev)
     torch.cuda.empty_cache()
-    flash_grad = flash_grad_phase(ptq_cfg, dev, gen)
+    flash_grad = timed("flash grad", flash_grad_phase, ptq_cfg, dev, gen)
     torch.cuda.empty_cache()
     print(f"gptq + flash grad phases: {time.perf_counter() - t0:.1f}s",
           flush=True)
 
     t0 = time.perf_counter()
-    plan, planned = plan_phase(dev, out)
+    with shared_plan_model():
+        plan, planned = timed("plan", plan_phase, dev, out)
     torch.cuda.empty_cache()
-    planned["serve"] = mixed_serve_phase(cfg, plan, dev)
+    planned["serve"] = timed("mixed serve", mixed_serve_phase, cfg, plan, dev)
     planned["phases_s"] = time.perf_counter() - t0
     print(f"plan + mixed-serve phases: {planned['phases_s']:.1f}s",
           flush=True)
 
     t0 = time.perf_counter()
-    quality = quality_requant_phase(dev, out)
+    quality = timed("quality + requant cells", quality_requant_phase, dev,
+                    out)
     torch.cuda.empty_cache()
-    requant_full = requant_full_phase(cfg, dev)
+    requant_full = timed("requant full", requant_full_phase, cfg, dev)
     torch.cuda.empty_cache()
     phase_s["quality_requant"] = time.perf_counter() - t0
     print(f"quality + requant phases: {phase_s['quality_requant']:.1f}s; "
           f"slice-7 phases {sum(phase_s.values()):.1f}s; smoke so far "
           f"{time.perf_counter() - T_START:.1f}s", flush=True)
-    moe_rec = moe_phases(dev, out, gen)
-    print(f"smoke so far {time.perf_counter() - T_START:.1f}s", flush=True)
-    recurrent = recurrent_phases(dev, gen)
-    print(f"smoke so far {time.perf_counter() - T_START:.1f}s", flush=True)
-    encdec = encdec_vlm_phases(dev, gen)
-    print(f"smoke so far {time.perf_counter() - T_START:.1f}s", flush=True)
-    training = training_phases(dev)
-    print(f"smoke so far {time.perf_counter() - T_START:.1f}s", flush=True)
-    mesh = mesh_phases(dev, gen)
-    print(f"smoke so far {time.perf_counter() - T_START:.1f}s", flush=True)
-    train_mesh = training_mesh_phases(dev)
-    print(f"smoke so far {time.perf_counter() - T_START:.1f}s", flush=True)
+    moe_rec = timed("moe", moe_phases, dev, out, gen)
+    recurrent = timed("recurrent", recurrent_phases, dev, gen)
+    encdec = timed("encdec/vlm", encdec_vlm_phases, dev, gen)
+    training = timed("training", training_phases, dev)
+    # before the phases that share CUDA tensors with their ranks: the
+    # launcher keeps those for the ranks until they release them, which
+    # ranks that exit do not always do (18 GB held after the mesh phases)
+    fsdp = timed("fsdp x tp", fsdp_tp_phase, dev)
+    mesh = timed("mesh", mesh_phases, dev, gen)
+    train_mesh = timed("training mesh", training_mesh_phases, dev)
+    zsic = timed("zsic oracle (wait)", finish_zsic_oracle, zsic)
+    gptq["frantar"] = timed("gptq oracle (wait)", finish_frantar,
+                            gptq["frantar"])
+    cost = {"decode": serve["cost"], "train": fsdp["oracle"]["cost"],
+            "mesh": timed("cost (c)", cost_mesh_phase, dataclasses.replace(
+                cfg, n_layers=mesh["n_layers"]), mesh),
+            "dryrun": timed("cost (d)", cost_dryrun_phase, dry,
+                            out / "dryrun_torch")}
     life = training["lifecycle"]
     rec_cases = [v["int4"] for v in recurrent["kernels"]] \
         + [v["int4"] for v in encdec["kernels"]["m8"]] \
@@ -5755,7 +6373,7 @@ def main() -> int:
             "source": SOURCE, "replaces": REPLACES,
             "launches": serve["launches"][4] + rec_b1
             + life["serve_int4"]["launches"].get(4, 0)
-            + mesh["b1_launches"] if nbits == 4
+            + mesh["b1_launches"] + serve["cost"]["b1_counted"] if nbits == 4
             else ladder[nbits]["launches"][nbits],
             "max_abs_err": max(c["max_abs_err"] for c in cases + rec_cases
                                if c["nbits"] == nbits),
@@ -5808,7 +6426,8 @@ def main() -> int:
         "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": FLASH_REPLACES,
         "launches": sum(p["flash_launches"] for p in ptq["ppl"].values())
-        + whisper_b3 + train_b3 + train_mesh["b3_launches"],
+        + whisper_b3 + train_b3 + train_mesh["b3_launches"]
+        + fsdp["b3_launches"],
         "max_abs_err": max(c["max_abs_err"] for c in flash_cases
                            + [encdec["kernels"]["flash"]]),
         "ms": path["ms"], "plain_ms": path["plain_ms"],
@@ -5827,10 +6446,12 @@ def main() -> int:
               "requant_full": requant_full, "slice7_phase_s": phase_s,
               "moe": moe_rec, "recurrent": recurrent,
               "encdec_vlm": encdec, "training": training, "mesh": mesh,
-              "train_mesh": train_mesh,
-              "total_s": time.perf_counter() - T_START}
+              "train_mesh": train_mesh, "fsdp_tp": fsdp, "cost": cost,
+              "phase_s": PHASE_S, "total_s": time.perf_counter() - T_START}
     (out / "chip_smoke_detail.json").write_text(json.dumps(detail, indent=1,
                                                            default=float))
+    print("phases (s): " + ", ".join(f"{k} {v:.1f}"
+                                     for k, v in PHASE_S.items()), flush=True)
     print(f"chip_smoke total {detail['total_s']:.1f}s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -17,6 +17,8 @@ def _load_all():
         _loaded = True
 
 
-from .base import ArchConfig, get_config, list_archs  # noqa: E402
+from .base import (SHAPES, ArchConfig, ShapeSpec, get_config,  # noqa: E402
+                   input_specs, list_archs, runnable_cells)
 
-__all__ = ["ArchConfig", "get_config", "list_archs"]
+__all__ = ["ArchConfig", "SHAPES", "ShapeSpec", "get_config", "input_specs",
+           "list_archs", "runnable_cells"]

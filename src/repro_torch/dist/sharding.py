@@ -32,7 +32,17 @@ enters and leaves through differentiable collectives: :func:`shard_in` /
 entry, slice on exit, so a grad replicated across the axis stays
 replicated and no rank sums a redundant copy), :func:`replicate_in` (the
 identity, whose backward sums the rank's partial grad across the axis)
-and :func:`all_to_all` (backward: the reverse all-to-all).
+and :func:`all_to_all` (backward: the reverse all-to-all).  The FSDP × TP
+train step (``models``, ``train``) adds :func:`fsdp_gather` (a weight
+block gathered over the data axes just before use; backward: the sum
+over those axes, then the rank's slice) and :func:`reduce_out` (the
+row-parallel product's all-reduce over ``model``; backward: the
+identity).
+
+:class:`ShapeMesh` is a mesh of shapes only, for the cost tooling
+(``launch.dryrun``, ``launch.hlo_cost``): rank 0's view of a mesh whose
+other ranks do not exist.  Its collectives return empty tensors of the
+result's shape and log exactly what :class:`HostMesh` logs.
 
 :class:`NamedSharding` pairs a mesh with a spec and cuts a rank's block
 out of a full array (``dist.checkpoint``'s elastic restore).
@@ -47,10 +57,12 @@ import torch
 
 __all__ = [
     "Axis", "default_rules", "spec_for_axes", "batch_spec",
-    "use_mesh", "current_mesh", "logical_shard",
+    "use_mesh", "current_mesh", "use_layout", "current_layout",
+    "logical_shard",
     "manual_axes", "in_manual_axes", "manual_axis_info",
-    "HostMesh", "NamedSharding", "axis_index", "all_gather",
-    "shard_in", "gather_out", "replicate_in", "all_to_all",
+    "HostMesh", "ShapeMesh", "NamedSharding", "axis_index", "all_gather",
+    "shard_in", "gather_out", "replicate_in", "all_to_all", "fsdp_gather",
+    "reduce_out",
 ]
 
 # A rule value: one mesh axis, a tuple of mesh axes, or None (replicate).
@@ -174,6 +186,25 @@ def in_manual_axes() -> bool:
 def manual_axis_info() -> Optional[Dict[str, object]]:
     """The innermost :func:`manual_axes` metadata, or None."""
     s = _stack("manual")
+    return s[-1] if s else None
+
+
+@contextlib.contextmanager
+def use_layout(layout):
+    """Make ``layout`` (``models.FsdpTpLayout``) the parameter layout of
+    this thread (nestable): the params the model code sees are this
+    rank's FSDP × TP blocks, gathered over the data axes just before use,
+    with heads, ff and vocab cut over ``model``."""
+    _stack("layouts").append(layout)
+    try:
+        yield layout
+    finally:
+        _stack("layouts").pop()
+
+
+def current_layout():
+    """The innermost :func:`use_layout` layout, or None (params whole)."""
+    s = _stack("layouts")
     return s[-1] if s else None
 
 
@@ -470,6 +501,94 @@ class _Mailboxes:
             dist.barrier(group=self.group)
 
 
+class ShapeMesh:
+    """A mesh of axis sizes and rank ``rank``'s coordinates, with no
+    process group: the production meshes (``launch.mesh.
+    make_production_mesh``) whose 256 or 512 ranks exist only as shapes.
+
+    Tracing one rank's program under it (on ``meta`` tensors, or any
+    device) runs the rank's code path as a :class:`HostMesh` rank would,
+    with each collective (``all_gather``, ``all_reduce``, ``all_to_all``,
+    ``broadcast``) returning an empty tensor of the result's shape on the
+    input's device and appending to :attr:`log` the same ``(op, dtype,
+    shape, bytes)`` record that :class:`HostMesh` appends (the bytes of
+    the result on this rank, as the reference's ``collective_bytes``
+    counts them)."""
+
+    backend = "none"
+    staging = "none"
+
+    def __init__(self, shape: Dict[str, int], rank: int = 0):
+        self.shape = dict(shape)
+        self.axis_names = tuple(shape)
+        self.rank = rank
+        self.size = 1
+        for n in self.shape.values():
+            self.size *= n
+        self.device = torch.device("meta")
+        self._coord = {}
+        rest = rank
+        for name in reversed(self.axis_names):
+            self._coord[name] = rest % self.shape[name]
+            rest //= self.shape[name]
+        self.log: List[Tuple[str, str, Tuple[int, ...], int]] = []
+
+    def __repr__(self) -> str:
+        dims = ", ".join(f"{k}={v}" for k, v in self.shape.items())
+        return f"ShapeMesh({dims}; rank {self.rank})"
+
+    axis_index = HostMesh.axis_index
+    _record = HostMesh._record
+
+    def _empty(self, x, shape, dtype=None) -> torch.Tensor:
+        return torch.empty(tuple(shape), dtype=dtype or x.dtype,
+                           device=x.device)
+
+    def all_gather(self, x, axis, dim=0, tiled=False):
+        n = self.shape[axis]
+        shape = list(x.shape)
+        if tiled:
+            shape[dim] *= n
+        else:
+            shape.insert(dim % (x.ndim + 1), n)
+        out = self._empty(x, shape)
+        self._record("all_gather", out)
+        return out
+
+    def broadcast(self, x, src=0):
+        out = self._empty(x, x.shape)
+        if self.size > 1:
+            self._record("broadcast", out)
+        return out
+
+    def all_reduce(self, x, axis, op="sum", *, acc_dtype=None):
+        if op not in ("sum", "max"):
+            raise ValueError(f"all_reduce op {op!r}: 'sum' or 'max'")
+        dtype = x.dtype
+        for name in ((axis,) if isinstance(axis, str) else tuple(axis)):
+            if self.shape[name] > 1:
+                self._record(f"all_reduce_{op}", self._empty(x, x.shape,
+                                                             dtype))
+                dtype = acc_dtype or dtype
+        return self._empty(x, x.shape, acc_dtype or x.dtype)
+
+    def all_to_all(self, x, axis, split_dim, concat_dim):
+        n = self.shape[axis]
+        if n == 1:
+            return x
+        size = x.shape[split_dim]
+        if size % n:
+            raise ValueError(f"all_to_all: dim {split_dim} of {tuple(x.shape)}"
+                             f" does not split into {n} blocks")
+        moved = x.movedim(split_dim, 0)
+        self._record("all_to_all", self._empty(
+            x, (n, size // n) + tuple(moved.shape[1:])))
+        shape = list(x.shape)
+        shape[split_dim] //= n
+        shape[concat_dim] *= n
+        return self._empty(x, shape)
+
+
 class NamedSharding:
     """The port's ``jax.sharding.NamedSharding``: a :class:`HostMesh` and
     a spec, one entry per leading dim (``None``, a mesh axis name or a
@@ -510,6 +629,18 @@ class NamedSharding:
         """This rank's block of ``full`` (a tensor or numpy array: a view
         of it)."""
         return full[self.index(full.shape)]
+
+    def gather(self, block: torch.Tensor) -> torch.Tensor:
+        """The whole array from every rank's ``block``, the inverse of
+        :meth:`block` (collective: every rank calls it): each cut dim
+        gathered over its axes, the minor axis first."""
+        for dim, entry in enumerate(self.spec):
+            names = () if entry is None else (
+                (entry,) if isinstance(entry, str) else tuple(entry))
+            for name in reversed(names):
+                block = self.mesh.all_gather(block.contiguous(), name, dim,
+                                             tiled=True)
+        return block
 
 
 def _mesh() -> HostMesh:
@@ -620,3 +751,67 @@ def all_to_all(x: torch.Tensor, axis: str, split_dim: int, concat_dim: int,
     """:meth:`HostMesh.all_to_all`, differentiable: its backward is the
     reverse all-to-all (``concat_dim`` split, ``split_dim`` joined)."""
     return _AllToAll.apply(x, mesh or _mesh(), axis, split_dim, concat_dim)
+
+
+def _axes_block(mesh, axes: Sequence[str]) -> Tuple[int, int]:
+    """(count, index) of this rank's block over ``axes`` taken together:
+    the product of their sizes and the rank's row-major coordinate over
+    them (the first axis major), as a spec entry naming ``axes`` cuts a
+    dim."""
+    n, coord = 1, 0
+    for name in axes:
+        n *= mesh.shape[name]
+        coord = coord * mesh.shape[name] + mesh.axis_index(name)
+    return n, coord
+
+
+class _FsdpGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        out = x
+        for name in reversed(axes):          # the minor axis first
+            out = mesh.all_gather(out.contiguous(), name, dim, tiled=True)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes, dim = ctx.mesh, ctx.axes, ctx.dim
+        total = mesh.all_reduce(g.contiguous(), axes)
+        n, coord = _axes_block(mesh, axes)
+        per = total.shape[dim] // n
+        return (total.narrow(dim, coord * per, per).contiguous(),
+                None, None, None)
+
+
+class _ReduceOut(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return mesh.all_reduce(x.contiguous(), axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def fsdp_gather(x: torch.Tensor, axes: Sequence[str], dim: int, *,
+                mesh=None) -> torch.Tensor:
+    """The whole of a weight whose ``dim`` is cut over the data ``axes``
+    (``("data",)`` or ``("pod", "data")``), from this rank's block ``x``:
+    tiled all-gathers, the minor axis first.  Backward: the grads of the
+    whole weight summed over ``axes`` (each data rank's batch rows), then
+    this rank's slice: the reduce-scatter of FSDP, as a sum and a cut."""
+    axes = tuple(a for a in axes if (mesh or _mesh()).shape[a] > 1)
+    if not axes:
+        return x
+    return _FsdpGather.apply(x, mesh or _mesh(), axes, dim)
+
+
+def reduce_out(x: torch.Tensor, axis: str, *, mesh=None) -> torch.Tensor:
+    """The sum over ``axis`` of the ranks' partial ``x`` (a row-parallel
+    product's output); backward: the identity, since the loss downstream
+    is the same on every rank of ``axis``."""
+    mesh = mesh or _mesh()
+    if mesh.shape[axis] == 1:
+        return x
+    return _ReduceOut.apply(x, mesh, axis)

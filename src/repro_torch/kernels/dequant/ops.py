@@ -34,6 +34,13 @@ serving (``serve/sharded.py``): one kernel call per in-feature shard and
 an ordered chain sum of the partials, in one process (the oracle) or one
 shard per rank with the partials gathered (``path="kshard"`` in the
 dispatch counter).
+
+Cost hooks (``kernels._cost``): with a step cost counter active
+(``launch.hlo_cost``) each kernel product reports its name, 2·m·n·k
+FLOPs and the bytes it streams (payload once, x, scales, out), and on
+``meta`` tensors (the dry run) returns an empty output, running neither
+the kernel nor the twin.  With no counter active the cost is one ``is
+None`` check.
 """
 from __future__ import annotations
 
@@ -44,6 +51,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import obs
+from repro_torch.kernels import _cost
 
 from .dequant_matmul import (PLANE_GROUPS, dequant_matmul_int8_cuda,
                              dequant_matmul_packed_cuda)
@@ -147,15 +155,32 @@ def dequant_matmul(x, z, col_scale, row_scale, *, escapes=None):
     return _int8(x, z, col_scale, row_scale, escapes)
 
 
+def _report(name, x, z, n, k, extra=0):
+    """Charge one kernel product (x (m, k) against n outputs) to the
+    active cost counter: 2·m·n·k FLOPs; bytes: the payload once, x, the
+    column and row scales, the f32 output (and ``extra``)."""
+    m = x.shape[0]
+    nbytes = (z.numel() * z.element_size() + x.numel() * x.element_size()
+              + 4 * (k + n) + 4 * m * n + extra)
+    _cost.report(name, 2.0 * m * n * k, nbytes)
+
+
 def _int8(x, z, col_scale, row_scale, escapes=None):
     """The int8 product of :func:`dequant_matmul`, not counted."""
+    if _cost.ACTIVE[0] is not None:
+        _report("dequant_matmul_int8", x, z, z.shape[0], x.shape[1])
+        if z.device.type == "meta":
+            return x.new_empty((x.shape[0], z.shape[0]), dtype=torch.float32)
     if z.is_cuda:
         out = dequant_matmul_int8_cuda(
             x.to(torch.float32).contiguous(), z,
             col_scale.to(torch.float32).contiguous(),
             row_scale.to(torch.float32).contiguous())
-    else:
+    elif _cost.ACTIVE[0] is None:
         out = dequant_matmul_ref(x, z, col_scale, row_scale)
+    else:
+        with _cost.muted():
+            out = dequant_matmul_ref(x, z, col_scale, row_scale)
     if escapes is not None:
         out = _apply_escapes(out, x, col_scale, row_scale, escapes)
     return out
@@ -181,6 +206,13 @@ def _packed(x, payload, col_scale, row_scale, nbits, escapes=None):
     if not k_packed - g < k <= k_packed:
         raise ValueError(f"x {tuple(x.shape)} does not match the nbits={nbits}"
                          f" payload {tuple(payload.shape)}")
+    if _cost.ACTIVE[0] is not None:
+        _report(f"dequant_matmul_packed_int{nbits}", x, payload, n, k)
+        if payload.device.type == "meta":
+            out = x.new_empty((m, n), dtype=torch.float32)
+            if escapes is not None:
+                out = _apply_escapes(out, x, col_scale, row_scale, escapes)
+            return out
     xp = x.to(torch.float32)
     sp = col_scale.to(torch.float32)
     if k < k_packed:
@@ -191,9 +223,13 @@ def _packed(x, payload, col_scale, row_scale, nbits, escapes=None):
             xp.contiguous().view(m, g, kg), payload.contiguous(),
             sp.contiguous().view(g, kg),
             row_scale.to(torch.float32).contiguous(), nbits=nbits)
-    else:
+    elif _cost.ACTIVE[0] is None:
         out = dequant_matmul_packed_ref(xp, payload, sp, row_scale,
                                         nbits=nbits)
+    else:
+        with _cost.muted():
+            out = dequant_matmul_packed_ref(xp, payload, sp, row_scale,
+                                            nbits=nbits)
     if escapes is not None:
         out = _apply_escapes(out, x, col_scale, row_scale, escapes)
     return out

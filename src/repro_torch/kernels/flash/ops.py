@@ -17,15 +17,36 @@ Half-width input (the train step's bf16 cast) is computed in float32 on
 both sides: the forward casts q, k, v up for the kernel (whose contract is
 float32) and its output back to ``q.dtype``; the backward recomputes the
 twin in float32 and casts each gradient back to its input's dtype.
+
+Cost hooks (``kernels._cost``): with a step cost counter active
+(``launch.hlo_cost``) the forward reports its FLOPs over the pairs the
+mask keeps (4·d per pair: QKᵀ and PV) and its bytes (q, k, v read and the
+output written, f32 as the kernel takes them) and on ``meta`` tensors
+returns an empty output, running neither the kernel nor the twin.  The
+backward's recompute runs through the twin and is counted op by op.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import _cost
+
 from .flash_attention import flash_attention_cuda
 from .ref import attention_ref
 
-__all__ = ["flash_attention"]
+__all__ = ["flash_attention", "kept_pairs"]
+
+
+def kept_pairs(s: int, causal: bool, window: int) -> int:
+    """(query, key) pairs of one S × S attention that the mask keeps:
+    ``j <= i`` when causal, ``i - j < window`` when windowed."""
+    if causal:
+        if window and window < s:
+            return window * (window + 1) // 2 + (s - window) * window
+        return s * (s + 1) // 2
+    if window and window < s:
+        return s * s - (s - window) * (s - window + 1) // 2
+    return s * s
 
 
 def _fold(x):  # (B, S, H, d) -> (B*H, S, d)
@@ -58,12 +79,22 @@ class _FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, causal, window):
         ctx.save_for_backward(q, k, v)
         ctx.causal, ctx.window = causal, window
+        if _cost.ACTIVE[0] is not None:
+            b, s, h, d = q.shape
+            _cost.report("flash_attention",
+                         4.0 * d * b * h * kept_pairs(s, causal, window),
+                         4 * 4 * q.numel())
+            if q.device.type == "meta":
+                return torch.empty_like(q)
         if q.is_cuda:
             out = flash_attention_cuda(
                 _wide(q).contiguous(), _wide(k).contiguous(),
                 _wide(v).contiguous(), causal=causal, window=window)
             return out.to(q.dtype)
-        return _twin(q, k, v, causal, window)
+        if _cost.ACTIVE[0] is None:
+            return _twin(q, k, v, causal, window)
+        with _cost.muted():
+            return _twin(q, k, v, causal, window)
 
     @staticmethod
     def backward(ctx, grad_out):

@@ -4,10 +4,9 @@
 :func:`make_host_mesh` lays the ranks of an initialized process group out
 as the reference's ``(data, model)`` mesh.  :func:`launch_ranks` starts N
 rank processes (the ``spawn`` start method: every rank gets a fresh CUDA
-context), joins them under a timeout and returns each rank's result;
-``make_production_mesh`` (the 16×16 pods, which only the reference's
-dry-run tooling lowers onto) belongs to the cost tooling (ROADMAP A item
-2).
+context), joins them under a timeout and returns each rank's result.  :func:`make_production_mesh` describes the
+16 × 16 pod (2 × 16 × 16 multi-pod) that the dry run traces one rank of:
+a ``ShapeMesh``, since those ranks do not exist.
 
 The collective backend is chosen by one rule, :func:`backend_rule`:
 ``nccl`` when every rank has a card of its own, ``gloo`` otherwise (NCCL
@@ -31,9 +30,20 @@ from typing import Any, Callable, List, Sequence, Tuple
 
 import torch
 
-from repro_torch.dist.sharding import HostMesh
+from repro_torch.dist.sharding import HostMesh, ShapeMesh
 
-__all__ = ["backend_rule", "staging_rule", "make_host_mesh", "launch_ranks"]
+__all__ = ["backend_rule", "staging_rule", "make_production_mesh",
+           "make_host_mesh", "launch_ranks"]
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> ShapeMesh:
+    """Rank 0's view of the production mesh: ``(data=16, model=16)``, or
+    ``(pod=2, data=16, model=16)`` with ``multi_pod`` (the reference builds
+    the same 256 / 512 ranks from forced host devices).
+    ``dist.sharding.default_rules(multi_pod=True)`` maps the pod axis."""
+    if multi_pod:
+        return ShapeMesh({"pod": 2, "data": 16, "model": 16})
+    return ShapeMesh({"data": 16, "model": 16})
 
 
 def backend_rule(world_size: int, device) -> Tuple[str, str]:

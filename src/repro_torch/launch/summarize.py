@@ -1,22 +1,78 @@
-"""Plan and metric-log reports (port of ``repro/launch/summarize.py``).
+"""Dry-run roofline tables, plan and metric-log reports (port of
+``repro/launch/summarize.py``).
 
+    python -m repro_torch.launch.summarize [--dir experiments/dryrun_torch]
     python -m repro_torch.launch.summarize --plan plan.json
     python -m repro_torch.launch.summarize --metrics events.jsonl
 
-``plan_summary`` renders a ``QuantPlan`` JSON dict (realized bits/param
+``table`` renders the dry run's cell JSONs (``launch/dryrun.py``) as the
+reference renders its own, character for character; ``plan_summary`` renders a ``QuantPlan`` JSON dict (realized bits/param
 against the target, the per-layer allocation histogram), as
 ``python -m repro_torch.launch.plan inspect`` prints it;
 ``metrics_summary`` renders a ``repro_torch.obs`` (or ``repro.obs``)
 JSONL metric log: counters and gauges as a table, histograms with their
-quantiles.  Stdlib only, like the reference.  The reference's dry-run
-roofline tables come with ``launch/dryrun.py`` (ROADMAP queue A).
+quantiles.  Stdlib only, like the reference.
 """
 from __future__ import annotations
 
 import argparse
+import glob
 import json
+import os
 
-__all__ = ["plan_summary", "metrics_summary", "main"]
+__all__ = ["fmt_bytes", "load_all", "table", "plan_summary",
+           "metrics_summary", "main"]
+
+
+def fmt_bytes(b):
+    if b >= 1 << 30:
+        return f"{b / (1 << 30):.2f}G"
+    if b >= 1 << 20:
+        return f"{b / (1 << 20):.1f}M"
+    return f"{b / 1024:.0f}K"
+
+
+def load_all(d):
+    """Every cell JSON of the dry-run directory ``d``, in file-name order."""
+    rows = []
+    for f in sorted(glob.glob(os.path.join(d, "*.json"))):
+        with open(f) as fh:
+            rows.append(json.load(fh))
+    return rows
+
+
+def table(rows, mesh="single"):
+    """The roofline table of ``mesh``'s 16-bit cells (one row per cell)."""
+    hdr = ("| arch | shape | st | flops/dev | bytes/dev | coll/dev | "
+           "compute_s | memory_s | coll_s | dom | useful | RLfrac | "
+           "mem/dev |")
+    sep = "|" + "---|" * 13
+    out = [hdr, sep]
+    for r in rows:
+        if r.get("mesh") != mesh or (r.get("wbits", 16) != 16):
+            continue
+        if r.get("status") == "skipped":
+            out.append(f"| {r['arch']} | {r['shape']} | SKIP | "
+                       f"{r.get('reason', '')[:40]} |" + " |" * 9)
+            continue
+        if r.get("status") != "ok":
+            out.append(f"| {r['arch']} | {r['shape']} | "
+                       f"{r.get('status', '?').upper()} |" + " |" * 10)
+            continue
+        rl = r["roofline"]
+        mem = r.get("memory_analysis", {})
+        peak = mem.get("argument_size_in_bytes", 0) \
+            + mem.get("temp_size_in_bytes", 0)
+        out.append(
+            f"| {r['arch']} | {r['shape']} | ok "
+            f"| {rl['hlo_flops_per_device']:.2e} "
+            f"| {rl['hlo_bytes_per_device']:.2e} "
+            f"| {rl['collective_bytes_per_device']:.2e} "
+            f"| {rl['compute_s']:.4f} | {rl['memory_s']:.4f} "
+            f"| {rl['collective_s']:.4f} | {rl['dominant'][:4]} "
+            f"| {rl['useful_ratio']:.2f} | {r['roofline_fraction']:.3f} "
+            f"| {fmt_bytes(peak)} |")
+    return "\n".join(out)
 
 
 def _wmean(entries, field):
@@ -129,9 +185,12 @@ def metrics_summary(lines, width: int = 30) -> str:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    group = ap.add_mutually_exclusive_group(required=True)
+    ap.add_argument("--dir", default="experiments/dryrun_torch")
+    ap.add_argument("--mesh", default="single")
+    group = ap.add_mutually_exclusive_group()
     group.add_argument("--plan", default=None,
-                       help="summarize a QuantPlan artifact")
+                       help="summarize a QuantPlan artifact instead of the "
+                            "dry-run roofline tables")
     group.add_argument("--metrics", default=None,
                        help="summarize a repro_torch.obs JSONL metric log "
                             "(counters + histogram quantiles)")
@@ -140,8 +199,11 @@ def main(argv=None):
         with open(args.plan) as f:
             print(plan_summary(json.load(f)))
         return
-    with open(args.metrics) as f:
-        print(metrics_summary(f))
+    if args.metrics:
+        with open(args.metrics) as f:
+            print(metrics_summary(f))
+        return
+    print(table(load_all(args.dir), args.mesh))
 
 
 if __name__ == "__main__":

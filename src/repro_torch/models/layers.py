@@ -207,13 +207,36 @@ def attention_train(p, x, *, n_q, n_kv, head_dim, rope_theta=10000.0,
     and GQA take the plain masked softmax, as in the reference.
     ``return_kv`` also returns the post-rope (K, V), each (B, T, n_kv,
     head_dim): what a decode cache holds.
+
+    Under an FSDP × TP layout (``dist.sharding.current_layout``) the
+    weights are this rank's heads (``models.FsdpTpLayout``): q, k, v are
+    column-parallel (their input enters through ``replicate_in``, whose
+    backward sums the ranks' partial grads over ``model``), the rank
+    attends over its own heads, and wo is row-parallel (its partial
+    output summed over ``model`` by ``reduce_out``, its bias added once
+    after).  With fewer kv heads than ``model`` ranks, wk and wv are
+    whole on every rank and each rank takes the kv head of its q heads.
     """
+    lay = _sh.current_layout()
+    if lay is not None:
+        n_q, n_kv = lay.q_loc, lay.kv_loc
+        x = _sh.replicate_in(x, "model", mesh=lay.mesh)
+        if kv_x is not None:
+            kv_x = _sh.replicate_in(kv_x, "model", mesh=lay.mesh)
     b, s, d = x.shape
     src = x if kv_x is None else kv_x
     t = src.shape[1]
     q = _split_heads(dense(p["wq"], x), n_q, head_dim)
-    k = _split_heads(dense(p["wk"], src), n_kv, head_dim)
-    v = _split_heads(dense(p["wv"], src), n_kv, head_dim)
+    if lay is not None and lay.kv_rep:
+        # whole wk / wv, used in part: their grads sum over ``model``
+        pk, pv = ({n: _sh.replicate_in(a, "model", mesh=lay.mesh)
+                   for n, a in p[key].items()} for key in ("wk", "wv"))
+        pick = lay.kv_pick()
+        k = _split_heads(dense(pk, src), -1, head_dim)[:, :, pick:pick + 1]
+        v = _split_heads(dense(pv, src), -1, head_dim)[:, :, pick:pick + 1]
+    else:
+        k = _split_heads(dense(p["wk"], src), n_kv, head_dim)
+        v = _split_heads(dense(p["wv"], src), n_kv, head_dim)
     if use_rope and kv_x is None:
         if positions is None:
             positions = torch.arange(s, device=x.device)[None, :]
@@ -240,10 +263,22 @@ def attention_train(p, x, *, n_q, n_kv, head_dim, rope_theta=10000.0,
                                  torch.full_like(scores, -1e30))
         probs = torch.softmax(scores.to(torch.float32), dim=-1)
         out = _attn_out(probs.to(x.dtype), v)
-    out = dense(p["wo"], out)
+    if lay is None:
+        out = dense(p["wo"], out)
+    else:
+        out = _row_parallel(p["wo"], out, lay)
     if return_kv:
         return out, (k, v)
     return out
+
+
+def _row_parallel(p, h, lay):
+    """A row-parallel product: this rank's partial ``h @ w`` summed over
+    ``model``, then the (whole) bias added once."""
+    y = _sh.reduce_out(h @ p["w"].to(h.dtype), "model", mesh=lay.mesh)
+    if "b" in p:
+        y = y + p["b"].to(h.dtype)
+    return y
 
 
 def attention_decode(p, x_t, cache: KVCache, pos, *, n_q, n_kv, head_dim,
@@ -366,11 +401,19 @@ _ACTIVATIONS = {
 
 
 def mlp(p, x, *, activation="silu"):
+    """The (gated) MLP.  Under an FSDP × TP layout the gate/up (in)
+    products are column-parallel over this rank's ff block and w_out is
+    row-parallel, as in :func:`attention_train`."""
     act = _ACTIVATIONS[activation]
+    lay = _sh.current_layout()
+    if lay is not None:
+        x = _sh.replicate_in(x, "model", mesh=lay.mesh)
     if "w_gate" in p:
         h = act(dense(p["w_gate"], x)) * dense(p["w_up"], x)
     else:
         h = act(dense(p["w_in"], x))
+    if lay is not None:
+        return _row_parallel(p["w_out"], h, lay)
     return dense(p["w_out"], h)
 
 
@@ -612,12 +655,29 @@ def _moe_a2a(p, x, mesh, *, n_experts, top_k, capacity_factor, activation):
 
 
 def embed(p, tokens):
-    return p["w"][tokens]
+    """Rows of the embedding table.  Under an FSDP × TP layout the table
+    is this rank's block of vocab rows: tokens outside it give zero rows
+    and ``reduce_out`` sums the ranks' rows over ``model``."""
+    lay = _sh.current_layout()
+    if lay is None:
+        return p["w"][tokens]
+    w = p["w"]
+    n = w.shape[0]
+    local = tokens.long() - _sh.axis_index("model") * n
+    hit = (local >= 0) & (local < n)
+    rows = w[local.clamp(0, n - 1)] * hit[..., None].to(w.dtype)
+    return _sh.reduce_out(rows, "model", mesh=lay.mesh)
 
 
 def unembed(p, x, vocab: Optional[int] = None):
     """Logits against the tied embedding, a plain matmul (it reads the
-    whole (padded_vocab, d) table every step); padded rows sliced off."""
+    whole (padded_vocab, d) table every step); padded rows sliced off.
+    Under an FSDP × TP layout: this rank's block of the padded vocab's
+    logits (``models.loss_fn`` masks the padded columns)."""
+    lay = _sh.current_layout()
+    if lay is not None:
+        x = _sh.replicate_in(x, "model", mesh=lay.mesh)
+        return x @ p["w"].to(x.dtype).T
     logits = x @ p["w"].to(x.dtype).T
     if vocab is not None and vocab != logits.shape[-1]:
         logits = logits[..., :vocab]

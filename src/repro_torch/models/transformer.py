@@ -17,6 +17,8 @@ API (plain functions of (cfg, params, ...)):
   encode / capture_cross_kv                  -> encoder states, cross K/V
   cache_write_slot / cache_reset_slot        -> slot graft / eviction
   split_layers(params)                       -> params with per-layer views
+  fsdp_tp_layout / fsdp_tp_blocks / fsdp_tp_gather
+                                             -> FSDP × TP params on a mesh
 
 The reference's ``jax.lax.scan`` over layers is a Python loop over the
 first axis of the stacked leaves (``layers``; the hybrid's ``groups`` of
@@ -32,14 +34,17 @@ its tensors with the input cache and carries a new position tensor.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
-from typing import Any, NamedTuple
+from typing import Any, NamedTuple, Sequence, Tuple
 
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
-from repro_torch.dist.sharding import spec_for_axes
+from repro_torch.dist.sharding import (NamedSharding, current_layout,
+                                       default_rules, fsdp_gather,
+                                       reduce_out, spec_for_axes)
 from repro_torch.opts import enabled as _opt
 from repro_torch.tree import tree_leaves, tree_map
 from . import rglru as rg
@@ -53,7 +58,9 @@ __all__ = ["init_params", "forward_train", "loss_fn", "init_cache",
            "decode_step", "decode_chunk", "prefill", "cache_write_slot",
            "cache_reset_slot", "cache_rows", "layer_kv", "split_layers",
            "decode_layers", "prefill_layers", "encode", "capture_cross_kv",
-           "DecodeCache", "param_axes", "param_specs_tree", "expert_specs"]
+           "DecodeCache", "param_axes", "param_specs_tree", "expert_specs",
+           "FsdpTpLayout", "fsdp_tp_layout", "fsdp_tp_blocks",
+           "fsdp_tp_gather"]
 
 _FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 #: the stacked layer trees of a param tree
@@ -91,7 +98,8 @@ def _norm(cfg, p, x):
 
 def init_params(cfg: ArchConfig, seed: int = 0, *, device=None,
                 dtype=torch.float32):
-    """Random params on ``device`` from a ``torch.Generator``.
+    """Random params on ``device`` from a ``torch.Generator`` (on the
+    ``meta`` device: the same tree of shapes, no values).
 
     Same tree and shapes as the reference's ``init_params`` (after
     ``split_tree``); the values differ by design.  Weights are normal with
@@ -115,14 +123,18 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device=None,
     """
     _check_family(cfg)
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
     L, d, hd = cfg.n_layers, cfg.d_model, cfg.resolved_head_dim
+    if dev.type == "meta":
+        def normal(shape, std):
+            return torch.empty(shape, dtype=dtype, device=dev)
+    else:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
 
-    def normal(shape, std):
-        # scaled in place: a full-width expert stack is 13 GB of f32
-        return torch.randn(shape, generator=gen, device=dev,
-                           dtype=torch.float32).mul_(std).to(dtype)
+        def normal(shape, std):
+            # scaled in place: a full-width expert stack is 13 GB of f32
+            return torch.randn(shape, generator=gen, device=dev,
+                               dtype=torch.float32).mul_(std).to(dtype)
 
     def lin(n_in, n_out, bias, lead=(L,)):
         p = {"w": normal(lead + (n_in, n_out), n_in ** -0.5)}
@@ -317,6 +329,257 @@ def expert_specs(cfg: ArchConfig, rules=None):
 
 
 # ---------------------------------------------------------------------------
+# FSDP × TP layout (the sharded train step; reference: the params'
+# NamedShardings in ``launch/dryrun._lower_train``)
+# ---------------------------------------------------------------------------
+
+#: the families whose FSDP × TP train step is still to come
+_FSDP_TP_LATER = ("moe", "ssm", "hybrid")
+_ATTN_BLOCKS = ("attn", "self_attn", "cross_attn")
+_FF_IN = ("w_gate", "w_up", "w_in")
+
+
+@dataclasses.dataclass(eq=False)
+class FsdpTpLayout:
+    """How one model's params lie on ``mesh`` under FSDP × TP
+    (:func:`fsdp_tp_layout`).
+
+    ``specs`` holds each leaf's spec (``param_specs_tree`` under the
+    mesh's rules: ``d_model_w`` over the data axes ``dp``; heads,
+    ``kv_heads``, ``ff`` and ``vocab`` over ``model``), of the PADDED
+    leaf: a head count that does not divide ``model`` is padded with whole
+    zero heads (``q_index`` / ``kv_index`` map each padded head to its
+    source head, -1 for a zero head whose wq/wk/wv columns and wo rows are
+    zero: an exact no-op, whose grads stay zero), ``d_ff`` with zero
+    columns to ``ff``.  With fewer kv heads than ``model`` ranks (a
+    divisor of it) the kv heads are whole on every rank instead
+    (``kv_rep`` ranks per kv head; their specs replicate ``kv_heads``)
+    and each kv head's q heads are padded to a multiple of ``kv_rep``."""
+
+    mesh: Any
+    dp: Tuple[str, ...]
+    q_index: Tuple[int, ...]
+    kv_index: Tuple[int, ...]
+    kv_rep: int
+    ff: int
+    specs: Any
+
+    @property
+    def tp(self) -> int:
+        return self.mesh.shape.get("model", 1)
+
+    @property
+    def q_loc(self) -> int:
+        """q heads on one rank."""
+        return len(self.q_index) // self.tp
+
+    @property
+    def kv_loc(self) -> int:
+        """kv heads one rank attends with."""
+        return 1 if self.kv_rep else len(self.kv_index) // self.tp
+
+    def kv_pick(self) -> int:
+        """With replicated kv heads: the kv head of this rank's q heads."""
+        return self.mesh.axis_index("model") // self.kv_rep
+
+
+def _spec_walk(axes, fn, path=()):
+    if isinstance(axes, dict):
+        return {k: _spec_walk(v, fn, path + (k,)) for k, v in axes.items()}
+    if isinstance(axes, list):
+        return [_spec_walk(v, fn, path) for v in axes]
+    return fn(path, axes)
+
+
+def fsdp_tp_layout(cfg: ArchConfig, mesh) -> FsdpTpLayout:
+    """The FSDP × TP layout of ``cfg`` on ``mesh`` (a ``HostMesh`` or a
+    ``ShapeMesh`` with ``data`` (and ``pod``) and ``model`` axes).  The
+    dense, encoder–decoder and prefix-LM families run it; the MoE, ssm and
+    hybrid families raise ``NotImplementedError`` (ROADMAP A item 13)."""
+    _check_family(cfg)
+    if cfg.family in _FSDP_TP_LATER:
+        raise NotImplementedError(
+            f"{cfg.name}: the FSDP × TP train step of the {cfg.family} "
+            "family is ROADMAP A item 13 (the dense, encoder–decoder and "
+            "prefix-LM families run it)")
+    m = mesh.shape.get("model", 1)
+    nq, nkv = cfg.n_heads, cfg.n_kv
+    g = nq // nkv
+    if nkv >= m or m % nkv:
+        kv_pad = -(-nkv // m) * m
+        kv_index = tuple(range(nkv)) + (-1,) * (kv_pad - nkv)
+        q_index = tuple(i if i < nq else -1 for i in range(kv_pad * g))
+        rep = 0
+    else:
+        rep = m // nkv
+        g_pad = -(-g // rep) * rep
+        kv_index = tuple(range(nkv))
+        q_index = tuple(j * g + i if i < g else -1
+                        for j in range(nkv) for i in range(g_pad))
+    rules = default_rules("pod" in mesh.axis_names)
+
+    def spec(path, axes):
+        if rep and len(path) >= 2 and path[-2] in ("wk", "wv"):
+            axes = tuple(None if a == "kv_heads" else a for a in axes)
+        return spec_for_axes(axes, rules)
+
+    return FsdpTpLayout(
+        mesh=mesh, dp=tuple(a for a in ("pod", "data")
+                            if a in mesh.axis_names),
+        q_index=q_index, kv_index=kv_index, kv_rep=rep,
+        ff=-(-cfg.d_ff // m) * m,
+        specs=_spec_walk(param_axes(cfg), spec))
+
+
+def _take_units(t, dim: int, index: Sequence[int], unit: int):
+    """``t`` rebuilt along ``dim`` from ``unit``-wide blocks: block i of
+    the result is source block ``index[i]``, zeros where it is -1 (runs
+    of consecutive blocks are copied at once); ``t`` itself when ``index``
+    is the identity."""
+    n = t.shape[dim] // unit
+    if tuple(index) == tuple(range(n)):
+        return t
+    parts, i = [], 0
+    while i < len(index):
+        j = i + 1
+        if index[i] < 0:
+            while j < len(index) and index[j] < 0:
+                j += 1
+            shape = list(t.shape)
+            shape[dim] = (j - i) * unit
+            parts.append(t.new_zeros(shape))
+        else:
+            while j < len(index) and index[j] == index[j - 1] + 1:
+                j += 1
+            parts.append(t.narrow(dim, index[i] * unit, (j - i) * unit))
+        i = j
+    return torch.cat(parts, dim)
+
+
+def _leaf_index(cfg, lay: FsdpTpLayout, path, *, inverse: bool):
+    """(dim, index, unit) of the padding of the leaf at ``path``, or None:
+    q heads on wq's columns and wo's rows, kv heads on wk/wv's (sharded
+    kv), ff on the MLP's.  ``inverse`` maps back to the source heads."""
+    hd = cfg.resolved_head_dim
+    if len(path) < 3:
+        return None
+    block, name, leaf = path[-3], path[-2], path[-1]
+    dim = -1
+    if block in _ATTN_BLOCKS and name in ("wq", "wo"):
+        index, unit = lay.q_index, hd
+        if name == "wo":
+            if leaf != "w":
+                return None
+            dim = -2
+    elif block in _ATTN_BLOCKS and name in ("wk", "wv") and not lay.kv_rep:
+        index, unit = lay.kv_index, hd
+    elif block == "mlp" and (name in _FF_IN or name == "w_out"):
+        index = tuple(range(cfg.d_ff)) + (-1,) * (lay.ff - cfg.d_ff)
+        unit = 1
+        if name == "w_out":
+            if leaf != "w":
+                return None
+            dim = -2
+    else:
+        return None
+    if inverse:
+        index = tuple(index.index(i) for i in range(sum(1 for x in index
+                                                        if x >= 0)))
+    return dim, index, unit
+
+
+def _repad(cfg, lay, params, *, inverse: bool):
+    def walk(node, path):
+        if isinstance(node, dict):
+            return {k: walk(v, path + (k,)) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v, path) for v in node]
+        how = _leaf_index(cfg, lay, path, inverse=inverse)
+        if how is None:
+            return node
+        dim, index, unit = how
+        return _take_units(node, dim, index, unit)
+    return walk(params, ())
+
+
+def fsdp_tp_blocks(cfg: ArchConfig, params, lay: FsdpTpLayout):
+    """This rank's blocks of the whole tree ``params``: padded as ``lay``
+    says, then cut by ``NamedSharding(lay.mesh, spec)`` and copied (the
+    train step updates them in place)."""
+    padded = _repad(cfg, lay, params, inverse=False)
+    return tree_map(lambda x, spec: NamedSharding(lay.mesh, spec)
+                    .block(x).clone(), padded, lay.specs)
+
+
+def fsdp_tp_gather(cfg: ArchConfig, blocks, lay: FsdpTpLayout):
+    """The whole tree from every rank's ``blocks`` (collectives: every
+    rank calls it): each cut dim gathered over its mesh axes, then the
+    padding taken off."""
+    full = tree_map(lambda x, spec: NamedSharding(lay.mesh, spec).gather(x),
+                    blocks, lay.specs)
+    return _repad(cfg, lay, full, inverse=True)
+
+
+def _gathered(lay: FsdpTpLayout, tree, specs):
+    """``tree``'s blocks with each dim cut over the data axes gathered
+    (``fsdp_gather``; the ``model`` cuts stay)."""
+    def use(x, spec):
+        for dim, entry in enumerate(spec):
+            names = () if entry is None else (
+                (entry,) if isinstance(entry, str) else tuple(entry))
+            dp = tuple(n for n in names if n in lay.dp)
+            if dp:
+                x = fsdp_gather(x, dp, dim, mesh=lay.mesh)
+        return x
+    return tree_map(use, tree, specs)
+
+
+def _train_layers(cfg, params, key=None):
+    """The per-layer trees the full-sequence forward walks: views of the
+    stack, or under an FSDP × TP layout each layer's blocks gathered over
+    the data axes when the loop reaches that layer."""
+    key = key or ("dec_layers" if cfg.family == "encdec" else "layers")
+    layers = _layers(cfg, params, key)
+    lay = current_layout()
+    if lay is None:
+        return layers
+    specs = _spec_walk(lay.specs[key], lambda _, s: s[1:])
+    return (_gathered(lay, lp, specs) for lp in layers)
+
+
+def _train_top(cfg, params):
+    """``params`` with its unstacked leaves (embedding, final norms,
+    position table) gathered under an FSDP × TP layout."""
+    lay = current_layout()
+    if lay is None:
+        return params
+    return {**params, **{k: _gathered(lay, v, lay.specs[k])
+                         for k, v in params.items() if k not in _STACKS}}
+
+
+def _vocab_parallel_nll(logits, targets, lay: FsdpTpLayout, vocab: int):
+    """Mean NLL from this rank's block of the padded vocab's logits: the
+    max, the sum of exps and the target's logit, each reduced over
+    ``model`` (the max without a grad); padded columns excluded."""
+    mesh = lay.mesh
+    n = logits.shape[-1]
+    base = mesh.axis_index("model") * n
+    col = torch.arange(n, device=logits.device) + base
+    logits = torch.where(col < vocab, logits,
+                         torch.full_like(logits, -1e30))
+    top = mesh.all_reduce(logits.detach().amax(-1), "model", "max")
+    shifted = logits - top[..., None]
+    total = reduce_out(torch.exp(shifted).sum(-1), "model", mesh=mesh)
+    local = targets.long() - base
+    hit = (local >= 0) & (local < n)
+    picked = torch.gather(shifted, -1, local.clamp(0, n - 1)[..., None])
+    tgt = reduce_out(torch.where(hit, picked[..., 0],
+                                 torch.zeros_like(picked[..., 0])),
+                     "model", mesh=mesh)
+    return (torch.log(total) - tgt).mean()
+
+
+# ---------------------------------------------------------------------------
 # layer views
 # ---------------------------------------------------------------------------
 
@@ -432,7 +695,8 @@ def encode(cfg: ArchConfig, params, frames) -> torch.Tensor:
     ak = _attn_kwargs(cfg)
     x = frames + sinusoidal_positions(frames.shape[1], cfg.d_model,
                                       frames.dtype, frames.device)[None]
-    for lp in _layers(cfg, params, "enc_layers"):
+    params = _train_top(cfg, params)
+    for lp in _train_layers(cfg, params, "enc_layers"):
         x = x + attention_train(lp["attn"], _norm(cfg, lp["ln_attn"], x),
                                 causal=False, use_rope=False, **ak)
         x = x + mlp(lp["mlp"], _norm(cfg, lp["ln_mlp"], x),
@@ -482,18 +746,25 @@ def forward_train(cfg: ArchConfig, params, batch) -> torch.Tensor:
     family also takes ``batch["patches"]`` (B, P, d), attends to them
     under the prefix-LM mask and returns the text positions' logits; the
     encoder–decoder family takes ``batch["frames"]`` (B, T, d), encodes
-    them and decodes the tokens against the encoder states."""
+    them and decodes the tokens against the encoder states.
+
+    Under an FSDP × TP layout (``dist.sharding.use_layout``) ``params``
+    holds this rank's blocks: each layer's are gathered over the data axes
+    as the loop reaches it, the layers run tensor-parallel over ``model``
+    and the logits are this rank's block of the padded vocab."""
     _check_family(cfg)
     if cfg.family == "encdec":
         enc = encode(cfg, params, batch["frames"])
+    params = _train_top(cfg, params)
+    if cfg.family == "encdec":
         x = _embed_tokens(cfg, params, batch["tokens"])
         x = x + _dec_pos_seq(params, x.shape[1])[None].to(x.dtype)
-        for lp in _layers(cfg, params):
+        for lp in _train_layers(cfg, params):
             x = _encdec_layer(cfg, lp, x, enc)
         return _logits(cfg, params, x)
     if cfg.family == "vlm":
         x = _vlm_inputs(cfg, params, batch)
-        for lp in _layers(cfg, params):
+        for lp in _train_layers(cfg, params):
             x = x + attention_train(lp["attn"], _norm(cfg, lp["ln_attn"], x),
                                     causal=True,
                                     window=cfg.local_window or None,
@@ -503,7 +774,7 @@ def forward_train(cfg: ArchConfig, params, batch) -> torch.Tensor:
         return _logits(cfg, params, x)[:, cfg.prefix_tokens:, :]
     x = _embed_tokens(cfg, params, batch["tokens"])
     if cfg.family == "ssm":
-        for lp in _layers(cfg, params):
+        for lp in _train_layers(cfg, params):
             x = x + rk.rwkv_time_mix_train(
                 lp["tm"], _norm(cfg, lp["ln_tm"], x),
                 head_dim=cfg.wkv_head_dim)
@@ -522,7 +793,7 @@ def forward_train(cfg: ArchConfig, params, batch) -> torch.Tensor:
             x = x + mlp(sub["mlp"], _norm(cfg, sub["ln_mlp"], x),
                         activation=cfg.activation)
         return _logits(cfg, params, x)
-    for lp in _layers(cfg, params):
+    for lp in _train_layers(cfg, params):
         x = x + attention_train(lp["attn"], _norm(cfg, lp["ln_attn"], x),
                                 causal=True,
                                 window=cfg.local_window or None,
@@ -532,8 +803,12 @@ def forward_train(cfg: ArchConfig, params, batch) -> torch.Tensor:
 
 
 def loss_fn(cfg: ArchConfig, params, batch) -> torch.Tensor:
-    """Mean next-token negative log-likelihood of ``batch["targets"]``."""
+    """Mean next-token negative log-likelihood of ``batch["targets"]``
+    (under an FSDP × TP layout, from the vocab-parallel logits)."""
     logits = forward_train(cfg, params, batch).to(torch.float32)
+    lay = current_layout()
+    if lay is not None:
+        return _vocab_parallel_nll(logits, batch["targets"], lay, cfg.vocab)
     logp = torch.log_softmax(logits, dim=-1)
     ll = torch.gather(logp, -1, batch["targets"][..., None].long())[..., 0]
     return -ll.mean()

@@ -103,8 +103,14 @@ def _partition_escapes(er, ec, ev, shards: int, k_loc: int):
 
     The owner of column c is ``c // k_loc``, its local index ``c % k_loc``.
     ``cap_loc`` is the largest per-(lead, shard) population; slack slots
-    carry (row 0, col 0, dval 0), an exact no-op in the correction."""
+    carry (row 0, col 0, dval 0), an exact no-op in the correction.  On
+    ``meta`` arrays (the dry run: no values) ``cap_loc`` is the static
+    bound ``cap``, as a shape trace of the partition would give it."""
     device = er.device
+    if device.type == "meta":
+        shape = tuple(er.shape[:-1]) + (shards, er.shape[-1])
+        return tuple(torch.empty(shape, dtype=a.dtype, device=device)
+                     for a in (er, ec, ev))
     er, ec, ev = (a.detach().cpu().numpy() for a in (er, ec, ev))
     lead = er.shape[:-1]
     cap = er.shape[-1]
@@ -242,17 +248,35 @@ def params_pspecs(params, *, axis_name: str = "model"):
     return walk(params)
 
 
+def _kv_buffers(cache) -> list:
+    """The K/V buffers of a decode cache (the int8 scale buffers too): the
+    leaves of the ``KVCache`` it holds (dense, MoE, prefix-LM, the
+    encoder–decoder's self attention, the hybrid's ``kv`` entry), not the
+    recurrent states nor the encoder–decoder's cross K/V extras."""
+    from repro_torch.models.layers import KVCache
+    kv = cache.kv
+    if isinstance(kv, dict):
+        kv = kv.get("kv")
+    if not isinstance(kv, KVCache):
+        return []
+    return [x for x in kv if isinstance(x, torch.Tensor)]
+
+
 def cache_pspecs(cache, *, axis_name: str = "model", shards: int):
     """(spec tree, cache_sharded) of a (global) decode cache.
 
-    The 5-D ``(L, B, buf, n_kv, hd)`` K/V leaves (the int8 scale buffers
+    The K/V buffers (``(L, B, buf, n_kv, hd)``, the int8 scale buffers
     too) shard their buffer axis over ``axis_name`` when every one's
     length divides by ``shards``; otherwise the whole cache replicates
-    (correct either way: attention gathers the buffer before scoring)."""
-    leaves = [x for x in tree_leaves(cache) if x.ndim == 5]
+    (correct either way: attention gathers the buffer before scoring).
+    The reference takes every 5-D leaf for a K/V buffer, which would cut
+    rwkv6's WKV state along its heads and the encoder–decoder's cross
+    K/V along the frames; the port cuts the ``KVCache`` leaves only."""
+    leaves = _kv_buffers(cache)
     sharded = bool(leaves) and all(x.shape[2] % shards == 0 for x in leaves)
-    spec = tree_map(lambda x: (None, None, axis_name)
-                    if (sharded and x.ndim == 5) else (), cache)
+    cut = {id(x) for x in leaves} if sharded else set()
+    spec = tree_map(lambda x: (None, None, axis_name) if id(x) in cut
+                    else (), cache)
     return spec, sharded
 
 
@@ -284,7 +308,10 @@ def _shard_counts(params) -> set:
     def walk(node):
         if isinstance(node, dict):
             if "kshard" in node:
-                counts.add(int(node["kshard"].reshape(-1)[0]))
+                # the shard axis' length (the marker's value, read from
+                # the shape: a meta tree has no values)
+                body = node["codes"] if "codes" in node else node["wsh"]
+                counts.add(int(body.shape[node["kshard"].ndim]))
                 return
             for v in node.values():
                 walk(v)
@@ -360,17 +387,17 @@ class _MeshState:
         shards it, everything else whole (all zeros, as there)."""
         shape_of = init_cache(cfg, batch, max_len, dtype, per_slot=per_slot,
                               device="meta")
-        _, sharded = cache_pspecs(shape_of, axis_name=self.axis_name,
-                                  shards=self.shards)
+        spec, sharded = cache_pspecs(shape_of, axis_name=self.axis_name,
+                                     shards=self.shards)
         dev = resolve_device(device)
 
-        def block(x):
+        def block(x, entry):
             shape = list(x.shape)
-            if sharded and x.ndim == 5:
+            if entry:
                 shape[2] //= self.shards
             return torch.zeros(shape, dtype=x.dtype, device=dev)
 
-        cache = tree_map(block, shape_of)
+        cache = tree_map(block, shape_of, spec)
         key = _cache_key(cache)
         if self.layouts.setdefault(key, sharded) != sharded:
             raise ValueError("two cache layouts share one block shape; "
@@ -570,7 +597,8 @@ def run_oracle(job: MeshJob) -> dict:
 
 def _measure_step(eng, mesh) -> dict:
     """One more decode step on the drained engine's cache: host seconds,
-    kernel launches and the collectives it ran."""
+    kernel launches and the collectives it ran (their count and bytes,
+    and the step's ``(op, dtype, shape, bytes)`` log itself)."""
     from repro_torch.kernels.dequant import LAUNCHES, reset_launches
     tok = torch.zeros((eng.n_slots, 1), dtype=torch.long, device=eng.device)
     n_log = len(mesh.log)
@@ -582,6 +610,7 @@ def _measure_step(eng, mesh) -> dict:
     if eng.device.type == "cuda":
         torch.cuda.synchronize(eng.device)
     return {"host_s": time.perf_counter() - t0, "launches": dict(LAUNCHES),
+            "log": [tuple(r) for r in mesh.log[n_log:]],
             **_gathers(mesh.log[n_log:])}
 
 

@@ -14,10 +14,17 @@
                       (``train/grad_compress.py``): params replicated,
                       each rank on its slice of the batch.
 
-The reference's step is ``jax.jit``-ed by the driver (FSDP × TP × EP
-layouts are lowered only by its dry-run tooling, ROADMAP A item 2); this
-one runs eagerly on the device of the params, and its attention layers
-reach the flash kernel (B3) through ``models.loss_fn``.  Under
+The reference's step is ``jax.jit``-ed by the driver (its FSDP × TP
+layout is lowered only by its dry-run tooling); this one runs eagerly on
+the device of the params, and its attention layers reach the flash kernel
+(B3) through ``models.loss_fn``.  Under an FSDP × TP layout
+(``dist.sharding.use_layout`` of ``models.fsdp_tp_layout``) the state
+holds this rank's blocks (``models.fsdp_tp_blocks``): the forward gathers
+each layer's over the data axes and runs the layers tensor-parallel over
+``model``; the backward's reduce-scatter has summed the blocks' grads over
+the data axes, so the step divides them by the data ranks (the other
+leaves' grads are averaged across them), clips by the norm summed over
+every cut axis and runs AdamW on the blocks.  Under
 ``moe_a2a`` on a mesh whose ``model`` axis holds several ranks, params may
 hold this rank's blocks of the expert stacks (``models.expert_specs``):
 the step finds them by their size and sums their squared norms across
@@ -33,7 +40,8 @@ from typing import Any, Callable, NamedTuple, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.dist.sharding import batch_spec, current_mesh
+from repro_torch.dist.sharding import (batch_spec, current_layout,
+                                       current_mesh)
 from repro_torch.models import expert_specs, loss_fn
 from repro_torch.opts import enabled as _opt
 from repro_torch.tree import tree_leaves, tree_map
@@ -172,6 +180,29 @@ def _block_specs(cfg: ArchConfig, params, mesh):
     return tree_map(spec_of, params, expert_specs(cfg))
 
 
+@torch.no_grad()
+def _fsdp_tp_reduce(loss, grads, lay):
+    """The loss and grads of an FSDP × TP rank averaged over the data
+    axes: a block cut over them already holds the sum (the backward of
+    ``fsdp_gather``), every other leaf is summed here."""
+    mesh = lay.mesh
+    dp = _dp_axes(mesh)
+    if not dp:
+        return loss, grads
+    n = 1
+    for a in dp:
+        n *= mesh.shape[a]
+    div = torch.full((), float(n), device=loss.device)
+
+    def mean(g, spec):
+        cut = {a for e in spec if e is not None
+               for a in ((e,) if isinstance(e, str) else e)}
+        if not cut.intersection(dp):
+            g = mesh.all_reduce(g, dp)
+        return g / div.to(g.dtype)
+    return mesh.all_reduce(loss, dp) / div, tree_map(mean, grads, lay.specs)
+
+
 def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *,
                     n_micro: int = 1, compute_dtype=torch.bfloat16
                     ) -> Callable[[TrainState, Any], Tuple[TrainState, Any]]:
@@ -179,6 +210,8 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *,
     ``batch`` holds ``tokens`` and ``targets`` tensors on the params'
     device (under a mesh: this rank's slice of the global batch).  The
     returned state holds the input state's tensors, updated in place.
+    Under an FSDP × TP layout the state holds this rank's blocks (module
+    docstring).
     Under expert parallelism the params may hold this rank's blocks of
     the expert stacks (``_block_specs``): the clip norm then sums each
     block's squares across ``model``, so every rank clips alike."""
@@ -192,7 +225,11 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *,
             loss, grads = _value_and_grad(
                 cfg, _cast(state.params, compute_dtype), batch)
         gnorm = None
-        if mesh is not None:
+        lay = current_layout()
+        if lay is not None:
+            loss, grads = _fsdp_tp_reduce(loss, grads, lay)
+            gnorm = _mesh_norm(grads, lay.specs, lay.mesh)
+        elif mesh is not None:
             dp = _dp_axes(mesh)
             if dp:
                 with torch.no_grad():
