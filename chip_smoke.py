@@ -370,7 +370,17 @@ the card under gloo and their collectives meet in the CUDA-IPC mailboxes:
    params and equal to their ``NamedSharding`` cut of the gathered
    leaves, B3 40 per rank per step, and its collective log of step 1
    equal op for op to the counter's ``ShapeMesh(data=2, model=2)``
-   trace of that rank's step.
+   trace of that rank's step.  Its second part, right after: the MoE,
+   ssm and hybrid families at full width, cut in depth
+   (moonshot-v1-16b-a3b at 2 layers, rwkv6-7b at 4, recurrentgemma-2b at
+   8: two (rec, rec, attn) groups and a 2-layer tail), each one's
+   one-process run first and alone (3 bf16 steps of 8 × 64 tokens in 2
+   microbatches, final params saved), then ONE launch of the same mesh
+   whose ranks train the three in turn, each rank its 4 rows in one
+   microbatch (so each MoE call sees the rows of one of the one
+   process's microbatches), held as the minicpm-2b cell; B3 2 per rank
+   per step on the MoE model (8 q and 8 kv heads per rank), 0 on the
+   others (rwkv6 has no attention, the hybrid's is MQA).
 
 The second-to-last line is the kernel summary JSON (six entries: the
 packed kernel per payload, the int8 kernel, ZSIC and flash; B1 int4's and
@@ -379,7 +389,7 @@ int8 steps, the lifecycle's served codes, the mesh phases' oracle and
 rank runs and the counted decode step of phase 19, flash's whisper's
 encode and prefill and the training phases' (the driver's steps, the
 lifecycle's training, ``model_ppl`` and fine-tune, the compressed DP
-ranks and their oracle, phase 20's one process and ranks), ZSIC's the
+ranks and their oracle, phase 20's one processes and ranks), ZSIC's the
 lifecycle's hptq and GPTQ), the last line
 ``{"ok": true, "device": {...}}``.  Per-case numbers also go to
 ``chiprun_out/chip_smoke_detail.json``.  Tolerances:
@@ -483,7 +493,7 @@ from repro_torch.plan import collect_sigma_x  # noqa: E402
 from repro_torch.quant.pipeline import matrix_tap_map  # noqa: E402
 from repro_torch.quant.calibrate import forward_with_taps  # noqa: E402
 from repro_torch.tree import (tree_leaves, tree_leaves_with_path,  # noqa: E402
-                              tree_map)
+                              tree_map, tree_map_with_path)
 # the H100 SXM's published rates (HBM, f32 outside the tensor cores, bf16
 # tensor cores dense): one source, the port's roofline
 from repro_torch.launch.roofline import (BF16_FLOP_PER_S,  # noqa: E402
@@ -5739,6 +5749,39 @@ FSDP_LR = 3e-3
 #: order)
 FSDP_LOSS_TOL, FSDP_FIRST_LOSS_TOL = 1e-2, 1e-3
 FSDP_TIMEOUT_S = 600.0
+#: phase 20's second part: one model of each of the MoE, ssm and hybrid
+#: families at full width, cut in depth (PERF.md §4), trained by the
+#: same mesh in one rank launch, FSDP_FAMILY_STEPS steps each; (label,
+#: arch, layers, B3 launches per layer and microbatch on a rank: the MoE
+#: model's 16 q and 16 kv heads are 8 and 8 per rank, the hybrid's
+#: attention is MQA and rwkv6 has none; the dtype the ranks, the one
+#: process and the ShapeMesh trace compute in).  Not bf16: so that the
+#: ranks' gap to one process is rounding, far below what 3 Adam steps at
+#: FSDP_LR move (in bf16 one process's third step jumps and the ranks'
+#: sums in another order miss the jump).  rwkv6 in float64, as
+#: tests/test_torch_fsdp_tp.py runs it: its grads are ill-conditioned
+#: (the one process's own f32 grads lie ~2e-3 from its float64 grads;
+#: :func:`fsdp_family_oracle` measures it)
+FSDP_FAMILIES = (
+    ("fsdp_moe", "moonshot-v1-16b-a3b", 2, 1, torch.float32),
+    ("fsdp_ssm", "rwkv6-7b", 4, 0, torch.float64),
+    ("fsdp_hybrid", "recurrentgemma-2b", 8, 0, torch.float32))
+FSDP_FAMILY_STEPS = 3
+#: their bounds: the first and every later loss relative to one
+#: process's; the first moments after step 1 (the grads of step 1) per
+#: leaf, sqrt(sum (rank - one)²) / sqrt(sum one²) over the 4 ranks'
+#: blocks; the final params per leaf relative to how far the one process
+#: moved them, sqrt(sum (rank - one)²) / sqrt(sum (one - init)²), and
+#: each block within 2·lr per step of them, as the minicpm-2b cell.  The
+#: params bound is loose: rwkv6's third step diverges in one process
+#: (loss 11.5 -> 16.6) and the steps after a reordered sum follow it
+#: less closely than its grads agree (PERF.md §6)
+FSDP_FAMILY_FIRST_TOL, FSDP_FAMILY_LOSS_TOL = 1e-5, 1e-4
+FSDP_FAMILY_M1_TOL, FSDP_FAMILY_PARAM_TOL = 1e-3, 5e-2
+#: the controls (the initial params; the last batch's loss at them) must
+#: miss the loss and param bounds by this factor, or the bounds could not
+#: tell a rank that left its blocks where they started
+FSDP_CONTROL_MARGIN = 10.0
 #: the dry-run cells traced on meta in the cost phase
 DRY_CELLS = [("train_4k", "single"), ("prefill_32k", "single"),
              ("decode_32k", "single"), ("decode_32k", "multi")]
@@ -5817,16 +5860,16 @@ def _dp_rows(batch, mesh):
     return {k: v[i * per:(i + 1) * per] for k, v in batch.items()}
 
 
-def _fsdp_setup(cfg, dev):
+def _fsdp_setup(cfg, dev, steps=FSDP_STEPS):
     from repro_torch.data import DataConfig
     from repro_torch.launch import train as launch_train
     from repro_torch.train import AdamWConfig
     opt = AdamWConfig(lr=FSDP_LR, schedule=cfg.lr_schedule,
-                      total_steps=FSDP_STEPS + 1, warmup_steps=1)
+                      total_steps=steps + 1, warmup_steps=1)
     dcfg = DataConfig(vocab=cfg.vocab, seq_len=FSDP_SEQ,
                       global_batch=FSDP_BATCH)
     return opt, [launch_train.device_batch(dcfg, s, dev)
-                 for s in range(FSDP_STEPS)]
+                 for s in range(steps)]
 
 
 def fsdp_tp_oracle(cfg, dev, path) -> dict:
@@ -5885,37 +5928,70 @@ def fsdp_tp_oracle(cfg, dev, path) -> dict:
 
 
 def fsdp_tp_rank(rank, kind, oracle_path) -> dict:
-    """A rank of the FSDP × TP phase: its blocks of ``init_params(cfg, 0)``
-    (each rank draws the whole tree from the same seed on the card, keeps
-    its cut and waits for the others to drop theirs), FSDP_STEPS bf16 steps on its rows of each global
-    batch, then leaf by leaf: the leaf gathered over the mesh and the
-    block held equal to its ``NamedSharding`` cut of it, and the block to
-    the same cut of the oracle's final params (read from ``oracle_path``,
-    memory-mapped; the mesh's heads and ff divide, so no leaf is
-    padded)."""
+    """A rank of the FSDP × TP phase's minicpm-2b cell
+    (:func:`_fsdp_rank_cell`)."""
+    from repro_torch.launch.mesh import make_host_mesh
+    dev = _rank_device(kind)
+    mesh = make_host_mesh(model_parallel=FSDP_MESH["model"], device=dev)
+    out = _fsdp_rank_cell(rank, dev, mesh, get_config(TRAIN_ARCH),
+                          FSDP_STEPS, oracle_path)
+    mesh.close()
+    return out
+
+
+def fsdp_family_rank(rank, kind, cells) -> dict:
+    """A rank of the FSDP × TP phase's second part: each (label, cfg,
+    oracle path, dtype) of ``cells`` in turn on one mesh
+    (:func:`_fsdp_rank_cell`), its state let go before the next."""
+    from repro_torch.launch.mesh import make_host_mesh
+    dev = _rank_device(kind)
+    mesh = make_host_mesh(model_parallel=FSDP_MESH["model"], device=dev)
+    out = {}
+    for label, cfg, path, dtype in cells:
+        out[label] = _fsdp_rank_cell(rank, dev, mesh, cfg,
+                                     FSDP_FAMILY_STEPS, path, dtype,
+                                     _m_path(path))
+        torch.cuda.empty_cache()
+    mesh.close()
+    return out
+
+
+def _fsdp_rank_cell(rank, dev, mesh, cfg, steps, oracle_path,
+                    dtype=torch.bfloat16, m_path=None) -> dict:
+    """One FSDP × TP cell on this rank: its blocks of ``init_params(cfg,
+    0)`` (each rank draws the whole tree from the same seed on the card,
+    keeps its cut and waits for the others to drop theirs), ``steps``
+    steps computed in ``dtype`` on its rows of each global batch, then
+    leaf by leaf: the leaf gathered over the mesh and the block held
+    equal to its ``NamedSharding`` cut of it, and the block to the same
+    cut of the oracle's final params (read from ``oracle_path``,
+    memory-mapped, and laid out as the blocks are: the mesh's heads, ff,
+    experts and widths divide, so no leaf is padded, but the RG-LRU's
+    ``w_in`` columns are reordered): the largest difference, and per leaf
+    the sum of squared differences divided by the number of ranks that
+    hold each entry (summed over the ranks: the whole leaf's).  Where
+    ``m_path`` is given, the same sums for Adam's first moments after
+    step 1 (a tenth of the step's grads) against the oracle's there."""
     from repro_torch.dist.sharding import (NamedSharding, use_layout,
                                            use_mesh)
-    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import fsdp_tp_blocks, fsdp_tp_layout
     from repro_torch.train import init_train_state, make_train_step
-    dev = _rank_device(kind)
-    cfg = get_config(TRAIN_ARCH)
-    mesh = make_host_mesh(model_parallel=FSDP_MESH["model"], device=dev)
     lay = fsdp_tp_layout(cfg, mesh)
-    opt, batches = _fsdp_setup(cfg, dev)
+    opt, batches = _fsdp_setup(cfg, dev, steps)
     full = init_params(cfg, 0, device=dev)
     blocks = fsdp_tp_blocks(cfg, full, lay)
     del full
     torch.cuda.empty_cache()
-    # no rank steps while another still holds its whole 10.9 GB tree
+    # no rank steps while another still holds its whole tree
     torch.distributed.barrier()
     _reset_peak(dev)
     state = init_train_state(blocks)
-    step = make_train_step(cfg, opt, n_micro=FSDP_RANK_MICRO)
+    step = make_train_step(cfg, opt, n_micro=FSDP_RANK_MICRO,
+                           compute_dtype=dtype)
     losses, walls, launches, per_step = [], [], [], []
     first_log = None
     with use_mesh(mesh), use_layout(lay):
-        for s in range(FSDP_STEPS):
+        for s in range(steps):
             rows = _dp_rows(batches[s], mesh)
             start = len(mesh.log)
             _sync(dev)
@@ -5930,35 +6006,72 @@ def fsdp_tp_rank(rank, kind, oracle_path) -> dict:
             per_step.append((len(log), sum(r[3] for r in log)))
             if first_log is None:
                 first_log = [tuple(r) for r in log]
+            if s == 0 and m_path is not None:
+                sq_m = _leaf_sq(cfg, lay, state.opt.m, m_path, dev)
         peak = _peak(dev)
         del m, rows, batches
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        oracle = tree_leaves(torch.load(oracle_path, mmap=True,
-                                        map_location="cpu"))
+        oracle = tree_leaves(_laid_out(cfg, lay, oracle_path))
         pairs = []
-        tree_map(lambda b, spec: pairs.append((b, spec)), state.params,
-                 lay.specs)
-        worst, n_cut = 0.0, 0
-        for (blk, spec), want in zip(pairs, oracle):
+        tree_map_with_path(lambda path, b, spec: pairs.append(
+            (path, b, spec)), state.params, lay.specs)
+        worst, n_cut, sq = 0.0, 0, {}
+        for (path, blk, spec), want in zip(pairs, oracle):
             cut = NamedSharding(mesh, spec)
             one = cut.gather(blk)
             if not torch.equal(cut.block(one), blk):
                 raise AssertionError(f"rank {rank}: a block differs from its"
                                      " cut of the gathered leaf")
+            copies = mesh.size * blk.numel() / one.numel()
             del one
             n_cut += any(e is not None for e in spec)
             # every rank checks its own block: together, the whole tree
-            worst = max(worst, float(
-                (blk - cut.block(want).to(dev)).abs().max()))
+            diff = blk - cut.block(want).to(dev)
+            worst = max(worst, float(diff.abs().max()))
+            sq[path] = float(torch.linalg.vector_norm(diff)) ** 2 / copies
+            del diff
         check_s = time.perf_counter() - t0
-    mesh.close()
-    return {"rank": rank, "losses": losses, "wall_ms": walls,
-            "b3_launches": launches, "collectives_per_step": per_step,
-            "log": first_log, "peak_bytes": peak, "backend": mesh.backend,
-            "staging": mesh.staging, "params_max_abs_vs_oracle": worst,
-            "leaves": len(pairs), "leaves_cut": n_cut, "check_s": check_s,
-            "block_params": sum(b.numel() for b, _ in pairs)}
+    out = {"rank": rank, "losses": losses, "wall_ms": walls,
+           "b3_launches": launches, "collectives_per_step": per_step,
+           "log": first_log, "peak_bytes": peak, "backend": mesh.backend,
+           "staging": mesh.staging, "params_max_abs_vs_oracle": worst,
+           "leaves": len(pairs), "leaves_cut": n_cut, "check_s": check_s,
+           "block_params": sum(b.numel() for _, b, _ in pairs),
+           "sq_vs_oracle": sq}
+    if m_path is not None:
+        out["sq_m1_vs_oracle"] = sq_m
+    del state, oracle, pairs
+    return out
+
+
+def _laid_out(cfg, lay, path):
+    """The whole tree saved at ``path`` (memory-mapped) laid out as the
+    blocks are (``models.transformer._repad``)."""
+    return tfm._repad(cfg, lay, torch.load(path, mmap=True,
+                                           map_location="cpu"),
+                      inverse=False)
+
+
+def _leaf_sq(cfg, lay, blocks, path, dev) -> dict:
+    """Per leaf of this rank's ``blocks``: the sum of squared differences
+    to its cut of the tree saved at ``path``, divided by the number of
+    ranks that hold each entry."""
+    from repro_torch.dist.sharding import NamedSharding
+    mesh = lay.mesh
+    out = {}
+
+    def leaf(path, blk, spec, whole):
+        cut = NamedSharding(mesh, spec)
+        n = mesh.size
+        for entry in spec:
+            for axis in (() if entry is None else (entry,)
+                         if isinstance(entry, str) else entry):
+                n //= mesh.shape[axis]
+        out[path] = float(torch.linalg.vector_norm(
+            blk - cut.block(whole).to(dev))) ** 2 / n
+    tree_map_with_path(leaf, blocks, lay.specs, _laid_out(cfg, lay, path))
+    return out
 
 
 def fsdp_tp_phase(dev) -> dict:
@@ -5975,11 +6088,7 @@ def fsdp_tp_phase(dev) -> dict:
     import shutil
     import tempfile
 
-    from repro_torch.dist.sharding import ShapeMesh, use_layout, use_mesh
-    from repro_torch.launch.hlo_cost import count_costs
     from repro_torch.launch.mesh import launch_ranks
-    from repro_torch.models import fsdp_tp_blocks, fsdp_tp_layout
-    from repro_torch.train import init_train_state, make_train_step
     t_phase = time.perf_counter()
     # the earlier rank launches' shared CUDA tensors are kept for their
     # consumers until collected, as is any garbage in reference cycles
@@ -6006,44 +6115,84 @@ def fsdp_tp_phase(dev) -> dict:
         rec["ranks_s"] = time.perf_counter() - t0
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    want = rec["oracle"]["losses"]
-    per_step = cfg.n_layers * FSDP_RANK_MICRO
-    bound = 2 * FSDP_LR * FSDP_STEPS
-    opt, _ = _fsdp_setup(cfg, torch.device("cpu"))
+    rec.update(_check_fsdp_cell("fsdp x tp", cfg, ranks,
+                                rec["oracle"]["losses"], FSDP_STEPS,
+                                cfg.n_layers * FSDP_RANK_MICRO))
+    rec["b3_launches"] += sum(rec["oracle"]["b3_launches"])
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"fsdp x tp phase: {rec['phase_s']:.1f}s (oracle "
+          f"{rec['oracle_s']:.1f}, ranks {rec['ranks_s']:.1f}) [{CARD}]",
+          flush=True)
+    return rec
+
+
+def _shape_mesh_log(cfg, rank, dtype=torch.bfloat16) -> list:
+    """The collective log of the cost counter's trace of FSDP × TP rank
+    ``rank``'s step (computed in ``dtype``) on meta tensors under
+    ``ShapeMesh(data=2, model=2)``."""
+    from repro_torch.dist.sharding import ShapeMesh, use_layout, use_mesh
+    from repro_torch.launch.hlo_cost import count_costs
+    from repro_torch.models import fsdp_tp_blocks, fsdp_tp_layout
+    from repro_torch.train import init_train_state, make_train_step
+    opt, _ = _fsdp_setup(cfg, torch.device("cpu"), 1)
+    mesh = ShapeMesh(FSDP_MESH, rank=rank)
+    lay = fsdp_tp_layout(cfg, mesh)
+    state = init_train_state(fsdp_tp_blocks(
+        cfg, init_params(cfg, device="meta"), lay))
+    rows = {k: torch.empty((FSDP_BATCH // FSDP_MESH["data"], FSDP_SEQ),
+                           dtype=torch.int32, device="meta")
+            for k in ("tokens", "targets")}
+    with use_mesh(mesh), use_layout(lay):
+        count_costs(make_train_step(cfg, opt, n_micro=FSDP_RANK_MICRO,
+                                    compute_dtype=dtype),
+                    state, rows, mesh=mesh)
+    return list(mesh.log)
+
+
+def fsdp_family_traces(cells) -> dict:
+    """:func:`_shape_mesh_log` of every rank of each (label, cfg, dtype)
+    of ``cells``: label -> the 4 ranks' logs (run in a host process of
+    its own beside the oracles, :func:`start_host_job`)."""
+    n = FSDP_MESH["data"] * FSDP_MESH["model"]
+    return {label: [_shape_mesh_log(cfg, r, dtype) for r in range(n)]
+            for label, cfg, dtype in cells}
+
+
+def _check_fsdp_cell(what, cfg, ranks, want, steps, b3_per_step,
+                     dtype=torch.bfloat16,
+                     tols=(FSDP_FIRST_LOSS_TOL, FSDP_LOSS_TOL),
+                     traces=None) -> dict:
+    """Hold each rank's run of one FSDP × TP cell: B3 ``b3_per_step``
+    launches in every step, its collective log of step 1 equal op for op
+    to the cost counter's trace of that rank's step 1 (computed in
+    ``dtype``; :func:`_shape_mesh_log`, or the rank's log in ``traces``),
+    its first and last losses within ``tols`` (relative) of the
+    one-process run's ``want`` losses and its final blocks within 2·lr
+    per step of the one-process params; print each rank's step ms
+    (median of steps 2 on), collectives and bytes per step and peak.
+    Returns the ranks' records (logs left out) and their B3 launches."""
+    bound = 2 * FSDP_LR * steps
     for r in ranks:
-        if set(r["b3_launches"]) != {per_step}:
-            raise AssertionError(f"fsdp x tp rank {r['rank']}: B3 launches "
+        if set(r["b3_launches"]) != {b3_per_step}:
+            raise AssertionError(f"{what} rank {r['rank']}: B3 launches "
                                  f"{r['b3_launches']} per step, expected "
-                                 f"{per_step}")
-        # the counter's trace of this rank's step 1 on meta tensors
-        mesh = ShapeMesh(FSDP_MESH, rank=r["rank"])
-        lay = fsdp_tp_layout(cfg, mesh)
-        state = init_train_state(fsdp_tp_blocks(
-            cfg, init_params(cfg, device="meta"), lay))
-        rows = {k: torch.empty((FSDP_BATCH // FSDP_MESH["data"], FSDP_SEQ),
-                               dtype=torch.int32, device="meta")
-                for k in ("tokens", "targets")}
-        with use_mesh(mesh), use_layout(lay):
-            count_costs(make_train_step(cfg, opt, n_micro=FSDP_RANK_MICRO),
-                        state, rows, mesh=mesh)
-        if list(mesh.log) != r["log"]:
-            diff = next((i for i, (a, b) in enumerate(zip(mesh.log, r["log"]))
-                         if a != b), min(len(mesh.log), len(r["log"])))
+                                 f"{b3_per_step}")
+        log = _shape_mesh_log(cfg, r["rank"], dtype) if traces is None \
+            else [tuple(x) for x in traces[r["rank"]]]
+        if log != r["log"]:
+            diff = next((i for i, (a, b) in enumerate(zip(log, r["log"]))
+                         if a != b), min(len(log), len(r["log"])))
             raise AssertionError(
-                f"fsdp x tp rank {r['rank']}: {len(r['log'])} collectives in"
-                f" step 1, the ShapeMesh trace {len(mesh.log)}; first "
+                f"{what} rank {r['rank']}: {len(r['log'])} collectives in "
+                f"step 1, the ShapeMesh trace {len(log)}; first "
                 f"difference at {diff}")
-    rec["per_rank"] = {r["rank"]: {k: v for k, v in r.items() if k != "log"}
-                       for r in ranks}
-    rec["b3_launches"] = sum(rec["oracle"]["b3_launches"]) + sum(
-        sum(r["b3_launches"]) for r in ranks)
     for r in ranks:
         step_ms = statistics.median(r["wall_ms"][1:])
         n_coll, n_bytes = r["collectives_per_step"][0]
-        print(f"fsdp x tp rank {r['rank']} ({r['backend']}, staging "
+        print(f"{what} rank {r['rank']} ({r['backend']}, staging "
               f"{r['staging']}): step {step_ms:.1f} ms (median of steps "
-              f"2-{FSDP_STEPS}; all {', '.join(f'{w:.1f}' for w in r['wall_ms'])}),"
-              f" {n_coll} collectives and {n_bytes / 1e9:.4f} GB per step "
+              f"2-{steps}; all {', '.join(f'{w:.1f}' for w in r['wall_ms'])}"
+              f"), {n_coll} collectives and {n_bytes / 1e9:.4f} GB per step "
               f"(equal op for op to the ShapeMesh trace), peak "
               f"{r['peak_bytes'] / 1e9:.2f} GB, B3 {r['b3_launches'][0]} per "
               f"step, losses {', '.join(f'{x:.6f}' for x in r['losses'])} "
@@ -6052,20 +6201,273 @@ def fsdp_tp_phase(dev) -> dict:
               f"{bound:.1e}), {r['leaves_cut']} of {r['leaves']} leaves cut,"
               f" blocks equal to their cuts ({r['check_s']:.1f}s) [{CARD}]",
               flush=True)
+    first_tol, last_tol = tols
     for r in ranks:
         got = r["losses"]
-        if abs(got[0] - want[0]) > FSDP_FIRST_LOSS_TOL * abs(want[0]) \
-                or abs(got[-1] - want[-1]) > FSDP_LOSS_TOL * abs(want[-1]):
-            raise AssertionError(f"fsdp x tp rank {r['rank']}: losses {got}"
+        if abs(got[0] - want[0]) > first_tol * abs(want[0]) \
+                or abs(got[-1] - want[-1]) > last_tol * abs(want[-1]):
+            raise AssertionError(f"{what} rank {r['rank']}: losses {got}"
                                  f" vs one process {want}")
         if r["params_max_abs_vs_oracle"] > bound:
-            raise AssertionError(f"fsdp x tp rank {r['rank']}: params "
+            raise AssertionError(f"{what} rank {r['rank']}: params "
                                  f"{r['params_max_abs_vs_oracle']} from the "
                                  f"one-process step's (bound {bound})")
-    rec["phase_s"] = time.perf_counter() - t_phase
-    print(f"fsdp x tp phase: {rec['phase_s']:.1f}s (oracle "
-          f"{rec['oracle_s']:.1f}, ranks {rec['ranks_s']:.1f}) [{CARD}]",
+    return {"per_rank": {r["rank"]: {k: v for k, v in r.items()
+                                     if k != "log"} for r in ranks},
+            "b3_launches": sum(sum(r["b3_launches"]) for r in ranks)}
+
+
+def _check_family_cell(what, ranks, oracle) -> dict:
+    """The family cells' bounds beyond :func:`_check_fsdp_cell`'s, and
+    their controls.  Every step's loss within FSDP_FAMILY_LOSS_TOL of
+    one process's; each leaf's first moments after step 1 over the 4
+    ranks' blocks within FSDP_FAMILY_M1_TOL of their size; its final
+    params within FSDP_FAMILY_PARAM_TOL of how far the one process moved
+    them.  Controls: the initial params (a rank that did not update) and
+    zero moments (one that took no grads) lie at distance 1 by these
+    measures, and the last batch's loss at the initial params must miss
+    the loss bound; all by FSDP_CONTROL_MARGIN."""
+    want = oracle["losses"]
+
+    def relative(key, norms):
+        dist = {p: sum(r[key][p] for r in ranks) for p in norms}
+        rel = {p: (math.sqrt(dist[p] / n) if n > 0
+                   else 0.0 if dist[p] == 0 else math.inf)
+               for p, n in norms.items()}
+        return rel, math.sqrt(sum(dist.values()) / sum(norms.values()))
+    rel, whole = relative("sq_vs_oracle", oracle["sq_moved"])
+    worst = max(rel, key=rel.get)
+    rel_m, whole_m = relative("sq_m1_vs_oracle", oracle["sq_m1"])
+    worst_m = max(rel_m, key=rel_m.get)
+    loss_gap = max(abs(g - w) / abs(w) for r in ranks
+                   for g, w in zip(r["losses"], want))
+    ctrl_gap = abs(oracle["control_loss"] - want[-1]) / abs(want[-1])
+    rec = {"params_rel_whole": whole, "params_rel_worst": rel[worst],
+           "params_rel_worst_leaf": worst, "params_rel": rel,
+           "m_rel_whole": whole_m, "m_rel_worst": rel_m[worst_m],
+           "m_rel_worst_leaf": worst_m, "m_rel": rel_m,
+           "loss_rel_worst": loss_gap,
+           "control_loss": oracle["control_loss"],
+           "control_loss_rel": ctrl_gap,
+           "control_params_max_abs": oracle["moved_max_abs"]}
+    print(f"{what}: every step's loss within {loss_gap:.3e} of one "
+          f"process's (bound {FSDP_FAMILY_LOSS_TOL:.0e}); params at "
+          f"{whole:.3e} of the one process's movement over the tree, "
+          f"worst leaf {worst} {rel[worst]:.3e} (bound "
+          f"{FSDP_FAMILY_PARAM_TOL:.0e}); step 1's first moments at "
+          f"{whole_m:.3e} of their size, worst leaf {worst_m} "
+          f"{rel_m[worst_m]:.3e} (bound {FSDP_FAMILY_M1_TOL:.0e}); controls:"
+          f" the initial params and zero moments at"
+          f" 1 (largest movement {oracle['moved_max_abs']:.3e}), the last "
+          f"batch's loss at them {oracle['control_loss']:.6f} against "
+          f"{want[-1]:.6f}, {ctrl_gap:.3e} relative "
+          f"({ctrl_gap / FSDP_FAMILY_LOSS_TOL:.1f} x the bound) [{CARD}]",
           flush=True)
+    if loss_gap > FSDP_FAMILY_LOSS_TOL:
+        raise AssertionError(f"{what}: a step's loss {loss_gap} (relative)"
+                             f" from one process's")
+    if rel_m[worst_m] > FSDP_FAMILY_M1_TOL:
+        raise AssertionError(f"{what}: leaf {worst_m}'s step-1 moments at "
+                             f"{rel_m[worst_m]} of their size from the one "
+                             f"process's")
+    if rel[worst] > FSDP_FAMILY_PARAM_TOL:
+        raise AssertionError(f"{what}: leaf {worst} at {rel[worst]} of the "
+                             f"one process's movement from its params")
+    if 1.0 < FSDP_CONTROL_MARGIN * max(FSDP_FAMILY_PARAM_TOL,
+                                      FSDP_FAMILY_M1_TOL) \
+            or ctrl_gap < FSDP_CONTROL_MARGIN * FSDP_FAMILY_LOSS_TOL:
+        raise AssertionError(f"{what}: the control misses the bounds by "
+                             f"less than {FSDP_CONTROL_MARGIN}x (loss "
+                             f"{ctrl_gap})")
+    return rec
+
+
+def _save_unchecked(tree, path):
+    """``torch.save`` without the zip records' CRC-32 (a third of the
+    family oracles' save time): the file lives for one phase on this
+    machine, read back by the ranks."""
+    torch.serialization.set_crc32_options(False)
+    try:
+        torch.save(tree, path)
+    finally:
+        torch.serialization.set_crc32_options(True)
+
+
+def _m_path(path):
+    """Where a family oracle saves Adam's first moments beside its params
+    at ``path``."""
+    return path.replace(".pt", ".m.pt")
+
+
+def fsdp_family_oracle(cfg, dev, path, dtype) -> dict:
+    """The one-process run of a family cell from ``init_params(cfg, 0)``,
+    computed in ``dtype``: FSDP_FAMILY_STEPS steps in FSDP_MICRO
+    microbatches (each of the same rows as one rank's one microbatch: a
+    MoE call's capacity and drops depend on its rows), timed; the final
+    params saved to ``path``, and Adam's first moments after step 1
+    beside them (:func:`_m_path`) with each leaf's sum of squares.  Also
+    the controls: the last batch's loss at the initial params, and how
+    far the steps moved each leaf (its sum of squares and the largest
+    entry).  A float64 cell also measures why: the relative
+    distance of the first batch's f32 grads at the initial params to
+    its float64 grads, per leaf."""
+    from repro_torch.train import (init_train_state, make_train_step,
+                                   microbatch_grads)
+    steps = FSDP_FAMILY_STEPS
+    opt, batches = _fsdp_setup(cfg, dev, steps)
+    torch.cuda.empty_cache()
+    _reset_peak(dev)
+    t0 = time.perf_counter()
+    state = init_train_state(init_params(cfg, 0, device=dev))
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(state.params))
+    per = FSDP_BATCH // FSDP_MICRO
+    with torch.no_grad():
+        control = statistics.fmean(float(tfm.loss_fn(
+            cfg, state.params, {k: v[i * per:(i + 1) * per]
+                                for k, v in batches[-1].items()}))
+            for i in range(FSDP_MICRO))
+    f32_vs_f64 = None
+    if dtype == torch.float64:
+        grads = [dict(tree_leaves_with_path(microbatch_grads(
+            cfg, state.params, batches[0], FSDP_MICRO, d)[1]))
+            for d in (torch.float32, torch.float64)]
+        f32_vs_f64 = {p: float(torch.linalg.vector_norm(g - grads[1][p])
+                               / torch.linalg.vector_norm(grads[1][p]))
+                      for p, g in grads[0].items()}
+        del grads
+    start = {p: t.clone() for p, t in tree_leaves_with_path(state.params)}
+    step = make_train_step(cfg, opt, n_micro=FSDP_MICRO,
+                           compute_dtype=dtype)
+    losses, walls, launches = [], [], []
+    for s in range(steps):
+        _sync(dev)
+        reset_flash_launches()
+        t0 = time.perf_counter()
+        state, m = step(state, batches[s])
+        _sync(dev)
+        walls.append(1e3 * (time.perf_counter() - t0))
+        launches.append(flash_attention_cuda.launches)
+        losses.append(_finite(m["loss"], f"{cfg.name} oracle step {s + 1} "
+                              "loss"))
+        if s == 0:
+            t0 = time.perf_counter()
+            _save_unchecked(state.opt.m, _m_path(path))
+            save_s = time.perf_counter() - t0
+            m_sq = {p: float(torch.linalg.vector_norm(t)) ** 2
+                    for p, t in tree_leaves_with_path(state.opt.m)}
+    peak = _peak(dev)
+    moved, moved_max = {}, 0.0
+    for p, t in tree_leaves_with_path(state.params):
+        d = t - start.pop(p)
+        moved[p] = float(torch.linalg.vector_norm(d)) ** 2
+        moved_max = max(moved_max, float(d.abs().max()))
+        del d
+    t0 = time.perf_counter()
+    _save_unchecked(state.params, path)
+    save_s += time.perf_counter() - t0
+    del state, m, batches
+    torch.cuda.empty_cache()
+    return {"losses": losses, "wall_ms": walls, "peak_bytes": peak,
+            "b3_launches": launches, "params": n_params, "init_s": init_s,
+            "save_s": save_s, "control_loss": control, "sq_moved": moved,
+            "moved_max_abs": moved_max, "sq_m1": m_sq,
+            "grads_f32_vs_f64": f32_vs_f64}
+
+
+def fsdp_family_phase(dev) -> dict:
+    """Phase 20's second part: the MoE, ssm and hybrid families of
+    FSDP_FAMILIES at full width, cut in depth, trained FSDP × TP by the
+    (data = 2, model = 2) mesh of 4 gloo ranks
+    sharing the card.  Each model's one-process oracle runs first, alone,
+    its final params saved; then ONE rank launch trains the models in
+    turn; each rank's run of each model is held as the minicpm-2b cell's
+    (:func:`_check_fsdp_cell`, at the family bounds) and by
+    :func:`_check_family_cell`.  Every cell is checked before a failure
+    is raised."""
+    import gc
+    import shutil
+    import tempfile
+
+    from repro_torch.launch.mesh import launch_ranks
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.ipc_collect()
+    torch.cuda.empty_cache()
+    cells = [(label, dataclasses.replace(get_config(arch), n_layers=layers),
+              per_layer, dtype)
+             for label, arch, layers, per_layer, dtype in FSDP_FAMILIES]
+    n = FSDP_MESH["data"] * FSDP_MESH["model"]
+    # the ranks' ShapeMesh traces take the host ~20 s: beside the oracles
+    trace_job = start_host_job("chip_smoke:fsdp_family_traces",
+                               [(label, cfg, dtype)
+                                for label, cfg, _, dtype in cells])
+    (ROOT / "scratch").mkdir(exist_ok=True)
+    root = tempfile.mkdtemp(dir=ROOT / "scratch", prefix="fsdp_fam_")
+    rec, jobs = {}, []
+    try:
+        for label, cfg, _, dtype in cells:
+            t0 = time.perf_counter()
+            path = os.path.join(root, f"{label}.pt")
+            # deterministic, as the ranks run (``_rank_device``)
+            torch.use_deterministic_algorithms(True)
+            try:
+                oracle = fsdp_family_oracle(cfg, dev, path, dtype)
+            finally:
+                torch.use_deterministic_algorithms(False)
+            rec[label] = {"arch": cfg.name, "n_layers": cfg.n_layers,
+                          "dtype": str(dtype), "oracle": oracle}
+            rec[label]["oracle_s"] = time.perf_counter() - t0
+            o = rec[label]["oracle"]
+            print(f"{label} {cfg.name} L={cfg.n_layers} oracle: "
+                  f"{o['params']} params, {dtype}, "
+                  f"losses {', '.join(f'{x:.6f}' for x in o['losses'])}; "
+                  f"steps {', '.join(f'{w:.1f}' for w in o['wall_ms'])} ms;"
+                  f" B3 {o['b3_launches']}; peak "
+                  f"{o['peak_bytes'] / 1e9:.2f} GB; "
+                  f"{rec[label]['oracle_s']:.1f}s (save {o['save_s']:.1f})"
+                  f" [{CARD}]", flush=True)
+            if o["grads_f32_vs_f64"]:
+                g = o["grads_f32_vs_f64"]
+                top = max(g, key=g.get)
+                print(f"{label}: its f32 grads of batch 1 at the initial "
+                      f"params from its float64 grads: median leaf "
+                      f"{statistics.median(g.values()):.3e}, worst {top} "
+                      f"{g[top]:.3e} (relative)", flush=True)
+            jobs.append((label, cfg, path, dtype))
+        t0 = time.perf_counter()
+        ranks = launch_ranks(fsdp_family_rank, n, (dev.type, jobs),
+                             device=dev, timeout_s=FSDP_TIMEOUT_S)
+        ranks_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    traces, traces_s = finish_host_job(trace_job)
+    b3, failed = 0, []
+    for label, cfg, per_layer, dtype in cells:
+        what = f"{label} {cfg.name} L={cfg.n_layers}"
+        per_rank = [r[label] for r in ranks]
+        o = rec[label]["oracle"]
+        checks = (lambda: _check_fsdp_cell(
+            what, cfg, per_rank, o["losses"], FSDP_FAMILY_STEPS,
+            cfg.n_layers * per_layer * FSDP_RANK_MICRO, dtype,
+            (FSDP_FAMILY_FIRST_TOL, FSDP_FAMILY_LOSS_TOL), traces[label]),
+            lambda: _check_family_cell(what, per_rank, o))
+        for check in checks:
+            try:
+                rec[label].update(check())
+            except AssertionError as e:
+                failed.append(str(e))
+                print(f"{what}: FAILED {e}", flush=True)
+        b3 += sum(sum(r["b3_launches"]) for r in per_rank) \
+            + sum(o["b3_launches"])
+    if failed:
+        raise AssertionError("; ".join(failed))
+    rec["b3_launches"] = b3
+    rec["ranks_s"], rec["traces_s"] = ranks_s, traces_s
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"fsdp x tp families phase: {rec['phase_s']:.1f}s (ranks "
+          f"{ranks_s:.1f}; ShapeMesh traces {traces_s:.1f} on the host "
+          f"beside them) [{CARD}]", flush=True)
     return rec
 
 
@@ -6324,6 +6726,7 @@ def main() -> int:
     # launcher keeps those for the ranks until they release them, which
     # ranks that exit do not always do (18 GB held after the mesh phases)
     fsdp = timed("fsdp x tp", fsdp_tp_phase, dev)
+    fsdp_fam = timed("fsdp x tp families", fsdp_family_phase, dev)
     mesh = timed("mesh", mesh_phases, dev, gen)
     train_mesh = timed("training mesh", training_mesh_phases, dev)
     zsic = timed("zsic oracle (wait)", finish_zsic_oracle, zsic)
@@ -6427,7 +6830,7 @@ def main() -> int:
         "replaces": FLASH_REPLACES,
         "launches": sum(p["flash_launches"] for p in ptq["ppl"].values())
         + whisper_b3 + train_b3 + train_mesh["b3_launches"]
-        + fsdp["b3_launches"],
+        + fsdp["b3_launches"] + fsdp_fam["b3_launches"],
         "max_abs_err": max(c["max_abs_err"] for c in flash_cases
                            + [encdec["kernels"]["flash"]]),
         "ms": path["ms"], "plain_ms": path["plain_ms"],
@@ -6446,7 +6849,8 @@ def main() -> int:
               "requant_full": requant_full, "slice7_phase_s": phase_s,
               "moe": moe_rec, "recurrent": recurrent,
               "encdec_vlm": encdec, "training": training, "mesh": mesh,
-              "train_mesh": train_mesh, "fsdp_tp": fsdp, "cost": cost,
+              "train_mesh": train_mesh, "fsdp_tp": fsdp,
+              "fsdp_tp_families": fsdp_fam, "cost": cost,
               "phase_s": PHASE_S, "total_s": time.perf_counter() - T_START}
     (out / "chip_smoke_detail.json").write_text(json.dumps(detail, indent=1,
                                                            default=float))

@@ -34,8 +34,9 @@ replicated and no rank sums a redundant copy), :func:`replicate_in` (the
 identity, whose backward sums the rank's partial grad across the axis)
 and :func:`all_to_all` (backward: the reverse all-to-all).  The FSDP × TP
 train step (``models``, ``train``) adds :func:`fsdp_gather` (a weight
-block gathered over the data axes just before use; backward: the sum
-over those axes, then the rank's slice) and :func:`reduce_out` (the
+block gathered over the data axes just before use, or an activation
+block over ``model``; backward: the sum over those axes, then the rank's
+slice) and :func:`reduce_out` (the
 row-parallel product's all-reduce over ``model``; backward: the
 identity).
 
@@ -194,7 +195,8 @@ def use_layout(layout):
     """Make ``layout`` (``models.FsdpTpLayout``) the parameter layout of
     this thread (nestable): the params the model code sees are this
     rank's FSDP × TP blocks, gathered over the data axes just before use,
-    with heads, ff and vocab cut over ``model``."""
+    with heads, ff, vocab, experts and the recurrent state cut over
+    ``model``."""
     _stack("layouts").append(layout)
     try:
         yield layout
@@ -800,7 +802,10 @@ def fsdp_gather(x: torch.Tensor, axes: Sequence[str], dim: int, *,
     (``("data",)`` or ``("pod", "data")``), from this rank's block ``x``:
     tiled all-gathers, the minor axis first.  Backward: the grads of the
     whole weight summed over ``axes`` (each data rank's batch rows), then
-    this rank's slice: the reduce-scatter of FSDP, as a sum and a cut."""
+    this rank's slice: the reduce-scatter of FSDP, as a sum and a cut.
+    The same holds for a tensor cut over ``("model",)`` that each rank
+    uses whole but differentiates in part (the RG-LRU's conv output
+    before its gates, the MoE router's logits)."""
     axes = tuple(a for a in axes if (mesh or _mesh()).shape[a] > 1)
     if not axes:
         return x

@@ -17,11 +17,15 @@ computes nothing.  It shows, without hardware,
 
 Train cells run the FSDP × TP step (``models.fsdp_tp_layout``: params,
 AdamW moments and grads cut ``d_model_w`` over the data axes and heads /
-ff / vocab over ``model``), each rank on its rows of the batch, with the
-reference's microbatch rule (``_auto_micro``).  The MoE, ssm and hybrid
-families' train cells record ``status: "failed"`` with the
-``NotImplementedError`` that names ROADMAP A item 13, as the reference
-records a cell that fails to lower.
+ff / vocab / experts / recurrent state over ``model``), each rank on its
+rows of the batch, with the reference's microbatch rule
+(``_auto_micro``), for every family.  The ssm family's WKV recurrence is
+a loop over time whose 4096 steps per layer and microbatch the counter
+would watch op by op (hours on the CPU), so its train cells trace the
+step at 11 and at 13 tokens and extrapolate the op log linearly to the
+shape's length: exact for the counts, FLOPs and bytes (every op is per
+token or per step, no attention), and for the collectives, whose shapes
+carry the length in one dim (the peak is extrapolated alike, a model).
 
 Prefill and decode cells run the port's one mesh-serving design, the
 in-feature (k) shard of every big matmul over ``model``
@@ -221,7 +225,13 @@ def _trace_train(cfg, shape, mesh, mesh_kind, ops_path):
                            n_micro=n_micro)
     trips = (cfg.n_layers, n_micro)
     with use_layout(lay):
-        costs = count_costs(step, state, batch, mesh=mesh, trip_counts=trips)
+        if cfg.family == "ssm":
+            trips += (shape.seq_len,)
+            costs = _seq_extrapolated(step, state, batch, shape.seq_len,
+                                      mesh, trips)
+        else:
+            costs = count_costs(step, state, batch, mesh=mesh,
+                                trip_counts=trips)
     out = _collect(costs, cfg, shape, mesh, mesh_kind, "train", ops_path,
                    trips)
     out["n_micro"] = n_micro
@@ -283,24 +293,80 @@ def _stepped(fn, params, batch, steps, mesh, trips):
 
     def line(x, y):
         return x + (steps - 1) * (y - x)
-
-    def rows(key):
-        a, b = one[key], two[key]
-        return {k: [line(x, y) for x, y in zip(a.get(k, [0, 0.0, 0.0]),
-                                                b.get(k, [0, 0.0, 0.0]))]
-                for k in sorted(set(a) | set(b))}
     coll = {k: line(one["collectives"].get(k, 0), two["collectives"].get(k, 0))
             for k in sorted(set(one["collectives"]) | set(two["collectives"]))}
+    return _weighted(one, two, line, coll, one["argument_bytes"],
+                     max(one["peak_temp_bytes"], two["peak_temp_bytes"]),
+                     trips)
+
+
+def _weighted(one, two, line, coll, argument_bytes, peak, trips):
+    """The costs of an op log extrapolated from the traces ``one`` and
+    ``two``: each op's and kernel's calls, FLOPs and bytes along
+    ``line``, the collectives, arguments and peak given; its
+    ``multiplicity_ratio`` the weighted dot FLOPs over ``two``'s."""
+    def rows(key):
+        p, q = one[key], two[key]
+        return {k: [line(x, y) for x, y in zip(p.get(k, [0, 0.0, 0.0]),
+                                                q.get(k, [0, 0.0, 0.0]))]
+                for k in sorted(set(p) | set(q))}
     log = {"ops": rows("ops"), "kernels": rows("kernels"),
-           "collectives": coll, "argument_bytes": one["argument_bytes"],
-           "peak_temp_bytes": max(one["peak_temp_bytes"],
-                                  two["peak_temp_bytes"])}
+           "collectives": dict(sorted(coll.items())),
+           "argument_bytes": argument_bytes, "peak_temp_bytes": peak}
     traced = costs_from_log(two).dot_flops
     log["multiplicity_ratio"] = (costs_from_log(log).dot_flops / traced
                                  if traced else 1.0)
     costs = costs_from_log(log, trips)
     costs.oplog = log
     return costs
+
+
+#: the two lengths an ssm train cell is traced at: no dim of a model
+#: (head counts, widths, their cuts, the mix coefficients' 5) equals them
+_SEQ_TRACED = (11, 13)
+
+
+def _seq_key(key: str, n: int, seq: int) -> str:
+    """A collective record's key (``op|dtype|dims|bytes``) of a trace at
+    ``n`` tokens, moved to ``seq``: each dim equal to ``n`` (the length)
+    becomes ``seq`` and the bytes scale with it."""
+    op, dtype, dims, nbytes = key.split("|")
+    shape = [int(d) for d in dims.split(",") if d]
+    hits = sum(1 for d in shape if d == n)
+    shape = [seq if d == n else d for d in shape]
+    nbytes = int(nbytes) // n ** hits * seq ** hits
+    return f"{op}|{dtype}|{','.join(str(d) for d in shape)}|{nbytes}"
+
+
+def _seq_extrapolated(fn, state, batch, seq, mesh, trips):
+    """The costs of the train step ``fn`` over ``seq`` tokens from its
+    traces at the two :data:`_SEQ_TRACED` lengths: every count of the op
+    log (calls, FLOPs, bytes; arguments and peak) taken as linear in the
+    length; the collectives, the same calls at both lengths, moved to
+    ``seq`` (:func:`_seq_key`)."""
+    a, b = _SEQ_TRACED
+
+    def at(n):
+        return count_costs(fn, state, {k: v[:, :n] for k, v in
+                                       batch.items()}, mesh=mesh).oplog
+    one, two = at(a), at(b)
+
+    def line(x, y):
+        return x + (seq - a) * (y - x) / (b - a)
+    coll = {}
+    for log, n in ((one, a), (two, b)):
+        moved = {}
+        for k, c in log["collectives"].items():
+            key = _seq_key(k, n, seq)
+            moved[key] = moved.get(key, 0) + c
+        if coll and moved != coll:
+            raise ValueError("the collectives of the traces at "
+                             f"{_SEQ_TRACED} tokens differ past the length")
+        coll = moved
+    return _weighted(one, two, line, coll,
+                     line(one["argument_bytes"], two["argument_bytes"]),
+                     line(one["peak_temp_bytes"], two["peak_temp_bytes"]),
+                     trips)
 
 
 def main(argv=None):

@@ -458,35 +458,53 @@ class MoEDispatch(NamedTuple):
     pairs: torch.Tensor
 
 
-def _moe_local_pack(xt, top_e, top_g, n_experts: int, capacity: int,
-                    top_k: int):
-    """Sort-based local dispatch: xt (T, d) → buf (E, C, d) + the pairs'
-    :class:`MoEDispatch` (the reference's ``_moe_local_pack``).
-
-    Pairs are sorted by expert with a stable sort (ties keep token order);
-    a pair's position in its expert's segment comes from
-    ``searchsorted(side="left")``; pairs past ``capacity`` are dropped.  A
-    kept slot has exactly one writer, so the buffer is a plain indexed
-    copy (dropped pairs write a scratch row past the buffer, cut off)
-    instead of the reference's scatter-add of zeros: no atomics."""
-    t, d = xt.shape
+def _moe_dispatch(top_e, top_g, capacity: int, top_k: int):
+    """Where each routed pair goes: (:class:`MoEDispatch`, each sorted
+    pair's token).  Pairs are sorted by expert with a stable sort (ties
+    keep token order); a pair's position in its expert's segment comes
+    from ``searchsorted(side="left")``; pairs past ``capacity`` are
+    dropped."""
+    t = top_e.shape[0]
     flat_e = top_e.reshape(-1)
     order = torch.argsort(flat_e, stable=True)
     sorted_e = flat_e[order]
-    idx = torch.arange(t * top_k, device=xt.device)
+    idx = torch.arange(t * top_k, device=top_e.device)
     pos_in_e = idx - torch.searchsorted(sorted_e, sorted_e, side="left")
     keep = pos_in_e < capacity
     dest = sorted_e * capacity + torch.where(keep, pos_in_e,
                                              torch.zeros_like(pos_in_e))
-    slot = torch.where(keep, dest, torch.full_like(dest,
-                                                   n_experts * capacity))
-    buf = xt.new_zeros((n_experts * capacity + 1, d))
-    buf[slot] = xt[order // top_k]
     inv = torch.empty_like(order)
     inv[order] = idx
     pairs = inv.reshape(t, top_k).sort(dim=1).values
-    return (buf[:-1].reshape(n_experts, capacity, d),
-            MoEDispatch(dest, keep, top_g.reshape(-1)[order], pairs))
+    return (MoEDispatch(dest, keep, top_g.reshape(-1)[order], pairs),
+            order // top_k)
+
+
+def _moe_fill(xt, disp: MoEDispatch, src, n_slots: int, first_slot=0):
+    """The capacity buffer (n_slots, d) of slots ``first_slot`` on: each
+    kept pair's token copied to its slot.  A kept slot has exactly one
+    writer, so the buffer is a plain indexed copy (other pairs write a
+    scratch row past the buffer, cut off) instead of the reference's
+    scatter-add of zeros: no atomics.  Returns (buffer, the dispatch with
+    ``dest`` counted from ``first_slot`` and ``keep`` cleared for pairs
+    outside the buffer)."""
+    dest = disp.dest - first_slot
+    keep = disp.keep & (dest >= 0) & (dest < n_slots)
+    dest = torch.where(keep, dest, torch.zeros_like(dest))
+    slot = torch.where(keep, dest, torch.full_like(dest, n_slots))
+    buf = xt.new_zeros((n_slots + 1, xt.shape[1]))
+    buf[slot] = xt[src]
+    return buf[:-1], disp._replace(dest=dest, keep=keep)
+
+
+def _moe_local_pack(xt, top_e, top_g, n_experts: int, capacity: int,
+                    top_k: int):
+    """Sort-based local dispatch: xt (T, d) → buf (E, C, d) + the pairs'
+    :class:`MoEDispatch` (the reference's ``_moe_local_pack``;
+    :func:`_moe_dispatch`, :func:`_moe_fill`)."""
+    disp, src = _moe_dispatch(top_e, top_g, capacity, top_k)
+    buf, disp = _moe_fill(xt, disp, src, n_experts * capacity)
+    return buf.reshape(n_experts, capacity, xt.shape[1]), disp
 
 
 def _moe_combine(out_buf, disp: MoEDispatch):
@@ -531,6 +549,19 @@ def _expert_matmul(inp, w):
     return out * w["t"].to(inp.dtype)[:, None, :]
 
 
+def _expert_ffn(w, buf, activation):
+    """The experts' (gated) FFNs on their capacity rows: buf (E', C, d)
+    through the expert leaves ``w`` (E', …) → (hidden (E', C, ff), out
+    (E', C, d))."""
+    act = _ACTIVATIONS[activation]
+    if "w_gate" in w:
+        h = act(_expert_matmul(buf, w["w_gate"])) \
+            * _expert_matmul(buf, w["w_up"])
+    else:
+        h = act(_expert_matmul(buf, w["w_in"]))
+    return h, _expert_matmul(h, w["w_out"])
+
+
 def moe_experts(p, xt, *, n_experts, top_k, capacity, activation="silu"):
     """Route ``xt`` (T, d) and run the experts at ``capacity`` slots each:
     (out (T, d), buf (E, C, d), hidden (E, C, ff), :class:`MoEDispatch`).
@@ -538,13 +569,8 @@ def moe_experts(p, xt, *, n_experts, top_k, capacity, activation="silu"):
     taps the buffers."""
     top_g, top_e = _moe_top_k(_moe_router_logits(p["router"], xt), top_k)
     buf, disp = _moe_local_pack(xt, top_e, top_g, n_experts, capacity, top_k)
-    act = _ACTIVATIONS[activation]
-    if "w_gate" in p:
-        h = act(_expert_matmul(buf, p["w_gate"])) \
-            * _expert_matmul(buf, p["w_up"])
-    else:
-        h = act(_expert_matmul(buf, p["w_in"]))
-    return _moe_combine(_expert_matmul(h, p["w_out"]), disp), buf, h, disp
+    h, out = _expert_ffn(p, buf, activation)
+    return _moe_combine(out, disp), buf, h, disp
 
 
 def moe(p, x, *, n_experts, top_k, capacity_factor=1.25, activation="silu"):
@@ -561,7 +587,9 @@ def moe(p, x, *, n_experts, top_k, capacity_factor=1.25, activation="silu"):
     axis that divides the experts and the sequence, and outside a
     ``manual_axes`` scope (k-sharded serving keeps the local path), the
     experts run expert-parallel with explicit all-to-alls
-    (:func:`_moe_a2a`), the reference's conditions exactly.
+    (:func:`_moe_a2a`), the reference's conditions exactly.  Otherwise,
+    under an FSDP × TP layout, the experts run expert-parallel inside the
+    tensor-parallel layer (:func:`_moe_tp`).
     """
     if _opt("moe_a2a"):
         mesh = _sh.current_mesh()
@@ -576,15 +604,52 @@ def moe(p, x, *, n_experts, top_k, capacity_factor=1.25, activation="silu"):
     t = b * s
     capacity = max(int(math.ceil(t * top_k / n_experts * capacity_factor)),
                    top_k)
+    lay = _sh.current_layout()
+    if lay is not None:
+        return _moe_tp(p, x, lay, n_experts=n_experts, top_k=top_k,
+                       capacity=capacity, activation=activation)
     out = moe_experts(p, x.reshape(t, d), n_experts=n_experts, top_k=top_k,
                       capacity=capacity, activation=activation)[0]
     return out.reshape(b, s, d)
 
 
+def _moe_tp(p, x, lay, *, n_experts, top_k, capacity, activation):
+    """The MoE layer of an FSDP × TP rank: ``x`` (B, S, d) replicated
+    across ``model``, the router's and the expert stacks' ``experts`` dim
+    cut over it (this rank holds E/model whole experts).
+
+    Every rank routes the same tokens alike: its block of the router
+    logits is gathered over ``model`` (backward: the ranks' partial
+    grads summed, then its block), then the top-k and the capacity
+    dispatch of the one-process layer.  The rank packs the capacity rows
+    of its own experts only, runs them, combines the pairs routed to them
+    and ``reduce_out`` sums the partial outputs over ``model``.  The same
+    rows in a call give the same routing, capacity and drops as one
+    process."""
+    b, s, d = x.shape
+    mesh = lay.mesh
+    x = _sh.replicate_in(x, "model", mesh=mesh)
+    xt = x.reshape(b * s, d)
+    router = p["router"]["w"]
+    if isinstance(router, dict):
+        raise ValueError("the FSDP × TP MoE runs a float router")
+    logits = _sh.fsdp_gather(_moe_router_logits({"w": router}, xt),
+                             ("model",), -1, mesh=mesh)
+    top_g, top_e = _moe_top_k(logits, top_k)
+    disp, src = _moe_dispatch(top_e, top_g, capacity, top_k)
+    n_loc = n_experts // lay.tp
+    first = mesh.axis_index("model") * n_loc
+    buf, disp = _moe_fill(xt, disp, src, n_loc * capacity, first * capacity)
+    _, out = _expert_ffn(p, buf.reshape(n_loc, capacity, d), activation)
+    part = _moe_combine(out, disp).reshape(b, s, d)
+    return _sh.reduce_out(part, "model", mesh=mesh)
+
+
 def _expert_block(w, mesh, n_experts: int):
     """This rank's (E/model, …) block of an expert leaf: the leaf itself
-    when it already is one, else cut from the whole stack by
-    ``sharding.shard_in`` (its grad comes back whole on every rank)."""
+    when it already is one (as under an FSDP × TP layout), else cut from
+    the whole stack by ``sharding.shard_in`` (its grad comes back whole
+    on every rank)."""
     if isinstance(w, dict):
         raise ValueError("the expert-parallel MoE runs float expert "
                          "weights (the reference's a2a einsums take no "
@@ -617,33 +682,33 @@ def _moe_a2a(p, x, mesh, *, n_experts, top_k, capacity_factor, activation):
     (:func:`gather_out`).  The router is replicated (its grad is summed
     across ``model``, :func:`replicate_in`); each expert leaf is this
     rank's block of the stacked (E, …) leaf (spec ``("model", None,
-    None)``) or the whole stack, cut on entry.  Grads across the DP axes
-    are the train step's to average."""
+    None)``) or the whole stack, cut on entry.  Under an FSDP × TP layout
+    the router holds this rank's block of the experts' columns, gathered
+    over ``model`` on entry (its grad summed, then cut), and the expert
+    leaves are this rank's blocks.  Grads across the DP axes are the
+    train step's to average."""
     n_model = mesh.shape["model"]
     b, s, d = x.shape
     t_loc = (b * s) // n_model
     capacity = max(int(math.ceil(t_loc * top_k / n_experts
                                  * capacity_factor)), top_k)
-    act = _ACTIVATIONS[activation]
     x_blk = _sh.shard_in(x, "model", 1, mesh=mesh)
     bb, ss, _ = x_blk.shape
     xt = x_blk.reshape(bb * ss, d)
     router = p["router"]["w"]
     if isinstance(router, dict):
         raise ValueError("the expert-parallel MoE runs a float router")
-    router = _sh.replicate_in(router, "model", mesh=mesh)
+    if _sh.current_layout() is None:
+        router = _sh.replicate_in(router, "model", mesh=mesh)
+    else:
+        router = _sh.fsdp_gather(router, ("model",), -1, mesh=mesh)
     top_g, top_e = _moe_top_k(_moe_router_logits({"w": router}, xt), top_k)
     buf, disp = _moe_local_pack(xt, top_e, top_g, n_experts, capacity, top_k)
     # (E, C, d) -> (E/model, model·C, d): expert-major slices to their owner
     ex = _sh.all_to_all(buf, "model", 0, 1, mesh=mesh)
     w = {k: _expert_block(p[k], mesh, n_experts)
          for k in ("w_gate", "w_up", "w_in", "w_out") if k in p}
-    if "w_gate" in w:
-        h = act(_expert_matmul(ex, w["w_gate"])) \
-            * _expert_matmul(ex, w["w_up"])
-    else:
-        h = act(_expert_matmul(ex, w["w_in"]))
-    back = _sh.all_to_all(_expert_matmul(h, w["w_out"]), "model", 1, 0,
+    back = _sh.all_to_all(_expert_ffn(w, ex, activation)[1], "model", 1, 0,
                           mesh=mesh)                         # (E, C, d)
     out = _moe_combine(back, disp).reshape(bb, ss, d)
     return _sh.gather_out(out, "model", 1, mesh=mesh)

@@ -17,6 +17,15 @@ The full-sequence forward solves h_t = a_t·h_{t−1} + b_t with a
 log-depth doubling scan over time (the reference's
 ``jax.lax.associative_scan``; the sums meet in another order, so results
 agree to f32 rounding); decode carries (h, conv state) explicitly.
+
+Under an FSDP × TP layout (``dist.sharding.current_layout``) the
+full-sequence forward runs tensor-parallel over the RG-LRU width: the
+rank's ``w_in`` block gives [its x channels | its y channels]
+(``models.fsdp_tp_layout`` reorders the columns), its conv taps, Λ and
+gate columns are those channels', and ``w_out`` is row-parallel.  The
+gates read the whole conv output, so it is gathered over ``model``
+before them (one all-gather per layer; backward: the ranks' partial
+grads summed, then this rank's channels).
 """
 from __future__ import annotations
 
@@ -25,7 +34,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .layers import dense
+from repro_torch.dist import sharding as _sh
+from .layers import _row_parallel, dense
 
 __all__ = ["rglru_init", "rglru_axes", "rglru_train", "rglru_decode",
            "rglru_init_state", "RGLRUState", "RG_LRU_C", "rglru_lambda"]
@@ -97,9 +107,12 @@ def _softplus(x):
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
-def _gates(p, x):
-    r = torch.sigmoid(dense(p["w_a"], x))
-    i = torch.sigmoid(dense(p["w_x"], x))
+def _gates(p, x, x_in=None):
+    """(a, gated x) of the channels ``x``; the gates read ``x_in``
+    (default ``x``; a tensor-parallel rank's whole conv output)."""
+    x_in = x if x_in is None else x_in
+    r = torch.sigmoid(dense(p["w_a"], x_in))
+    i = torch.sigmoid(dense(p["w_x"], x_in))
     log_a = -RG_LRU_C * _softplus(p["lam"].to(torch.float32)) \
         * r.to(torch.float32)
     a = torch.exp(log_a)
@@ -138,12 +151,19 @@ def rglru_train(p, u, *, return_state=False):
 
     ``return_state=True`` also returns RGLRUState(final h, conv lookback):
     the parallel prefill's."""
+    lay = _sh.current_layout()
+    if lay is not None:
+        u = _sh.replicate_in(u, "model", mesh=lay.mesh)
     xy = dense(p["w_in"], u)
     x, y = torch.chunk(xy, 2, dim=-1)
     xc = _conv1d(x, p["conv_w"])
-    a, gx = _gates(p, xc)
+    whole = None if lay is None \
+        else _sh.fsdp_gather(xc, ("model",), -1, mesh=lay.mesh)
+    a, gx = _gates(p, xc, whole)
     h = _linear_scan(a, gx).to(u.dtype)
-    out = dense(p["w_out"], h * F.gelu(y, approximate="tanh"))
+    hy = h * F.gelu(y, approximate="tanh")
+    out = dense(p["w_out"], hy) if lay is None \
+        else _row_parallel(p["w_out"], hy, lay)
     if return_state:
         cw = p["conv_w"].shape[0]
         conv_hist = x[:, -(cw - 1):, :]

@@ -18,6 +18,18 @@ Every projection is ``layers.dense``, so a quantized leaf runs the
 dequant kernels.  The WKV recurrence of the full-sequence forward is a
 Python loop over time on an f32 state (B, H, dk, dv) (the reference's
 ``lax.scan``); decode carries (shift states, S) explicitly.
+
+Under an FSDP × TP layout (``dist.sharding.current_layout``) the
+full-sequence forwards run tensor-parallel over the WKV heads: the time
+mix's r, k, v, g and decay (``decay_b``) products are column-parallel
+and ``u`` is this rank's heads, so the WKV loop steps only those; ``w_o``
+is row-parallel.  The channel mix's ``w_k`` is column-parallel over
+``ff`` and ``w_v`` row-parallel.  The input and the replicated leaves
+that the rank uses in part (the mix coefficients, ``decay_a``, ``w0`` of
+which it takes its heads' channels, ``ln_out``) enter through
+``replicate_in``, whose backward sums the ranks' partial grads; the
+channel mix's gate ``σ(W_r ξ_r)``, replicated and used whole, is
+computed outside that region, so its grads are whole on every rank.
 """
 from __future__ import annotations
 
@@ -26,7 +38,8 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from .layers import dense, rmsnorm
+from repro_torch.dist import sharding as _sh
+from .layers import _row_parallel, dense, rmsnorm
 
 __all__ = ["rwkv6_init", "rwkv6_axes", "rwkv_time_mix_train",
            "rwkv_time_mix_decode", "rwkv_channel_mix_train",
@@ -100,11 +113,31 @@ def _mix(x, x_prev, mu):
     return x + (x_prev - x) * mu.to(x.dtype)
 
 
-def _decay(p, xw):
+def _decay(p, xw, w0=None):
+    """The decay ∈ (0, 1) of ``xw``'s channels; ``w0`` defaults to the
+    leaf (a tensor-parallel rank passes its heads' channels of it)."""
     lora = torch.tanh(dense(p["decay_a"], xw))
-    wlog = p["w0"].to(torch.float32) \
+    w0 = p["w0"] if w0 is None else w0
+    wlog = w0.to(torch.float32) \
         + dense(p["decay_b"], lora).to(torch.float32)
     return torch.exp(-torch.exp(wlog))  # (…, d) ∈ (0, 1)
+
+
+def _tp_time_mix(p, x, lay):
+    """(p, x, w0) of a tensor-parallel rank's time mix: ``x`` and the
+    replicated leaves it uses in part through ``replicate_in``, ``w0``
+    cut to this rank's heads' channels."""
+    mesh = lay.mesh
+    rep = {k: _sh.replicate_in(p[k], "model", mesh=mesh)
+           for k in ("mu", "w0")}
+    p = {**p, "mu": rep["mu"],
+         "decay_a": {"w": _sh.replicate_in(p["decay_a"]["w"], "model",
+                                           mesh=mesh)},
+         "ln_out": {"scale": _sh.replicate_in(p["ln_out"]["scale"],
+                                              "model", mesh=mesh)}}
+    n = x.shape[-1] // lay.tp
+    w0 = rep["w0"].narrow(-1, mesh.axis_index("model") * n, n)
+    return p, _sh.replicate_in(x, "model", mesh=mesh), w0
 
 
 def _wkv_out(r, k, v, state, u):
@@ -121,7 +154,13 @@ def rwkv_time_mix_train(p, x, *, head_dim=64, return_state=False):
 
     ``return_state=True`` also returns the final WKV state (the parallel
     prefill's)."""
+    lay = _sh.current_layout()
+    w0 = None
+    if lay is not None:
+        p, x, w0 = _tp_time_mix(p, x, lay)
     b, s, d = x.shape
+    if lay is not None:
+        d //= lay.tp                      # this rank's heads' channels
     h = d // head_dim
     xp = _token_shift(x)
     mu = p["mu"]
@@ -130,18 +169,24 @@ def rwkv_time_mix_train(p, x, *, head_dim=64, return_state=False):
     k = dense(p["w_k"], xk).reshape(b, s, h, head_dim).to(torch.float32)
     v = dense(p["w_v"], xv).reshape(b, s, h, head_dim).to(torch.float32)
     g = F.silu(dense(p["w_g"], xg))
-    w = _decay(p, xw).reshape(b, s, h, head_dim)          # f32
+    w = _decay(p, xw, w0).reshape(b, s, h, head_dim)      # f32
     u = p["u"].to(torch.float32)
     state = torch.zeros((b, h, head_dim, head_dim), dtype=torch.float32,
                         device=x.device)
     outs = []
-    for t in range(s):
-        out_t, kv = _wkv_out(r[:, t], k[:, t], v[:, t], state, u)
-        state = w[:, t, ..., None] * state + kv
+    # one view per step (``unbind``: its backward stacks the steps' grads
+    # once, where S indexings would each add a zero-padded full-length
+    # grad, S² in all)
+    steps = zip(*(a.unbind(1) for a in (r, k, v, w)))
+    for r_t, k_t, v_t, w_t in steps:
+        out_t, kv = _wkv_out(r_t, k_t, v_t, state, u)
+        state = w_t[..., None] * state + kv
         outs.append(out_t)
     out = torch.stack(outs, dim=1)                         # (B,S,H,dv)
     out = rmsnorm(p["ln_out"], out.to(x.dtype))
-    y = dense(p["w_o"], out.reshape(b, s, d) * g)
+    out = out.reshape(b, s, d) * g
+    y = dense(p["w_o"], out) if lay is None \
+        else _row_parallel(p["w_o"], out, lay)
     if return_state:
         return y, state
     return y
@@ -172,10 +217,18 @@ def rwkv_time_mix_decode(p, x_t, tm_shift, wkv, *, head_dim=64):
 def rwkv_channel_mix_train(p, x):
     xp = _token_shift(x)
     mu = p["mu"]
-    xk = _mix(x, xp, mu[0])
     xr = _mix(x, xp, mu[1])
+    gate = torch.sigmoid(dense(p["w_r"], xr))
+    lay = _sh.current_layout()
+    if lay is not None:
+        x = _sh.replicate_in(x, "model", mesh=lay.mesh)
+        mu = _sh.replicate_in(mu, "model", mesh=lay.mesh)
+        xp = _token_shift(x)
+    xk = _mix(x, xp, mu[0])
     k = torch.square(F.relu(dense(p["w_k"], xk)))
-    return torch.sigmoid(dense(p["w_r"], xr)) * dense(p["w_v"], k)
+    if lay is not None:
+        return gate * _row_parallel(p["w_v"], k, lay)
+    return gate * dense(p["w_v"], k)
 
 
 def rwkv_channel_mix_decode(p, x_t, cm_shift):

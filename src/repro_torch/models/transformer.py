@@ -333,8 +333,6 @@ def expert_specs(cfg: ArchConfig, rules=None):
 # NamedShardings in ``launch/dryrun._lower_train``)
 # ---------------------------------------------------------------------------
 
-#: the families whose FSDP × TP train step is still to come
-_FSDP_TP_LATER = ("moe", "ssm", "hybrid")
 _ATTN_BLOCKS = ("attn", "self_attn", "cross_attn")
 _FF_IN = ("w_gate", "w_up", "w_in")
 
@@ -346,15 +344,20 @@ class FsdpTpLayout:
 
     ``specs`` holds each leaf's spec (``param_specs_tree`` under the
     mesh's rules: ``d_model_w`` over the data axes ``dp``; heads,
-    ``kv_heads``, ``ff`` and ``vocab`` over ``model``), of the PADDED
-    leaf: a head count that does not divide ``model`` is padded with whole
-    zero heads (``q_index`` / ``kv_index`` map each padded head to its
-    source head, -1 for a zero head whose wq/wk/wv columns and wo rows are
-    zero: an exact no-op, whose grads stay zero), ``d_ff`` with zero
-    columns to ``ff``.  With fewer kv heads than ``model`` ranks (a
-    divisor of it) the kv heads are whole on every rank instead
-    (``kv_rep`` ranks per kv head; their specs replicate ``kv_heads``)
-    and each kv head's q heads are padded to a multiple of ``kv_rep``."""
+    ``kv_heads``, ``ff``, ``vocab``, ``experts`` and ``state`` over
+    ``model``), of the PADDED leaf: a head count that does not divide
+    ``model`` is padded with whole zero heads (``q_index`` / ``kv_index``
+    map each padded head to its source head, -1 for a zero head whose
+    wq/wk/wv columns and wo rows are zero: an exact no-op, whose grads
+    stay zero), an MLP's ``d_ff`` with zero columns to ``ff``.  With fewer
+    kv heads than ``model`` ranks (a divisor of it) the kv heads are whole
+    on every rank instead (``kv_rep`` ranks per kv head; their specs
+    replicate ``kv_heads``) and each kv head's q heads are padded to a
+    multiple of ``kv_rep``.  The experts, the RWKV6 heads, its
+    channel-mix ``d_ff`` and the RG-LRU width are not padded: they must
+    divide ``model``.  The RG-LRU's ``w_in`` (d, 2·lru) has its columns
+    reordered so that each rank's block is [its x channels | its y
+    channels] (``rglru_train`` splits the product in two halves)."""
 
     mesh: Any
     dp: Tuple[str, ...]
@@ -391,18 +394,30 @@ def _spec_walk(axes, fn, path=()):
     return fn(path, axes)
 
 
+def _check_model_cut(cfg: ArchConfig, m: int):
+    """``ValueError`` naming each dim that the layout cuts over ``model``
+    without padding and that does not divide it."""
+    dims = {}
+    if cfg.family == "moe":
+        dims["n_experts"] = cfg.n_experts
+    elif cfg.family == "ssm":
+        dims["the RWKV head count"] = cfg.d_model // cfg.wkv_head_dim
+        dims["the channel-mix d_ff"] = cfg.d_ff
+    elif cfg.family == "hybrid":
+        dims["lru_width"] = cfg.lru_width or cfg.d_model
+    bad = [f"{k} {v}" for k, v in dims.items() if v % m]
+    if bad:
+        raise ValueError(f"{cfg.name}: {', '.join(bad)} not divisible by "
+                         f"the {m} ranks of the model axis")
+
+
 def fsdp_tp_layout(cfg: ArchConfig, mesh) -> FsdpTpLayout:
     """The FSDP × TP layout of ``cfg`` on ``mesh`` (a ``HostMesh`` or a
-    ``ShapeMesh`` with ``data`` (and ``pod``) and ``model`` axes).  The
-    dense, encoder–decoder and prefix-LM families run it; the MoE, ssm and
-    hybrid families raise ``NotImplementedError`` (ROADMAP A item 13)."""
+    ``ShapeMesh`` with ``data`` (and ``pod``) and ``model`` axes), for
+    every family of the registry."""
     _check_family(cfg)
-    if cfg.family in _FSDP_TP_LATER:
-        raise NotImplementedError(
-            f"{cfg.name}: the FSDP × TP train step of the {cfg.family} "
-            "family is ROADMAP A item 13 (the dense, encoder–decoder and "
-            "prefix-LM families run it)")
     m = mesh.shape.get("model", 1)
+    _check_model_cut(cfg, m)
     nq, nkv = cfg.n_heads, cfg.n_kv
     g = nq // nkv
     if nkv >= m or m % nkv:
@@ -457,9 +472,11 @@ def _take_units(t, dim: int, index: Sequence[int], unit: int):
 
 
 def _leaf_index(cfg, lay: FsdpTpLayout, path, *, inverse: bool):
-    """(dim, index, unit) of the padding of the leaf at ``path``, or None:
-    q heads on wq's columns and wo's rows, kv heads on wk/wv's (sharded
-    kv), ff on the MLP's.  ``inverse`` maps back to the source heads."""
+    """(dim, index, unit) of the padding or reorder of the leaf at
+    ``path``, or None: q heads on wq's columns and wo's rows, kv heads on
+    wk/wv's (sharded kv), ff on the MLP's, the RG-LRU's x and y channel
+    blocks on ``w_in``'s columns.  ``inverse`` maps back to the source
+    order."""
     hd = cfg.resolved_head_dim
     if len(path) < 3:
         return None
@@ -473,6 +490,10 @@ def _leaf_index(cfg, lay: FsdpTpLayout, path, *, inverse: bool):
             dim = -2
     elif block in _ATTN_BLOCKS and name in ("wk", "wv") and not lay.kv_rep:
         index, unit = lay.kv_index, hd
+    elif block == "rec" and name == "w_in":
+        m = lay.tp
+        index = tuple(j for r in range(m) for j in (r, m + r))
+        unit = (cfg.lru_width or cfg.d_model) // m
     elif block == "mlp" and (name in _FF_IN or name == "w_out"):
         index = tuple(range(cfg.d_ff)) + (-1,) * (lay.ff - cfg.d_ff)
         unit = 1
@@ -549,12 +570,33 @@ def _train_layers(cfg, params, key=None):
 
 def _train_top(cfg, params):
     """``params`` with its unstacked leaves (embedding, final norms,
-    position table) gathered under an FSDP × TP layout."""
+    position table) gathered under an FSDP × TP layout; the layer stacks
+    and the hybrid's ``tail`` are gathered layer by layer."""
     lay = current_layout()
     if lay is None:
         return params
     return {**params, **{k: _gathered(lay, v, lay.specs[k])
-                         for k, v in params.items() if k not in _STACKS}}
+                         for k, v in params.items()
+                         if k not in _STACKS + ("tail",)}}
+
+
+def _hybrid_train_layers(cfg, params):
+    """(kind, layer tree) of every hybrid layer in order
+    (:func:`_hybrid_layers`); under an FSDP × TP layout each layer's
+    blocks, of a ``groups`` entry or of the ``tail``, gathered over the
+    data axes when the loop reaches that layer."""
+    layers = _hybrid_layers(cfg, params)
+    lay = current_layout()
+    if lay is None:
+        return layers
+    pat = cfg.block_pattern
+    per_kind = [_spec_walk(lay.specs["groups"][f"b{i}"], lambda _, s: s[1:])
+                for i in range(len(pat))]
+    n_stacked = len(layers) - len(params["tail"])
+    specs = [per_kind[i % len(pat)] for i in range(n_stacked)] \
+        + list(lay.specs["tail"])
+    return ((kind, _gathered(lay, sub, spec))
+            for (kind, sub), spec in zip(layers, specs))
 
 
 def _vocab_parallel_nll(logits, targets, lay: FsdpTpLayout, vocab: int):
@@ -782,7 +824,7 @@ def forward_train(cfg: ArchConfig, params, batch) -> torch.Tensor:
                                               _norm(cfg, lp["ln_cm"], x))
         return _logits(cfg, params, x)
     if cfg.family == "hybrid":
-        for kind, sub in _hybrid_layers(cfg, params):
+        for kind, sub in _hybrid_train_layers(cfg, params):
             t_in = _norm(cfg, sub["ln_t"], x)
             if kind == "attn":
                 x = x + attention_train(sub["attn"], t_in, causal=True,

@@ -15,10 +15,13 @@ held against the reference's.
   for character as the reference's.
 * ``run_cell`` on full-width cells traced on ``meta`` under the 256-rank
   mesh: ``ok``, 256 chips, a dominant term and the reference's JSON
-  fields; a MoE ``train_4k`` cell ``failed`` with the
-  ``NotImplementedError`` of ROADMAP A item 13; ``long_500k`` skipped on
-  a full-attention arch; ``reparse`` restores every field bit for bit;
+  fields; the MoE, ssm and hybrid ``train_4k`` cells ``ok`` too (one
+  microbatch, ``REPRO_N_MICRO=1``, to keep their traces short), with
+  their B3 launches and collective counts; ``long_500k`` skipped on a
+  full-attention arch; ``reparse`` restores every field bit for bit;
   the CLI and one grid subprocess write their cells.
+* The ssm train cell's extrapolation from 11 and 13 tokens equals the
+  counter's direct count of the step at a third length.
 """
 import json
 import os
@@ -161,6 +164,27 @@ def test_summarize_renders_as_the_reference():
         assert summarize.table(ROWS, mesh) == jsum.table(ROWS, mesh)
 
 
+#: the train cells of the MoE, ssm and hybrid families, traced in one
+#: microbatch
+FAMILY_TRAIN = {"moe": "moonshot-v1-16b-a3b", "ssm": "rwkv6-7b",
+                "hybrid": "recurrentgemma-2b"}
+
+
+#: their collectives per step on rank 0: 48 / 32 / 26 layers' blocks
+#: gathered over data (and the MoE router's logits, the RG-LRU's conv
+#: output over model), the sums of the tensor-parallel products and of
+#: the reduce-scatters, the vocab-parallel loss's max
+FAMILY_COLLECTIVES = {
+    "moe": {"all_gather": 433, "all_reduce_max": 1, "all_reduce_sum": 651},
+    "ssm": {"all_gather": 289, "all_reduce_max": 1, "all_reduce_sum": 611},
+    "hybrid": {"all_gather": 201, "all_reduce_max": 1,
+               "all_reduce_sum": 439},
+    # its 8 local-attention layers: 10 q heads padded to 16 and the kv
+    # head on every rank, one and one per rank
+    "hybrid_kernels": {"flash_attention": 8},
+}
+
+
 @pytest.fixture(scope="module")
 def cells(tmp_path_factory):
     out = tmp_path_factory.mktemp("dry")
@@ -169,11 +193,14 @@ def cells(tmp_path_factory):
                                   wbits=4, out_dir=str(out)),
         "train": dryrun.run_cell("whisper-base", "train_4k", "single",
                                  out_dir=str(out)),
-        "moe": dryrun.run_cell("moonshot-v1-16b-a3b", "train_4k", "single",
-                               out_dir=str(out)),
         "skip": dryrun.run_cell("minicpm-2b", "long_500k", "single",
                                 out_dir=str(out)),
     }
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("REPRO_N_MICRO", "1")
+        for key, arch in FAMILY_TRAIN.items():
+            rows[key] = dryrun.run_cell(arch, "train_4k", "single",
+                                        out_dir=str(out))
     return out, rows
 
 
@@ -196,10 +223,59 @@ def test_cells_trace_on_meta(cells):
     # whisper's 6 + 6 self-attention layers through B3, 16 microbatches
     assert rows["train"]["n_micro"] == 16
     assert rows["train"]["kernel_launches"] == {"flash_attention": 192}
-    assert rows["moe"]["status"] == "failed"
-    assert rows["moe"]["error"].startswith("NotImplementedError")
-    assert "ROADMAP A item 13" in rows["moe"]["error"]
+    for key in FAMILY_TRAIN:
+        r = rows[key]
+        assert r["status"] == "ok", r.get("traceback")
+        assert r["n_micro"] == 1 and r["chips"] == 256
+        assert set(FIELDS) <= set(r)
+        assert r["bound_time_s"] > 0 and r["roofline_fraction"] > 0
+    # 16 q and 16 kv heads over 16 ranks: one and one, through B3 in
+    # each of the 48 layers
+    assert rows["moe"]["kernel_launches"] == {"flash_attention": 48}
+    assert rows["moe"]["collective_counts"] == FAMILY_COLLECTIVES["moe"]
+    assert rows["ssm"]["kernel_launches"] == {}
+    assert rows["ssm"]["collective_counts"] == FAMILY_COLLECTIVES["ssm"]
+    assert rows["ssm"]["trip_counts"] == [4096, 32, 1]
+    assert rows["hybrid"]["kernel_launches"] == \
+        FAMILY_COLLECTIVES["hybrid_kernels"]
+    assert rows["hybrid"]["collective_counts"] == \
+        FAMILY_COLLECTIVES["hybrid"]
     assert rows["skip"]["status"] == "skipped"
+
+
+def test_ssm_train_extrapolation_equals_a_direct_count():
+    """rwkv6-7b's train step on the 256-rank mesh, one microbatch: the
+    op log extrapolated from 11 and 13 tokens to 17 equals the counter's
+    log of the step traced at 17 tokens (counts, FLOPs, bytes and
+    collectives; the peak is a model and left out)."""
+    import torch
+    from repro_torch.configs import SHAPES
+    from repro_torch.dist.sharding import use_layout, use_mesh
+    from repro_torch.launch.hlo_cost import count_costs
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import fsdp_tp_blocks, fsdp_tp_layout
+    from repro_torch.train import (AdamWConfig, init_train_state,
+                                   make_train_step)
+    cfg = get_config("rwkv6-7b")
+    mesh = make_production_mesh()
+    lay = fsdp_tp_layout(cfg, mesh)
+    state = init_train_state(fsdp_tp_blocks(
+        cfg, init_params(cfg, device="meta"), lay))
+    batch = dryrun._rank_rows(input_specs(cfg, SHAPES["train_4k"]), mesh)
+    step = make_train_step(cfg, AdamWConfig(), n_micro=1)
+    with use_mesh(mesh), use_layout(lay):
+        got = dryrun._seq_extrapolated(step, state, batch, 17, mesh, ())
+        want = count_costs(step, state, {k: v[:, :17]
+                                         for k, v in batch.items()},
+                           mesh=mesh)
+    assert got.oplog["collectives"] == want.oplog["collectives"]
+    assert got.oplog["ops"].keys() == want.oplog["ops"].keys()
+    for name, row in want.oplog["ops"].items():
+        assert got.oplog["ops"][name] == pytest.approx(row, rel=1e-12), name
+    assert got.n_ops == want.n_ops
+    assert got.argument_bytes == want.argument_bytes
+    assert torch.tensor(got.dot_flops).item() == pytest.approx(
+        want.dot_flops, rel=1e-12)
 
 
 def test_reparse_restores_the_fields_bit_for_bit(cells):

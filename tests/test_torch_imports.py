@@ -73,7 +73,7 @@ _BAD = re.compile(r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)[\s.])",
 
 def test_sources_do_not_import_jax_or_repro():
     scripts = [ROOT / "chip_smoke.py", ROOT / "kernel_bench.py",
-               ROOT / "rescaler_probe.py"]
+               ROOT / "rescaler_probe.py", ROOT / "spread_probe.py"]
     files = list(PKG.rglob("*.py")) + scripts
     assert all(f.exists() for f in scripts)
     hits = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
