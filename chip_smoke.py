@@ -258,6 +258,35 @@ serve phase's traffic:
    mask take the plain softmax, as in the reference), then as whisper's
    (126 B1 and B2 per step).
 
+The registry's largest dense configs at full width and depth, each
+served int4 from the serve driver's layer-by-layer build
+(``launch.serve.serving_tree``: no whole f32 tree is made; qwen2.5-32b's
+is 128 GB) on the serve phase's traffic, after those:
+
+14d. large kernels: B1 (packed int4) against its twin at every (k, n)
+   of their decode steps (qwen2.5-32b's (5120, 5120), (5120, 1024),
+   (5120, 27648), (27648, 5120); qwen1.5-32b's (5120, 27392), (27392,
+   5120); minitron-8b's (4096, 4096), (4096, 1024), (4096, 16384),
+   (16384, 4096)) at m = 8 and 128, timed as in the kernel phase;
+14e. qwen2.5-32b (64 layers), qwen1.5-32b (64, MHA) and minitron-8b
+   (32, relu², non-gated): the build's peak memory below the served tree
+   plus 3 layers of f32; the first decode step against the float-weight
+   model computed one layer at a time (``LayerByLayer``: each layer's
+   leaves dequantized when reached, then dropped), end to end and layer
+   by layer within LOGIT_TOL; the continuous engine's streams (B1 7 ×
+   64, 7 × 64 and 6 × 32 times per decode step) equal to the static
+   engine's; qwen2.5-32b's step breakdown (its CUDA graph holds 448 B1
+   nodes) and its step counted by the cost counter (cost phase (e), as
+   (a)); the serve's peak memory printed;
+14f. one full-width qwen2.5-32b layer quantized by ``watersic-plain``
+   at 3 bits through ``quantize_model`` on 32768 calibration tokens
+   (every Σ_X full rank), its peak memory printed: the
+   realized rate within 0.05 bits, B4's launches equal to the 128-column
+   blocks of the rate searches' ZSIC passes, B4 against its twin at the
+   row counts it ran at; the codes served as packed int4 with escapes
+   (``from_watersic``), held against the layer of the dequantized codes
+   within LOGIT_TOL.
+
 Training on one device (minicpm-2b, the WSD schedule), last:
 
 15. train: ``python -m repro_torch.launch.train``'s ``main`` at full width
@@ -295,12 +324,12 @@ CUDA IPC; the weights, shared with the ranks the same way, never cross):
    k-shard shapes of minicpm-2b at 4 shards, (k_loc, n) ∈ {(576, 2304),
    (576, 5760), (1440, 2304)}, m ∈ {8, 256}, timed as in the kernel phase;
 17b. mesh: minicpm-2b packed int4 at full width cut to MESH_FULL_LAYERS
-   (20 of its 40, for the smoke's time), sharded 4 ways
+   (10 of its 40, for the smoke's time), sharded 4 ways
    (``serve.shard_params_tree``): the single-process oracle's first step
    (the sharded tree here) within LOGIT_TOL of the unsharded dequantized
-   model, 4 × 7 × 20 B1 launches per step; then one launch of 4 ranks
+   model, 4 × 7 × 10 B1 launches per step; then one launch of 4 ranks
    serves the serve phase's traffic (max_len 64: the K/V buffer shards),
-   every rank's streams equal to the oracle's bit for bit, 7 × 20 B1
+   every rank's streams equal to the oracle's bit for bit, 7 × 10 B1
    launches per rank per decode step, float all-gathers only (no integer one: no
    weight byte crossed), each rank's step time, B1 time, all-gathers and
    bytes printed; the reference test's crc32 format mix at 4 layers (B2 on
@@ -385,17 +414,18 @@ the card under gloo and their collectives meet in the CUDA-IPC mailboxes:
 The second-to-last line is the kernel summary JSON (six entries: the
 packed kernel per payload, the int8 kernel, ZSIC and flash; B1 int4's and
 B2's launches include the recurrent, whisper and paligemma serve runs and
-int8 steps, the lifecycle's served codes, the mesh phases' oracle and
+int8 steps, the large dense configs' and the WaterSIC layer's serve runs,
+the lifecycle's served codes, the mesh phases' oracle and
 rank runs and the counted decode step of phase 19, flash's whisper's
 encode and prefill and the training phases' (the driver's steps, the
 lifecycle's training, ``model_ppl`` and fine-tune, the compressed DP
 ranks and their oracle, phase 20's one processes and ranks), ZSIC's the
-lifecycle's hptq and GPTQ), the last line
+lifecycle's hptq and GPTQ and the WaterSIC layer of phase 14f), the last line
 ``{"ok": true, "device": {...}}``.  Per-case numbers also go to
 ``chiprun_out/chip_smoke_detail.json``.  Tolerances:
 
 * dequant kernels (packed and int8) vs twin: |Δ| ≤ 1e-4 + 1e-4·|twin|
-  (inputs scaled so outputs are O(1); f32 sums over k ≤ 5760 in another
+  (inputs scaled so outputs are O(1); f32 sums over k ≤ 27648 in another
   order differ by ≈ eps·√k);
 * ZSIC kernel vs twin: equal bit for bit (the same divisions, roundings
   and unfused products and subtractions);
@@ -404,7 +434,7 @@ lifecycle's hptq and GPTQ), the last line
 * ``model_ppl`` through the kernel vs through the twin: 1e-5 relative
   (and so the train oracle's loss);
 * logits vs the float-weight model: max|Δ| ≤ 1e-3 · max|logits|
-  (f32 sums in another order over 40 layers); the recurrent families
+  (f32 sums in another order over up to 64 layers); the recurrent families
   also hold each layer's contribution so (layer by layer, above);
   rwkv6-7b only so, since its random 32 layers amplify f32 rounding: the
   float model fed its own embedding moved by 1e-7 of itself moves its
@@ -414,6 +444,7 @@ lifecycle's hptq and GPTQ), the last line
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -423,6 +454,7 @@ import sys
 import time
 import zlib
 from pathlib import Path
+from typing import NamedTuple
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -461,7 +493,8 @@ from repro_torch.kernels.dequant import (LAUNCHES, PLANE_GROUPS,  # noqa: E402
                                          payload_nbits, reset_launches,
                                          unpack_payload_ref)
 from repro_torch.launch import plan as launch_plan  # noqa: E402
-from repro_torch.launch.serve import quantize_for_wbits  # noqa: E402
+from repro_torch.launch.serve import (f32_tree_bytes,  # noqa: E402
+                                     quantize_for_wbits, serving_tree)
 from repro_torch.launch.train import device_batch  # noqa: E402
 from repro_torch.models import (capture_cross_kv,  # noqa: E402
                                 decode_chunk, decode_layers, decode_step,
@@ -809,6 +842,58 @@ def dequantized_model(params):
     return params
 
 
+class LayerByLayer(NamedTuple):
+    """The float-weight model of a quantized dense ``tree``, never held
+    whole: a step dequantizes layer l's leaves
+    (``dequantize_leaf_ref(leaf, index=l)``) when it reaches the layer,
+    runs the layer with plain matmuls and drops them (the f32 model of
+    qwen2.5-32b is 128 GB).  ``oracle_step`` and ``oracle_layers`` take
+    it where they take a dequantized tree."""
+    tree: dict
+
+
+def dequantized_layer(layers, index):
+    """Layer ``index`` of a stacked layer tree with every quantized leaf
+    replaced by its effective f32 weight."""
+    if is_qweight(layers):
+        return dequantize_leaf_ref(layers, index=index)
+    if isinstance(layers, dict):
+        return {k: dequantized_layer(v, index) for k, v in layers.items()}
+    return layers[index]
+
+
+def _oracle_tree(oracle):
+    """The tree an oracle reads its embedding and ``ln_f`` from."""
+    return oracle.tree if isinstance(oracle, LayerByLayer) else oracle
+
+
+def oracle_layers(cfg, oracle, cache):
+    """``models.decode_layers`` of the float-weight oracle at
+    ``cache.pos``: a dequantized tree, or a ``LayerByLayer`` one whose
+    layers dequantize their weights when called."""
+    if not isinstance(oracle, LayerByLayer):
+        return decode_layers(cfg, split_layers(oracle), cache)
+    layers = oracle.tree["layers"]
+
+    def run(index, kind, state, x):
+        return tfm._decode_layer(cfg, kind, dequantized_layer(layers, index),
+                                 state, cache.pos, x)
+    return [functools.partial(run, i, kind, state) for i, (kind, _, state)
+            in enumerate(tfm._layer_states(cfg, split_layers(oracle.tree),
+                                           cache))]
+
+
+def oracle_step(cfg, oracle, cache, tok):
+    """The oracle's logits of one decode step (``decode_step`` of a
+    dense tree; a ``LayerByLayer`` oracle one layer at a time)."""
+    if not isinstance(oracle, LayerByLayer):
+        return decode_step(cfg, oracle, cache, tok)[0]
+    x = tfm._embed_tokens(cfg, oracle.tree, tok)
+    for layer in oracle_layers(cfg, oracle, cache):
+        x = layer(x)
+    return tfm._logits(cfg, oracle.tree, x)[:, 0, :]
+
+
 def serve_path(cfg, wbits, dev, **kw):
     """Tree-quantized random weights at ``wbits``, served by serve_tree
     against the dequantized-weight model; returns (record, params)."""
@@ -878,16 +963,17 @@ def layerwise_decode_check(cfg, tree, oracle, tok, dev, max_len, what):
     b = tok.shape[0]
     caches = [init_cache(cfg, b, max_len, torch.float32, device=dev)
               for _ in range(2)]
-    layers = [decode_layers(cfg, split_layers(p), c)
-              for p, c in zip((tree, oracle), caches)]
-    x = tfm._embed_tokens(cfg, oracle, tok)
+    layers = [decode_layers(cfg, split_layers(tree), caches[0]),
+              oracle_layers(cfg, oracle, caches[1])]
+    x = tfm._embed_tokens(cfg, _oracle_tree(oracle), tok)
     errs = []
     for i, (fa, fb) in enumerate(zip(*layers)):
         ya, yb = fa(x), fb(x)
         errs.append(_rel_check(ya - x, yb - x, f"{what} layer {i} block"))
         x = yb
     errs.append(_rel_check(tfm._logits(cfg, tree, ya),
-                           tfm._logits(cfg, oracle, yb), f"{what} logits"))
+                           tfm._logits(cfg, _oracle_tree(oracle), yb),
+                           f"{what} logits"))
     for i, (sa, sb) in enumerate(zip(*(tree_leaves(c.kv)
                                        for c in caches))):
         errs.append(_rel_check(sa, sb, f"{what} state leaf {i}"))
@@ -902,17 +988,17 @@ def rounding_amplification(cfg, oracle, tok, dev, max_len, rel=1e-7):
     value.  Above LOGIT_TOL the depth amplifies rounding past the
     tolerance, and no other f32 implementation of the same model (a
     kernel summing in another order) can be held to it end to end."""
-    split = split_layers(oracle)
-    x = tfm._embed_tokens(cfg, oracle, tok)
+    base = _oracle_tree(oracle)
+    x = tfm._embed_tokens(cfg, base, tok)
     gen = torch.Generator(device=dev).manual_seed(0)
     noise = torch.randn(x.shape, generator=gen, device=dev, dtype=x.dtype)
     out = []
     for xi in (x, x + rel * x.abs() * noise):
         cache = init_cache(cfg, tok.shape[0], max_len, torch.float32,
                            device=dev)
-        for layer in decode_layers(cfg, split, cache):
+        for layer in oracle_layers(cfg, oracle, cache):
             xi = layer(xi)
-        out.append(tfm._logits(cfg, oracle, xi))
+        out.append(tfm._logits(cfg, base, xi))
     return float((out[1] - out[0]).abs().max()) / float(out[0].abs().max())
 
 
@@ -946,11 +1032,20 @@ def layerwise_prefill_check(cfg, tree, toks, dev, max_len, what):
     return max(errs)
 
 
+def serve_prompts(cfg, n_req, prompt_len):
+    """The serve cells' prompts: ``n_req`` of ``prompt_len`` tokens from
+    numpy seed 0."""
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, cfg.vocab, prompt_len).astype(np.int32)
+            for _ in range(n_req)]
+
+
 def serve_tree(cfg, params, oracle_of, label, dev, *, n_req, prompt_len,
                new_tokens, max_len, slots, chunk, per_layer=7,
                layerwise=False, end_to_end=True):
     """First-step logits of the quantized tree against
-    ``oracle_of(params)`` (the same model with float weights), then
+    ``oracle_of(params)`` (the same model with float weights: a
+    dequantized tree, or a ``LayerByLayer`` one), then
     ``ContinuousEngine`` serves ``n_req`` requests; each dequant kernel
     must run once per layer of each of its leaves per decode step
     (``per_layer`` × n_layers in all: 7 for a dense tree of one format, 4
@@ -962,16 +1057,14 @@ def serve_tree(cfg, params, oracle_of, label, dev, *, n_req, prompt_len,
     (``rounding_amplification``, held above LOGIT_TOL): a depth that
     amplifies rounding so far cannot be held end to end.  Returns a
     record."""
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab, prompt_len).astype(np.int32)
-               for _ in range(n_req)]
+    prompts = serve_prompts(cfg, n_req, prompt_len)
     # first-step logits: kernel-served model vs the float-weight model
     tok = torch.as_tensor(np.stack([p[:1] for p in prompts]),
                           dtype=torch.long, device=dev)
     got, _ = decode_step(cfg, params, init_cache(
         cfg, n_req, max_len, torch.float32, device=dev), tok)
     oracle = oracle_of(params)
-    want, _ = decode_step(cfg, oracle, init_cache(
+    want = oracle_step(cfg, oracle, init_cache(
         cfg, n_req, max_len, torch.float32, device=dev), tok)
     if got.shape != (n_req, cfg.vocab):
         raise AssertionError(f"logits shape {tuple(got.shape)}")
@@ -1572,6 +1665,7 @@ def install_codes(qparams, qlinears, n_layers, nbits=4):
                                 escape_capacity=max(counts))
                   for l in range(n_layers)]
         p["layers"][path[0]][path[1]] = {
+            **qparams["layers"][path[0]][path[1]],       # a bias stays
             "w": {k: torch.stack([lf[k] for lf in leaves])
                   for k in leaves[0]}}
     return p, escapes
@@ -4144,6 +4238,260 @@ def encdec_vlm_phases(dev, gen) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# The registry's largest dense configs (slice 16): qwen2.5-32b, qwen1.5-32b
+# and minitron-8b served int4 at full width from the layer-by-layer build,
+# and one full-width qwen2.5-32b layer quantized by WaterSIC through B4
+# ---------------------------------------------------------------------------
+
+#: arch → layers served (full depth), each tree built layer by layer by
+#: the serve driver's ``serving_tree``
+LARGE_DENSE = {"qwen2.5-32b": 64, "qwen1.5-32b": 64, "minitron-8b": 32}
+#: B1 launches per layer of a decode step, by (k, n): qwen2.5-32b's wq/wo,
+#: wk/wv (8 KV heads of 128), w_gate/w_up and w_out; qwen1.5-32b's four
+#: attention matrices (40 KV heads) and its MLP; minitron-8b's wq/wo,
+#: wk/wv and its non-gated relu² w_in and w_out
+LARGE_PER_LAYER = {
+    "qwen2.5-32b": {(5120, 5120): 2, (5120, 1024): 2, (5120, 27648): 2,
+                    (27648, 5120): 1},
+    "qwen1.5-32b": {(5120, 5120): 4, (5120, 27392): 2, (27392, 5120): 1},
+    "minitron-8b": {(4096, 4096): 2, (4096, 1024): 2, (4096, 16384): 1,
+                    (16384, 4096): 1}}
+#: B1's rows at those shapes: a decode step of 8 slots and one prefill
+#: chunk of 16 tokens of 8 slots
+LARGE_M = (8, 128)
+#: the WaterSIC layer's calibration: batches × rows × tokens = 32768
+#: tokens, above the widest in-features (27648, w_out's), so every Σ_X
+#: can have full rank (with fewer, Σ_X of the down projection is rank
+#: deficient: ROADMAP queue C, fault 1)
+LARGE_CALIB = (16, 8, 256)
+#: the WaterSIC layer's method (no LMMSE and no rescalers: its ZSIC runs
+#: blocked through B4) and target rate, bits per parameter
+LARGE_PTQ = PTQConfig(target_bits=3.0, method="watersic-plain")
+
+
+def large_kernel_phase(dev, gen, flush) -> list:
+    """B1 (packed int4) against its twin at every (k, n) the three
+    configs' decode steps give it, at m = 8 and 128, timed as in the
+    kernel phase (L2 cold, ``F.linear`` on the pre-dequantized weight,
+    the bound)."""
+    shapes = sorted({s for per in LARGE_PER_LAYER.values() for s in per})
+    cases = []
+    for m in LARGE_M:
+        for k, n in shapes:
+            c = kernel_case(4, m, k, n, dev, gen, flush)
+            cases.append(c)
+            print(f"large kernel int4 m={m} k={k} n={n}: ms={c['ms']:.5f} "
+                  f"plain_ms={c['plain_ms']:.5f} library_ms="
+                  f"{c['library_ms']:.5f} bound_ms={c['bound_ms']:.5f} "
+                  f"({c['bound_by']}) max_abs_err={c['max_abs_err']:.3e} "
+                  f"[{CARD}]", flush=True)
+    return cases
+
+
+def _layer_f32_bytes(cfg) -> int:
+    """Bytes of one layer's f32 weights (``init_layer_params``' tree)."""
+    layer = split_layers(init_params(cfg, device="meta"))["layers"][0]
+    return sum(x.numel() * x.element_size() for x in tree_leaves(layer))
+
+
+def large_serve_phase(arch, dev, kcases, *, n_req, prompt_len, new_tokens,
+                      max_len, slots, chunk) -> dict:
+    """One config at full width and depth, packed int4: the serve
+    driver's layer-by-layer build (its peak must stay below the served
+    tree plus 3 layers of f32: no whole f32 tree was made), then
+    ``serve_tree`` against the ``LayerByLayer`` oracle (first step end to
+    end and layer by layer within LOGIT_TOL, B1 once per packed leaf and
+    layer per decode step) and the static engine's streams, equal; the
+    serve's peak (the tree included)."""
+    cfg = dataclasses.replace(get_config(arch), n_layers=LARGE_DENSE[arch])
+    per_layer = LARGE_PER_LAYER[arch]
+    _sync(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    tree = serving_tree(cfg, 4, dev)
+    _sync(dev)
+    build_s = time.perf_counter() - t0
+    build_peak = torch.cuda.max_memory_allocated(dev) - base
+    tree_bytes = qweight_bytes(tree)[0]
+    layer_bytes = _layer_f32_bytes(cfg)
+    limit = tree_bytes + 3 * layer_bytes
+    print(f"large {arch} L={cfg.n_layers}: built layer by layer in "
+          f"{build_s:.2f}s, tree {tree_bytes / 1e9:.3f} GB (one f32 layer "
+          f"{layer_bytes / 1e9:.3f} GB, the f32 tree "
+          f"{f32_tree_bytes(cfg) / 1e9:.2f} GB), build peak "
+          f"{build_peak / 1e9:.3f} GB against the bound "
+          f"{limit / 1e9:.3f} GB [{CARD}]", flush=True)
+    if build_peak >= limit:
+        raise AssertionError(f"{arch}: the build's peak {build_peak} B is "
+                             f"not below the tree plus 3 f32 layers "
+                             f"({limit} B)")
+    torch.cuda.reset_peak_memory_stats(dev)
+    rec = serve_tree(cfg, tree, LayerByLayer, "int4", dev, n_req=n_req,
+                     prompt_len=prompt_len, new_tokens=new_tokens,
+                     max_len=max_len, slots=slots, chunk=chunk,
+                     per_layer=sum(per_layer.values()), layerwise=True)
+    serve_peak = torch.cuda.max_memory_allocated(dev) - base
+    static = static_streams(cfg, tree, serve_prompts(cfg, n_req, prompt_len),
+                            new_tokens, slots=slots, max_len=max_len,
+                            chunk=chunk)
+    if static != rec["streams"]:
+        raise AssertionError(f"{arch}: the continuous engine's streams "
+                             f"differ from the static engine's")
+    m8 = {(c["k"], c["n"]): c for c in kcases if c["m"] == slots}
+    rec.update(build_s=build_s, build_peak_bytes=build_peak,
+               tree_bytes=tree_bytes, layer_f32_bytes=layer_bytes,
+               build_peak_limit_bytes=limit, serve_peak_bytes=serve_peak,
+               static_streams_equal=True,
+               b1_kernel_ms_per_step=cfg.n_layers * sum(
+                   n * m8[s]["ms"] for s, n in per_layer.items()),
+               b1_bound_ms_per_step=cfg.n_layers * sum(
+                   n * m8[s]["bound_ms"] for s, n in per_layer.items()))
+    print(f"large {arch}: serve peak {serve_peak / 1e9:.3f} GB (the tree "
+          f"included), B1 {rec['launches_per_step']} per decode step "
+          f"(kernel phase {rec['b1_kernel_ms_per_step']:.3f} ms, bound "
+          f"{rec['b1_bound_ms_per_step']:.3f} ms per step), streams equal "
+          f"to the static engine's [{CARD}]", flush=True)
+    if arch == "qwen2.5-32b":
+        rec.update(step_breakdown(cfg, tree, dev, slots, max_len, None))
+        rec["cost"] = cost_decode_phase(cfg, tree, dev, rec, what="(e)")
+        print(f"large {arch}: decode step {rec['decode_step_wall_ms']:.3f} "
+              f"ms wall, idle share {rec.get('device_idle_share')}, "
+              f"unembed {rec['unembed_ms']:.5f} ms device [{CARD}]",
+              flush=True)
+    del tree
+    return rec
+
+
+def large_watersic_phase(dev) -> dict:
+    """One full-width qwen2.5-32b layer quantized by LARGE_PTQ
+    (``watersic-plain``: waterfilled column spacings, the blocked ZSIC
+    through B4) at 3 bits through the PTQ entry point ``quantize_model``
+    (both tapped forwards, ``accumulate_stats`` and ``stats_for_matrix``
+    at in-features 5120 and 27648) on LARGE_CALIB's 32768 tokens; its
+    peak memory; the realized rate within 0.05 bits, B4's launches equal
+    to the 128-column blocks of every ZSIC pass the rate searches made,
+    B4 against its twin (bit for bit) and timed at each row count it ran
+    at; then the codes served as packed int4 leaves with escapes
+    (``from_watersic``), held against the layer of the dequantized codes
+    within LOGIT_TOL (first step end to end and the layer's contribution)
+    and served by the engine."""
+    import repro_torch.core.watersic as ws
+    cfg = dataclasses.replace(get_config("qwen2.5-32b"), n_layers=1)
+    params = init_params(cfg, 0, device=dev)
+    batches, rows, seq = LARGE_CALIB
+    rng = np.random.default_rng(1)
+    calib = [rng.integers(0, cfg.vocab, (rows, seq)).astype(np.int32)
+             for _ in range(batches)]
+    # each blocked ZSIC pass's columns, and each B4 launch's rows
+    passes, shapes = [], []
+    inner_pass, inner_block = ws.zsic_quantize, zsic_ops.zsic_block_cuda
+
+    def pass_recorder(y, l, alphas, **kw):
+        passes.append(int(y.shape[1]))
+        return inner_pass(y, l, alphas, **kw)
+
+    def block_recorder(y, *a, **kw):
+        shapes.append(int(y.shape[0]))
+        return inner_block(y, *a, **kw)
+    ws.zsic_quantize, zsic_ops.zsic_block_cuda = pass_recorder, block_recorder
+    reset_zsic_launches()
+    _sync(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    try:
+        qp, qlin, budget, rows_rec = quantize_model(cfg, params, calib,
+                                                    LARGE_PTQ)
+        _sync(dev)
+    finally:
+        ws.zsic_quantize, zsic_ops.zsic_block_cuda = inner_pass, inner_block
+    quant_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    del params
+    launches = zsic_block_cuda.launches
+    blocks = sum(-(-n // zsic_ops.MAX_BLOCK) for n in passes)
+    rate = budget.realized_rate
+    print(f"large watersic qwen2.5-32b L=1 {LARGE_PTQ.method}: realized "
+          f"rate {rate:.4f} bits (target {LARGE_PTQ.target_bits}), "
+          f"quantize_model on {batches * rows * seq} calibration tokens in "
+          f"{quant_s:.2f}s, peak {peak / 1e9:.3f} GB allocated (the f32 "
+          f"model {base / 1e9:.3f} GB of it), {launches} B4 launches for "
+          f"{len(passes)} ZSIC passes of {blocks} blocks; per matrix "
+          + ", ".join(f"{r['matrix']} H={r['entropy']:.4f} "
+                      f"dead={r['dead']}" for r in rows_rec)
+          + f" [{CARD}]", flush=True)
+    if abs(rate - LARGE_PTQ.target_bits) > 0.05:
+        raise AssertionError(f"qwen2.5-32b {LARGE_PTQ.method}: realized "
+                             f"rate {rate}")
+    if launches != blocks or not launches:
+        raise AssertionError(f"B4 launched {launches} times for {blocks} "
+                             "blocks")
+    # B4 against its twin and timed at the row counts it ran at (the
+    # matrices' out-features and the rate searches' row subsamples)
+    mix = {a: shapes.count(a) for a in sorted(set(shapes))}
+    flush = torch.ones(16 << 20, dtype=torch.float32, device=dev)  # 64 MB
+    zcases = {a: zsic_case(a, zsic_ops.MAX_BLOCK, dev, flush) for a in mix}
+    del flush
+    for a, c in zcases.items():
+        print(f"large zsic_block a={a} bn={c['bn']} ({mix[a]} launches): "
+              f"ms={c['ms']:.5f} plain_ms={c['plain_ms']:.5f} bound_ms="
+              f"{c['bound_ms']:.5f} ({c['bound_by']}) code_mismatches="
+              f"{c['code_mismatches']} [{CARD}]", flush=True)
+    # qp, the float model of the codes: each weight its dequantized codes
+    tree, escapes = install_codes(qp, qlin, 1)
+    torch.cuda.empty_cache()
+    served = serve_tree(cfg, tree, lambda _: qp, "watersic int4", dev,
+                        n_req=4, prompt_len=16, new_tokens=8, max_len=32,
+                        slots=4, chunk=16, layerwise=True)
+    rec = {"method": LARGE_PTQ.method, "target_bits": LARGE_PTQ.target_bits,
+           "realized_rate": rate, "calib_tokens": batches * rows * seq,
+           "quant_s": quant_s, "peak_bytes": peak, "matrices": rows_rec,
+           "zsic_launches": launches, "zsic_passes": passes,
+           "zsic_blocks": blocks, "zsic_launch_rows": mix,
+           "zsic_cases": zcases, "escapes": escapes, "serve": served}
+    del tree, qp, qlin
+    return rec
+
+
+def large_dense_phases(dev, gen) -> dict:
+    """The registry's largest dense configs, in order: B1 at their
+    shapes, qwen2.5-32b (also its step breakdown and counted cost),
+    qwen1.5-32b and minitron-8b served, then the WaterSIC layer; each
+    one's wall time, and the memory still allocated after each."""
+    traffic = dict(n_req=8, prompt_len=32, new_tokens=16, max_len=64,
+                   slots=8, chunk=16)
+    rec, took = {}, {}
+    t0 = time.perf_counter()
+    flush = torch.ones(16 << 20, dtype=torch.float32, device=dev)  # 64 MB
+    rec["kernels"] = large_kernel_phase(dev, gen, flush)
+    del flush
+    took["kernels"] = time.perf_counter() - t0
+    for arch in LARGE_DENSE:
+        t0 = time.perf_counter()
+        rec[arch] = large_serve_phase(arch, dev, rec["kernels"], **traffic)
+        torch.cuda.empty_cache()
+        took[arch] = time.perf_counter() - t0
+        print(f"large {arch}: {took[arch]:.1f}s; still allocated "
+              f"{torch.cuda.memory_allocated(dev) / 1e9:.3f} GB", flush=True)
+    t0 = time.perf_counter()
+    rec["watersic"] = large_watersic_phase(dev)
+    torch.cuda.empty_cache()
+    took["watersic"] = time.perf_counter() - t0
+    rec["b1_launches"] = sum(rec[a]["launches"].get(4, 0)
+                             for a in LARGE_DENSE) \
+        + rec["watersic"]["serve"]["launches"].get(4, 0)
+    rec["phase_s"] = took
+    rec["total_s"] = sum(took.values())
+    print("large dense phases (s): " + ", ".join(f"{k} {v:.1f}"
+                                                 for k, v in took.items())
+          + f"; total {rec['total_s']:.1f}; still allocated "
+          f"{torch.cuda.memory_allocated(dev) / 1e9:.3f} GB [{CARD}]",
+          flush=True)
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # Training on one device (slice 11): minicpm-2b trained at full width
 # through the train driver, then the lifecycle (train with a restart, PTQ
 # of the trained weights, rescaler fine-tune, serving the trained codes)
@@ -4786,8 +5134,9 @@ MESH_RANKS = 4
 SHARD_SHAPES = [(576, 2304), (576, 5760), (1440, 2304)]
 SHARD_PER_LAYER = {(576, 2304): 4, (576, 5760): 2, (1440, 2304): 1}
 MESH_M = (8, 256)
-#: depth of the mesh serve of the int4 tree (minicpm-2b has 40 layers)
-MESH_FULL_LAYERS = 20
+#: depth of the mesh serve of the int4 tree (minicpm-2b has 40 layers;
+#: cut for the smoke's time, as its width and traffic are not)
+MESH_FULL_LAYERS = 10
 #: depth of the mixed tree's and the gate's mesh runs, and of the chaos run
 MESH_SHORT_LAYERS = 4
 MESH_CHAOS_LAYERS = 2
@@ -5823,12 +6172,13 @@ def _print_roofline(what, r):
           f"kernels {r['kernel_launches']} [{CARD}]", flush=True)
 
 
-def cost_decode_phase(cfg, params, dev, serve) -> dict:
-    """Cost phase (a): one int4 decode step of the served tree at 8 slots
-    under the step cost counter.  Its counted B1 launches must equal the
-    wrapper's own count in that step and the kernel nodes of a CUDA graph
-    of the step (the serve phase's ``graph_packed_kernels_per_step``);
-    the modeled roofline is set beside the engine's measured step."""
+def cost_decode_phase(cfg, params, dev, serve, what="(a)") -> dict:
+    """Cost phase ``what`` ((a): minicpm-2b's): one int4 decode step of
+    the served tree at 8 slots under the step cost counter.  Its counted
+    B1 launches must equal the wrapper's own count in that step and the
+    kernel nodes of a CUDA graph of the step (the serve phase's
+    ``graph_packed_kernels_per_step``); the modeled roofline is set
+    beside the engine's measured step."""
     from repro_torch.launch.hlo_cost import count_costs
     split = split_layers(params)
     cache = init_cache(cfg, 8, 64, torch.float32, per_slot=True, device=dev)
@@ -5840,13 +6190,13 @@ def cost_decode_phase(cfg, params, dev, serve) -> dict:
             "graph": serve["graph_packed_kernels_per_step"],
             "per_layer": 7 * cfg.n_layers}
     if any(got != v for v in want.values()):
-        raise AssertionError(f"cost (a): the counter saw {got} B1 launches "
+        raise AssertionError(f"cost {what}: the counter saw {got} B1 launches "
                              f"in a decode step, expected {want}")
     rec = step_roofline(cfg, costs, "decode", 8,
                         serve["decode_step_wall_ms"])
     rec.update(b1_counted=got, b1_expected=want,
                b1_traced=serve.get("traced_packed_kernels_per_step"))
-    _print_roofline(f"(a) int4 decode step {cfg.name} L={cfg.n_layers} at "
+    _print_roofline(f"{what} int4 decode step {cfg.name} L={cfg.n_layers} at "
                     f"8 slots (B1 {got} = wrapper {want['wrapper']} = CUDA "
                     f"graph {want['graph']}; profiler "
                     f"{rec['b1_traced']})", rec)
@@ -6721,6 +7071,7 @@ def main() -> int:
     moe_rec = timed("moe", moe_phases, dev, out, gen)
     recurrent = timed("recurrent", recurrent_phases, dev, gen)
     encdec = timed("encdec/vlm", encdec_vlm_phases, dev, gen)
+    large = timed("large dense", large_dense_phases, dev, gen)
     training = timed("training", training_phases, dev)
     # before the phases that share CUDA tensors with their ranks: the
     # launcher keeps those for the ranks until they release them, which
@@ -6740,7 +7091,7 @@ def main() -> int:
     life = training["lifecycle"]
     rec_cases = [v["int4"] for v in recurrent["kernels"]] \
         + [v["int4"] for v in encdec["kernels"]["m8"]] \
-        + encdec["kernels"]["prefill"]
+        + encdec["kernels"]["prefill"] + large["kernels"]
     rec_int8 = [v["int8"] for v in recurrent["kernels"]] \
         + [v["int8"] for v in encdec["kernels"]["m8"]]
     # the recurrent and encoder–decoder / prefix-LM serve runs' B1
@@ -6776,7 +7127,8 @@ def main() -> int:
             "source": SOURCE, "replaces": REPLACES,
             "launches": serve["launches"][4] + rec_b1
             + life["serve_int4"]["launches"].get(4, 0)
-            + mesh["b1_launches"] + serve["cost"]["b1_counted"] if nbits == 4
+            + mesh["b1_launches"] + serve["cost"]["b1_counted"]
+            + large["b1_launches"] if nbits == 4
             else ladder[nbits]["launches"][nbits],
             "max_abs_err": max(c["max_abs_err"] for c in cases + rec_cases
                                if c["nbits"] == nbits),
@@ -6805,6 +7157,8 @@ def main() -> int:
         "bound_by": "bytes" if int8_mix["bytes_ms"]
         >= int8_mix["operations_ms"] else "operations",
         "library_ms": int8_mix["library_ms"]})
+    zsic_cases = list(zsic["cases"].values()) \
+        + list(large["watersic"]["zsic_cases"].values())
     mix = ptq["hptq"]["zsic_launch_rows"]
     zmix = {key: sum(n * zsic["cases"][a][key] for a, n in mix.items())
             / sum(mix.values())
@@ -6813,10 +7167,10 @@ def main() -> int:
     kernels.append({
         "name": "zsic_block", "route": "cuda", "source": ZSIC_SOURCE,
         "replaces": ZSIC_REPLACES,
-        "launches": ptq["hptq"]["zsic_launches"] + train_b4,
-        "max_abs_err": max(c["max_abs_err"] for c in zsic["cases"].values()),
-        "code_mismatches": sum(c["code_mismatches"]
-                               for c in zsic["cases"].values())
+        "launches": ptq["hptq"]["zsic_launches"] + train_b4
+        + large["watersic"]["zsic_launches"],
+        "max_abs_err": max(c["max_abs_err"] for c in zsic_cases),
+        "code_mismatches": sum(c["code_mismatches"] for c in zsic_cases)
         + zsic["full_twin_code_mismatches"],
         "ms": zmix["ms"], "plain_ms": zmix["plain_ms"],
         "bound_ms": zmix["bound_ms"],
@@ -6848,7 +7202,8 @@ def main() -> int:
               "chaos": chaos_rows, "degrade": degrade, "quality": quality,
               "requant_full": requant_full, "slice7_phase_s": phase_s,
               "moe": moe_rec, "recurrent": recurrent,
-              "encdec_vlm": encdec, "training": training, "mesh": mesh,
+              "encdec_vlm": encdec, "large_dense": large,
+              "training": training, "mesh": mesh,
               "train_mesh": train_mesh, "fsdp_tp": fsdp,
               "fsdp_tp_families": fsdp_fam, "cost": cost,
               "phase_s": PHASE_S, "total_s": time.perf_counter() - T_START}

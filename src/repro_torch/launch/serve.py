@@ -6,6 +6,18 @@ Runs on the card unless ``--device cpu`` is given (and raises when there
 is no card).  Prints tokens/s, the weight bytes, and the number of
 packed-kernel launches the run made.
 
+Every quantized ``--wbits`` of a dense config is built layer by layer
+(``serving_tree``: one layer's f32 weights at a time), so a model whose
+f32 tree is larger than the card serves int4 from the same command:
+
+    python -m repro_torch.launch.serve --arch qwen2.5-32b --wbits 4 \
+        --requests 8 --slots 8 --prompt-len 32 --max-new 16 \
+        --prefill-chunk 16 --continuous
+
+``--wbits 16`` (and ``--requant``, which plans from the f32 weights) of
+a config whose f32 tree exceeds the device's free memory is refused
+before anything is allocated.
+
 ``--trace-out``/``--metrics-out``/``--events-out`` enable
 ``repro_torch.obs`` (DESIGN.md §11) and export the run's Chrome trace
 (Perfetto), Prometheus text exposition and JSONL metric log (the input to
@@ -51,6 +63,8 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
+import os
 import time
 
 import numpy as np
@@ -60,15 +74,18 @@ from repro_torch import obs, resolve_device
 from repro_torch.configs import get_config
 from repro_torch.dist.fault import RestartPolicy
 from repro_torch.kernels.dequant import LAUNCHES, reset_launches
-from repro_torch.models import init_params
-from repro_torch.quant import quantize_params_tree
+from repro_torch.models import (init_layer_params, init_params,
+                                init_shared_params)
+from repro_torch.quant import quantize_params_by_layer, quantize_params_tree
 from repro_torch.serve import (ContinuousEngine, DegradePolicy, EngineConfig,
                                QualityConfig, Request, RequantConfig,
                                ResilienceConfig, ServeEngine,
                                build_bit_ladder, engine_from_plan,
                                sigma_threshold_detectors)
+from repro_torch.tree import tree_leaves
 
-__all__ = ["quantize_for_wbits", "add_obs_flags", "obs_setup",
+__all__ = ["quantize_for_wbits", "serving_tree", "f32_tree_bytes",
+           "free_bytes", "check_f32_tree_fits", "add_obs_flags", "obs_setup",
            "obs_export", "add_resilience_flags", "resilience_from_args",
            "add_requant_flags", "requant_from_args", "main_mesh", "main"]
 
@@ -215,14 +232,60 @@ def _requant_engine(args, cfg, params, econfig):
     return eng
 
 
+def _wbits_format(wbits: int) -> dict:
+    """``quantize_params_tree``'s format options of ``--wbits`` 8/4/3/2:
+    int8 codes, or the packed planar leaves."""
+    return {} if wbits == 8 else {"nbits": wbits, "packed": wbits == 4}
+
+
 def quantize_for_wbits(params, wbits: int):
     """The serving tree of ``--wbits``: 16 leaves the weights as they are,
     8 gives int8 codes, 4/3/2 the packed planar leaves."""
     if wbits == 16:
         return params
-    if wbits == 8:
-        return quantize_params_tree(params)
-    return quantize_params_tree(params, nbits=wbits, packed=wbits == 4)
+    return quantize_params_tree(params, **_wbits_format(wbits))
+
+
+def f32_tree_bytes(cfg) -> int:
+    """Bytes of ``init_params``' whole f32 tree of ``cfg`` (counted on
+    ``meta`` tensors: nothing is allocated)."""
+    return sum(x.numel() * x.element_size()
+               for x in tree_leaves(init_params(cfg, device="meta")))
+
+
+def free_bytes(device) -> int:
+    """What ``device`` can still allocate: the card's free memory, or the
+    host's free memory for the CPU."""
+    if device.type == "cuda":
+        return torch.cuda.mem_get_info(device)[0]
+    return os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+
+
+def check_f32_tree_fits(cfg, free: int) -> None:
+    """Refuse (SystemExit) a whole f32 tree of ``cfg`` larger than
+    ``free`` bytes, before anything is allocated."""
+    need = f32_tree_bytes(cfg)
+    if need > free:
+        raise SystemExit(
+            f"{cfg.name}: its f32 tree takes {need / 1e9:.2f} GB and the "
+            f"device has {free / 1e9:.2f} GB free; serve it quantized "
+            "(--wbits 8, 4, 3 or 2), which builds it layer by layer")
+
+
+def serving_tree(cfg, wbits: int, device):
+    """The served tree of ``--wbits``.  A quantized format of a dense
+    config is built layer by layer (``quantize_params_by_layer`` over
+    ``init_layer_params``: the int4 tree of qwen2.5-32b plus one layer in
+    f32, where its f32 tree alone is 128 GB); every other tree is drawn
+    whole by ``init_params`` and quantized, once
+    :func:`check_f32_tree_fits` has let it through."""
+    if wbits != 16 and cfg.family == "dense":
+        return quantize_params_by_layer(
+            cfg, functools.partial(init_layer_params, cfg, 0, device=device),
+            init_shared_params(cfg, 0, device=device),
+            **_wbits_format(wbits))
+    check_f32_tree_fits(cfg, free_bytes(device))
+    return quantize_for_wbits(init_params(cfg, 0, device=device), wbits)
 
 
 #: seconds before the ranks of a ``--mesh`` run are killed
@@ -253,9 +316,7 @@ def main_mesh(args, cfg, device):
     if device.type == "cuda":
         from repro_torch.kernels._build import build_all
         build_all()           # here, before the ranks would race to build
-    params = quantize_for_wbits(init_params(cfg, 0, device=device),
-                                args.wbits)
-    params = shard_params_tree(params, shards)
+    params = shard_params_tree(serving_tree(cfg, args.wbits, device), shards)
     qb, _ = qweight_bytes(params)
     backend, why = backend_rule(shards, device)
     print(f"mesh serving: {shards}-way in-feature sharding over {shards} "
@@ -369,9 +430,11 @@ def main(argv=None):
         cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
     if args.mesh:
         return main_mesh(args, cfg, device)
-    params = init_params(cfg, 0, device=device)
-    if not args.requant:
-        params = quantize_for_wbits(params, args.wbits)
+    if args.requant:        # plans from the f32 weights
+        check_f32_tree_fits(cfg, free_bytes(device))
+        params = init_params(cfg, 0, device=device)
+    else:
+        params = serving_tree(cfg, args.wbits, device)
     # the driver builds exactly ONE EngineConfig; every construction path
     # below (fresh, resumed, plan-driven) consumes it
     econfig = EngineConfig(n_slots=args.slots,

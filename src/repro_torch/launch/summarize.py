@@ -11,7 +11,8 @@ against the target, the per-layer allocation histogram), as
 ``python -m repro_torch.launch.plan inspect`` prints it;
 ``metrics_summary`` renders a ``repro_torch.obs`` (or ``repro.obs``)
 JSONL metric log: counters and gauges as a table, histograms with their
-quantiles.  Stdlib only, like the reference.
+quantiles, then the quality series' drift, SLO-burn and attribution
+tables.  Stdlib only, like the reference.
 """
 from __future__ import annotations
 
@@ -143,11 +144,65 @@ def _series_label(rec: dict) -> str:
     return f"{rec['name']}{{{inner}}}"
 
 
+def _quality_sections(recs, width: int = 30):
+    """Render the quality-observatory views of a metric log (DESIGN.md
+    §14): drift verdicts, SLO burn rates, and per-layer/matrix output-MSE
+    attribution. Empty list when the log has no quality series."""
+    out = []
+    drift = [r for r in recs if r["name"] == "repro_quality_drift_total"]
+    if drift:
+        out.append("  drift verdicts:")
+        pad = max(len((r.get("labels") or {}).get("series", "?"))
+                  for r in drift)
+        for r in sorted(drift,
+                        key=lambda r: (r.get("labels") or {}).get(
+                            "series", "")):
+            series = (r.get("labels") or {}).get("series", "?")
+            n = int(r.get("value") or 0)
+            verdict = f"DRIFT x{n}" if n else "ok"
+            out.append(f"    {series:<{pad}}  {verdict}")
+    burns = {(r.get("labels") or {}).get("slo", "?"): r.get("value")
+             for r in recs if r["name"] == "repro_slo_burn_rate"}
+    oks = {(r.get("labels") or {}).get("slo", "?"): r.get("value")
+           for r in recs if r["name"] == "repro_slo_ok"}
+    if burns:
+        out.append("  slo burn rates (1.0 = budget consumed at the "
+                   "sustainable rate):")
+        pad = max(len(k) for k in burns)
+        top = max([v or 0.0 for v in burns.values()] + [1.0])
+        for slo in sorted(burns):
+            burn = burns[slo] or 0.0
+            ok = oks.get(slo, 1.0)
+            bar = "#" * max(1, int(round(width * burn / top)))
+            out.append(f"    {slo:<{pad}}  burn={burn:7.3f}  "
+                       f"{'ok  ' if ok else 'VIOL'}  {bar}")
+    attrib = [r for r in recs if r["name"] == "repro_quality_attrib"]
+    if attrib:
+        out.append("  quality attribution (layer-weighted output MSE, "
+                   "largest = full bar):")
+        layers = {}
+        for r in attrib:
+            labels = r.get("labels") or {}
+            layers.setdefault(labels.get("layer", "?"), []).append(
+                (labels.get("matrix", "?"), r.get("value") or 0.0))
+        totals = {layer: sum(v for _, v in rows)
+                  for layer, rows in layers.items()}
+        top = max(totals.values(), default=0.0) or 1.0
+        for layer in sorted(layers, key=lambda s: (len(s), s)):
+            rows = sorted(layers[layer], key=lambda mv: -mv[1])
+            bar = "#" * max(1, int(round(width * totals[layer] / top)))
+            worst = rows[0][0] if rows else "?"
+            out.append(f"    L{layer:>3}  total={totals[layer]:.3e}  "
+                       f"worst={worst}  {bar}")
+    return out
+
+
 def metrics_summary(lines, width: int = 30) -> str:
     """Render an obs JSONL metric log (DESIGN.md §11): counters and gauges
     as a value table, histograms with count/quantiles and a param-free
-    #-bar over p50 (largest p50 = full width).  The reference's quality
-    tables (DESIGN.md §14) come with ``serve/quality``."""
+    #-bar over p50 (largest p50 = full width).  Quality series (DESIGN.md
+    §14: ``serve/quality``, ``obs/slo``) additionally render the drift,
+    SLO-burn and attribution tables (:func:`_quality_sections`)."""
     recs = [json.loads(ln) for ln in lines if ln.strip()]
     by_kind = {"counter": [], "gauge": [], "histogram": []}
     for r in recs:
@@ -180,6 +235,7 @@ def metrics_summary(lines, width: int = 30) -> str:
                 f" p99={_fmt_val(r['name'], q.get('0.99'))}"
                 f" max={_fmt_val(r['name'], r.get('max'))}"
                 f"{'' if r.get('exact', True) else ' ~'} {bar}")
+    out.extend(_quality_sections(recs, width=width))
     return "\n".join(out)
 
 

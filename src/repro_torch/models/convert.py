@@ -4,7 +4,10 @@
 and ``np.asarray`` on every leaf, so no JAX type crosses — to the port's
 tree: the same nested keys, each array copied byte for byte into a tensor
 on ``device`` (uint8 payloads, int8 codes, int32 escape indices, f32
-scales and weights; bf16 arrays keep their bits).
+scales and weights; bf16 arrays keep their bits).  ``from_jax_params_by_layer``
+cuts the same tree into a layer source (layer l's slice of every
+``layers`` leaf, converted when it is asked for) and the non-layer
+leaves: the inputs of ``quant.quantize_params_by_layer``.
 
 ``from_jax_quantized_linear`` and ``from_jax_calib_stats`` do the same for
 the quantizer's records (``repro.core.QuantizedLinear`` and
@@ -19,7 +22,8 @@ import torch
 
 from repro_torch import resolve_device
 
-__all__ = ["from_jax_params", "from_jax_quantized_linear",
+__all__ = ["from_jax_params", "from_jax_params_by_layer",
+           "from_jax_quantized_linear",
            "from_jax_calib_stats"]
 
 
@@ -37,6 +41,27 @@ def from_jax_params(tree, device=None):
     """Reference value tree of numpy arrays → the port's tree of tensors on
     ``device`` (``cuda`` unless the caller asks for the CPU)."""
     return _convert(tree, resolve_device(device))
+
+
+def from_jax_params_by_layer(tree, device=None):
+    """The reference's stacked value tree of a dense model → (``source``,
+    the non-layer leaves as tensors on ``device``): ``source(l)`` is layer
+    l's tree (``tree["layers"]`` with every leaf cut to its row l), one
+    layer converted per call."""
+    dev = resolve_device(device)
+    layers = tree["layers"]
+
+    def source(layer: int):
+        return _convert(_row(layers, layer), dev)
+
+    return source, _convert({k: v for k, v in tree.items()
+                             if k != "layers"}, dev)
+
+
+def _row(tree, i):
+    if isinstance(tree, dict):
+        return {k: _row(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
 
 
 def _convert(tree, dev):

@@ -8,6 +8,8 @@ families: init, full-sequence forward, decode caches, decode and prefill
 
 API (plain functions of (cfg, params, ...)):
   init_params(cfg, seed, device)             -> param tree (reference keys)
+  init_layer_params / init_shared_params     -> one dense layer's tree / the
+                                                non-layer leaves, drawn alone
   forward_train(cfg, params, batch)          -> full-sequence logits
   loss_fn(cfg, params, batch)                -> mean next-token NLL
   init_cache(cfg, batch, max_len, dtype)     -> DecodeCache
@@ -38,6 +40,7 @@ import dataclasses
 import functools
 from typing import Any, NamedTuple, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
@@ -54,7 +57,8 @@ from .layers import (KVCache, _split_heads, attention_decode,
                      layernorm, mlp, moe, q8, rmsnorm, sinusoidal_positions,
                      unembed)
 
-__all__ = ["init_params", "forward_train", "loss_fn", "init_cache",
+__all__ = ["init_params", "init_layer_params", "init_shared_params",
+           "forward_train", "loss_fn", "init_cache",
            "decode_step", "decode_chunk", "prefill", "cache_write_slot",
            "cache_reset_slot", "cache_rows", "layer_kv", "split_layers",
            "decode_layers", "prefill_layers", "encode", "capture_cross_kv",
@@ -218,6 +222,69 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device=None,
                             "ln_mlp": norm(), "mlp": mlp_p()}
     params["ln_f"] = norm(())
     return params
+
+
+def _seeded(dev, *key) -> torch.Generator:
+    """A generator on ``dev`` seeded from the integers ``key`` (mixed by
+    numpy's ``SeedSequence``: distinct keys give unrelated streams)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(np.random.SeedSequence(list(key))
+                        .generate_state(1, np.uint64)[0]))
+    return gen
+
+
+def _draw_like(meta, gen, dev, std_of):
+    """Values for a tree of ``meta`` tensors, drawn in the tree's order:
+    each ``w`` normal with std ``std_of(w's shape)``, norm ``scale`` 1,
+    biases 0 (``init_params``' rules)."""
+    def draw(node, name):
+        if isinstance(node, dict):
+            return {k: draw(v, k) for k, v in node.items()}
+        if name == "w":
+            return torch.randn(node.shape, generator=gen, device=dev,
+                               dtype=node.dtype).mul_(std_of(node.shape))
+        fill = torch.ones if name == "scale" else torch.zeros
+        return fill(node.shape, dtype=node.dtype, device=dev)
+    return draw(meta, None)
+
+
+def _dense_only(cfg: ArchConfig, what: str):
+    _check_family(cfg)
+    if cfg.family != "dense":
+        raise NotImplementedError(f"{what}: {cfg.name} is of the "
+                                  f"{cfg.family} family; only dense layers "
+                                  "are drawn one at a time")
+
+
+def init_layer_params(cfg: ArchConfig, seed: int, layer: int, *,
+                      device=None):
+    """Layer ``layer`` of a dense config on its own: the tree of
+    ``split_layers(init_params(cfg, device="meta"))["layers"][layer]``
+    (``ln_attn``, ``attn`` with its biases, ``ln_mlp``, ``mlp`` gated or
+    not), drawn by the rules of :func:`init_params` from a generator
+    seeded from ``(seed, layer)``.  A model built layer by layer (the
+    int4 serving tree of a config whose f32 tree does not fit the card,
+    ``quant.quantize_params_by_layer``) holds one layer's f32 weights at
+    a time; the values are not :func:`init_params`' (another stream)."""
+    _dense_only(cfg, "init_layer_params")
+    if not 0 <= layer < cfg.n_layers:
+        raise IndexError(f"layer {layer} of {cfg.name}'s {cfg.n_layers}")
+    dev = resolve_device(device)
+    meta = split_layers(init_params(cfg, device="meta"))["layers"][layer]
+    return _draw_like(meta, _seeded(dev, seed, 1, layer), dev,
+                      lambda shape: shape[-2] ** -0.5)
+
+
+def init_shared_params(cfg: ArchConfig, seed: int = 0, *, device=None):
+    """The leaves of a dense config outside its layers (``embed``, normal
+    with std 0.02, and ``ln_f``), drawn from a generator of their own
+    (seeded from ``(seed, 0)``); with :func:`init_layer_params` they make
+    up the whole tree."""
+    _dense_only(cfg, "init_shared_params")
+    dev = resolve_device(device)
+    meta = {k: v for k, v in init_params(cfg, device="meta").items()
+            if k != "layers"}
+    return _draw_like(meta, _seeded(dev, seed, 0), dev, lambda _: 0.02)
 
 
 def param_axes(cfg: ArchConfig):

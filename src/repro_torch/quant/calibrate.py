@@ -244,9 +244,11 @@ def stats_for_matrix(acc: StatsAccumulator, layer: int, tap: str, *,
         return CalibStats(sigma_x=f32(sx))
     shh = mix("hh")
     sxh = mix("xh")
-    # eq. (58): interpolate drift-corrected ↔ original statistics
-    shh = (1 - eps_qr) * shh + eps_qr * sx
-    sxh = (1 - eps_qr) * sxh + eps_qr * sx
+    # eq. (58): interpolate drift-corrected ↔ original statistics (the
+    # identity at eps_qr = 0, skipped: its temporaries are two more Σ)
+    if eps_qr:
+        shh = (1 - eps_qr) * shh + eps_qr * sx
+        sxh = (1 - eps_qr) * sxh + eps_qr * sx
     sdx = None
     if use_residual and acc.has(f"L{layer}/{tap}/dr_h"):
         sdx = f32(acc.get(f"L{layer}/{tap}/dr_h"))

@@ -196,15 +196,17 @@ def quantize_model(cfg: ArchConfig, params, calib_batches: List[np.ndarray],
 
     for l in range(L):
         acc = StatsAccumulator()
+        mixing = ptq.adaptive_mix and ptq.method.startswith("watersic")
         taps_q_cache = []
         for tokens in calib_batches:
             _, taps_fp = forward_with_taps(cfg, params, tokens)
             _, taps_q = forward_with_taps(cfg, qparams, tokens)
             accumulate_stats(acc, l, taps_fp[l], taps_q[l])
-            taps_q_cache.append((taps_fp[l], taps_q[l]))
+            if mixing:      # only the mixing search reads the taps again
+                taps_q_cache.append((taps_fp[l], taps_q[l]))
 
         eps_qr, eps_aw = 0.0, 1.0
-        if ptq.adaptive_mix and ptq.method.startswith("watersic"):
+        if mixing:
             eps_qr, eps_aw = _optimize_mixing(cfg, params, l, acc,
                                               taps_q_cache, budget, ptq)
         for path, tap, is_down in mats:

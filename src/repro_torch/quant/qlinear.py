@@ -15,7 +15,9 @@ orientation plus an escape COO (DESIGN.md §8/§10):
      "esc_row"/"esc_col": int32 (…, cap), "esc_dval": f32 (…, cap)}
 
 ``quantize_params_tree`` makes symmetric absmax codes (escape-free,
-cap = 0), the same bytes the reference produces from the same weights.
+cap = 0), the same bytes the reference produces from the same weights;
+``quantize_params_by_layer`` makes the same tree of a dense model one
+layer at a time (a config whose f32 tree does not fit the card).
 MoE expert tensors (``w_gate``/``w_up``/``w_in``/``w_out``, raw leaves of
 a ``moe`` node) qualify only unstacked, as 3-D (E, in, out) leaves, as in
 the reference: a layer-stacked (L, E, in, out) expert leaf stays as it is,
@@ -33,8 +35,10 @@ import torch
 
 from repro_torch.core.packing import (pack_codes_torch, pack_int2_planar,
                                       pack_int3_planar, pack_int4_planar)
+from repro_torch.tree import tree_map
 
-__all__ = ["quantize_params_tree", "from_watersic", "is_qweight",
+__all__ = ["quantize_params_tree", "quantize_params_by_layer",
+           "from_watersic", "is_qweight",
            "is_packed_qweight",
            "is_packed3_qweight", "is_packed2_qweight", "is_kshard_qweight",
            "qweight_bytes",
@@ -199,6 +203,36 @@ def quantize_params_tree(params, *, min_dim: int = 64,
         return node
 
     return walk(params, ())
+
+
+def quantize_params_by_layer(cfg, layer_source, shared, **options):
+    """The serving tree :func:`quantize_params_tree` makes of a dense
+    model, built one layer at a time: no f32 copy of the whole model.
+
+    ``layer_source(l)`` gives layer l's f32 tree (the unstacked
+    ``layers`` entry: ``models.init_layer_params`` or the reference's
+    params through ``models.from_jax_params_by_layer``); ``shared`` holds
+    the leaves outside the layers (``embed``, ``ln_f``); ``options`` are
+    :func:`quantize_params_tree`'s.  Each layer is quantized as a stack
+    of one (the same paths, ranks and matrix dims as the whole stack, so
+    the same formats), layer 0 fixes every stacked leaf, each is
+    allocated once for ``cfg.n_layers`` layers, and layer l fills row l
+    and is dropped before layer l + 1 is drawn: the build holds the
+    served tree plus about one layer in f32.  Absmax codes are
+    independent across the stacked axis, so the result equals
+    ``quantize_params_tree`` of the stacked tree, byte for byte."""
+    n_layers = cfg.n_layers
+    out = None
+    for layer in range(n_layers):
+        one = quantize_params_tree(
+            {"layers": tree_map(lambda x: x[None], layer_source(layer))},
+            **options)["layers"]
+        if out is None:
+            out = tree_map(lambda x: x.new_empty((n_layers,) + x.shape[1:]),
+                           one)
+        tree_map(lambda dst, src: dst[layer].copy_(src[0]), out, one)
+        del one
+    return {**quantize_params_tree(shared, **options), "layers": out}
 
 
 def from_watersic(q, *, nbits: int = 8,

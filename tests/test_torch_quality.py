@@ -231,7 +231,9 @@ def _reference_summary(faulted):
         return mon.summary(), {r.rid: r.out_tokens for r in done}
 
 
-def _port_summary(faulted):
+def _port_summary(faulted, events_out=None):
+    """The port's monitor summary and streams; ``events_out`` also writes
+    the scope's JSONL metric log there."""
     from repro_torch.plan import collect_sigma_x
     from repro_torch.quant import quantize_params_tree
     cfg = TArchConfig(**CFG)
@@ -248,6 +250,8 @@ def _port_summary(faulted):
                                   n_faults=2, first=1, n_bytes=3)
                 if faulted else None)
         done = _serve(eng, Request, plan, chaos)
+        if events_out:
+            obs.write_jsonl(events_out)
         return mon.summary(), {r.rid: r.out_tokens for r in done}
 
 
@@ -278,6 +282,26 @@ def test_monitor_summary_matches_reference(faulted):
     assert [r["slo"] for r in got["slo"]] == [r["slo"] for r in want["slo"]]
     assert got["drift"]["series"].get("integrity", 0) == (2 if faulted
                                                           else 0)
+
+
+def test_metrics_summary_quality_tables_match_reference(tmp_path):
+    """``launch.summarize --metrics`` of a log that holds the monitor's
+    drift, SLO-burn and attribution series (the faulted run flags
+    ``integrity``) prints the reference's ``metrics_summary`` text
+    (``repro/launch/summarize.py``), its quality tables included."""
+    from repro.launch.summarize import metrics_summary as jsummary
+    from repro_torch.launch import summarize
+    path = tmp_path / "events.jsonl"
+    _port_summary(True, events_out=str(path))
+    lines = path.read_text().splitlines()
+    names = {json.loads(ln)["name"] for ln in lines}
+    assert {"repro_quality_drift_total", "repro_slo_burn_rate",
+            "repro_quality_attrib"} <= names
+    text = summarize.metrics_summary(lines)
+    assert text == jsummary(lines)
+    for head in ("drift verdicts:", "slo burn rates", "quality attribution"):
+        assert head in text
+    assert "DRIFT x" in text
 
 
 @pytest.mark.parametrize("cls", [ServeEngine, ContinuousEngine])
