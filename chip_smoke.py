@@ -7,11 +7,16 @@ Phases, in order; any mismatch raises and the run exits non-zero:
 
 1. the card's name and power limit, and the build of every CUDA kernel
    from the sources in this checkout (``kernels/_build.py``, one ``nvcc``
-   per source, all in parallel);
+   per source, all in parallel); the tensor-core kernels of B1 and B2
+   (``dequant_tc.cuh``) must hold HGMMA instructions in their SASS
+   (``kernel_bench.sass_counts``);
 2. kernel phase: the packed dequant-matmul kernel against its plain
    PyTorch twin for int4/int3/int2 payloads at the serving path's shapes
-   (m ∈ {1, 8}; (k, n) ∈ {(2304, 2304), (2304, 5760), (5760, 2304)}), plus
-   a ragged-k case and an escape case, each kernel call run twice (equal
+   (m ∈ {1, 8}, the decode kernel, and m ∈ {TC_MIN_M, 128, 256},
+   the tensor-core kernel, each call checked to have taken its path; (k,
+   n) ∈ {(2304, 2304), (2304, 5760), (5760, 2304)}), the ragged (2300,
+   5757) and (301, 37) at m = 130, plus a ragged-k case and an escape
+   case, each kernel call run twice (equal
    bits: the split-K sums are added in a fixed order, and the escapes in
    (row, col) order, also for a permuted COO); each case prints the
    kernel time,
@@ -24,16 +29,18 @@ Phases, in order; any mismatch raises and the run exits non-zero:
    ``f32_cuda_core_ms`` in the detail file);
 2b. int8 kernel phase: the int8 dequant-matmul kernel against its twin
    (``ref.dequant_matmul_ref``) at (k, n) ∈ the three shapes above and
-   m ∈ {1, 8, 128}, with the codes stored (k, n) as a serving leaf stores
-   them and read in place through their transposed view, and in an (n,
-   k)-contiguous matrix (copied by the wrapper into that layout), plus the
-   ragged (2300, 5757); each run twice (equal bits).  The
+   m ∈ {1, 8} ∪ {TC_MIN_M, 128, 256}, with the codes stored (k, n) as a serving leaf
+   stores them and read in place through their transposed view, and in
+   an (n, k)-contiguous matrix (copied by the wrapper into that layout),
+   plus the ragged (2300, 5757) at m = 8 and (2300, 5757), (301, 37) at
+   m = 130; each run twice (equal bits).  The
    serving layout is timed with L2 cold: the kernel, the twin, ``F.linear``
    against the pre-dequantized weight and the plain product the serving
    path ran before the kernel (``before_ms``), with the bound (bytes
-   against 2·m·n·k f32 multiply-adds on the CUDA cores);
+   against the 2·m·n·k multiply-adds on the bf16 tensor cores in a
+   3-term split, as phase 2);
 2c. prefill kernels: B1 (int4) and B2 at m = 256 (8 prompts of 32
-   tokens) on the three shapes, timed as above;
+   tokens) on the three shapes, timed as above (the tensor-core path);
 3. the ZSIC block kernel against its twin, bit for bit, at bn = 128 and the
    PTQ path's row counts (230, 576, 2304, 5760), with its bound (bytes of
    y, codes, residual and the L block against the a·bn·(bn+1)/2 unfused
@@ -61,17 +68,22 @@ Phases, in order; any mismatch raises and the run exits non-zero:
    counted by name: the profiler now and then drops the record of a
    kernel launched as a thread-block cluster);
 5b. prefill phase: ``models.prefill`` of 8 prompts of 32 tokens at 40
-   layers (each dequant kernel once per layer of each of its leaves, flash
-   once per layer) against ``decode_chunk`` over the same prompts: cache
-   and last logits within LOGIT_TOL of the largest value; also for the
-   mixed tree in phase 10;
+   layers (each dequant kernel once per layer of each of its leaves, all
+   of them at m = 256 on the tensor-core kernel, flash once per layer)
+   against ``decode_chunk`` over the same prompts: cache and last logits
+   within LOGIT_TOL of the largest value; also for the mixed tree in
+   phase 10 and the int3 and int2 trees of phase 6.  Every serve run
+   (the engines step m = slots rows, also in their prefill chunks:
+   ``decode_chunk`` is C decode steps) must hold no tensor-core launch,
+   every prefill, encode and cross-K/V run only tensor-core launches;
 5c. obs serve phase: the serve phase's traffic with ``repro_torch.obs``
    off and on (equal streams, both step times printed), then int8, int3
    and int2 at 4 layers with it on; the Chrome trace, Prometheus text,
    JSONL log and a bench JSON go to ``chiprun_out/obs_*`` and
    ``benchmarks/check_obs.py`` and ``check_bytes.py`` run on them
    unchanged (a nonzero exit fails the smoke);
-6. ladder phase: the same at full width and 4 layers for int3 and int2;
+6. ladder phase: the same at full width and 4 layers for int3 and int2,
+   each also through ``prefill`` (phase 5b);
 7. PTQ phase: minicpm-2b at full width cut to 1 layer (PTQ_LAYERS, for
    the smoke's time), weights from the
    port's ``init_params`` (seed 0), calibration 2 batches of 4 × 128 and
@@ -160,16 +172,16 @@ of its path never launched):
 The MoE family (phi3.5-moe-42b-a6.6b at full width: d 4096, 32/8 heads,
 16 experts of d_ff 6400, top-2), last:
 
-12. MoE serve: 8 of its 32 layers (the serving tree keeps the stacked
+12. MoE serve: 4 of its 32 layers (the serving tree keeps the stacked
    experts f32, as the reference's does: 5.03 GB a layer), attention
    packed int4 through B1; first-step logits against the
    dequantized-weight model; the serve phase's traffic on the continuous
-   engine, B1 4 × 8 times per decode step; the step's wall time, traced
+   engine, B1 4 × 4 times per decode step; the step's wall time, traced
    idle share and a CUDA graph of one step holding one B1 kernel per
    packed dense; a rerun of the continuous engine with equal streams,
    two ``moe`` calls with equal bits; the static engine's streams against
    the continuous engine's (reported only: capacity couples the rows of a
-   step); one decode step of an int8-attention copy through B2 (32
+   step); one decode step of an int8-attention copy through B2 (16
    launches);
 12b. MoE expert codes: one unstacked layer's experts (16, 4096, 6400)
    as int8 and as packed int4 leaves: ``moe`` against the same layer with
@@ -324,24 +336,24 @@ CUDA IPC; the weights, shared with the ranks the same way, never cross):
    k-shard shapes of minicpm-2b at 4 shards, (k_loc, n) ∈ {(576, 2304),
    (576, 5760), (1440, 2304)}, m ∈ {8, 256}, timed as in the kernel phase;
 17b. mesh: minicpm-2b packed int4 at full width cut to MESH_FULL_LAYERS
-   (10 of its 40, for the smoke's time), sharded 4 ways
+   (4 of its 40, for the smoke's time), sharded 4 ways
    (``serve.shard_params_tree``): the single-process oracle's first step
    (the sharded tree here) within LOGIT_TOL of the unsharded dequantized
-   model, 4 × 7 × 10 B1 launches per step; then one launch of 4 ranks
+   model, 4 × 7 × 4 B1 launches per step; then one launch of 4 ranks
    serves the serve phase's traffic (max_len 64: the K/V buffer shards),
-   every rank's streams equal to the oracle's bit for bit, 7 × 10 B1
+   every rank's streams equal to the oracle's bit for bit, 7 × 4 B1
    launches per rank per decode step, float all-gathers only (no integer one: no
    weight byte crossed), each rank's step time, B1 time, all-gathers and
-   bytes printed; the reference test's crc32 format mix at 4 layers (B2 on
+   bytes printed; the reference test's crc32 format mix at 2 layers (B2 on
    its int8 shards) equal to its oracle; seeded device-loss chaos at 2
    layers recovered equal to the clean mesh run; last ``python -m
-   repro_torch.launch.serve --mesh --ranks 4`` at 4 layers and
+   repro_torch.launch.serve --mesh --ranks 4`` at 2 layers and
    ``benchmarks/check_mesh.py`` unchanged on its JSON.
 
 Last the training-mesh phases (``training_mesh_phases``): 4 ranks share
 the card under gloo and their collectives meet in the CUDA-IPC mailboxes:
 
-18. (a) compressed DP: minicpm-2b at full width cut to 4 layers, 4 ranks
+18. (a) compressed DP: minicpm-2b at full width cut to 2 layers, 4 ranks
    × 2 rows of 64 tokens, 6 steps of ``make_compressed_step`` (bf16,
    deterministic algorithms): every rank's (params, opt) checksum equal
    after every step and equal to an in-process oracle that runs the 4
@@ -351,12 +363,12 @@ the card under gloo and their collectives meet in the CUDA-IPC mailboxes:
    norm, non-zero errors, B3 4 per rank per step, and the collective log
    1 B of int8 per parameter and one scalar max per leaf; each rank's step
    time (median of steps 2–6), collectives, bytes and peak printed;
-18b. (d) elastic restore, in the same rank launch: the 4-layer params
+18b. (d) elastic restore, in the same rank launch: the 2-layer params
    saved once and restored onto a (2, 2) mesh with ``param_specs_tree``'s
    specs: every block equal to its slice of the saved tree, the blocks
    gathered back equal to it, each rank's bytes against the whole;
 18c. (b) ``launch.train --ranks 4`` (deterministic algorithms, which
-   ``launch_ranks`` passes on to the ranks) at 4 layers, 8 × 64
+   ``launch_ranks`` passes on to the ranks) at 2 layers, 8 × 64
    tokens per step, 6 steps: the uninterrupted run (its rank body, in the
    same rank launch), then ``launch.train.main`` resuming its step-3
    checkpoint with 4 ranks (each driver checks that its ranks' states are
@@ -378,7 +390,8 @@ the card under gloo and their collectives meet in the CUDA-IPC mailboxes:
    count and to the CUDA graph's kernel nodes (7 × 40), its modeled
    bound beside the measured step (the roofline fraction); (b) the
    one-process train step of phase 20 (8 × 64 tokens in 2
-   microbatches) counted likewise, 80 B3 launches; (c) the counter's
+   microbatches, at its FSDP_LAYERS) counted likewise, 40 B3 launches;
+   (c) the counter's
    trace of one rank's mesh decode step on meta tensors under
    ``ShapeMesh(data=1, model=4)``, its collective log equal op for op to
    each rank's ``HostMesh`` log of its measured step in phase 17b; (d)
@@ -388,7 +401,8 @@ the card under gloo and their collectives meet in the CUDA-IPC mailboxes:
    ``ok``;
 20. FSDP × TP (run after phase 16, before the mesh phases, whose rank
    launches leave CUDA tensors shared with their ranks in this process):
-   minicpm-2b at full width and depth trained by 4 ranks
+   minicpm-2b at full width cut to FSDP_LAYERS (20 of its 40, for the
+   smoke's time) trained by 4 ranks
    sharing the card on a (data 2, model 2) mesh (gloo, CUDA-IPC
    mailboxes), 4 bf16 steps of 8 × 64 tokens (each rank's 4 rows in one
    microbatch): the one-process step first (in 2 microbatches; alone:
@@ -397,7 +411,7 @@ the card under gloo and their collectives meet in the CUDA-IPC mailboxes:
    within 1e-3 and last loss within 1e-2 relative of the one process's,
    its blocks within 2·lr per step of the same cut of the one process's
    params and equal to their ``NamedSharding`` cut of the gathered
-   leaves, B3 40 per rank per step, and its collective log of step 1
+   leaves, B3 20 per rank per step, and its collective log of step 1
    equal op for op to the counter's ``ShapeMesh(data=2, model=2)``
    trace of that rank's step.  Its second part, right after: the MoE,
    ssm and hybrid families at full width, cut in depth
@@ -411,8 +425,10 @@ the card under gloo and their collectives meet in the CUDA-IPC mailboxes:
    per step on the MoE model (8 q and 8 kv heads per rank), 0 on the
    others (rwkv6 has no attention, the hybrid's is MQA).
 
-The second-to-last line is the kernel summary JSON (six entries: the
-packed kernel per payload, the int8 kernel, ZSIC and flash; B1 int4's and
+The second-to-last line is the kernel summary JSON (ten entries: the
+packed kernel per payload, the int8 kernel, their tensor-core kernels
+(``*_tc``: launches summed over the prefill, encode and cross-K/V runs,
+times at one prefill layer's mix at m = 256), ZSIC and flash; B1 int4's and
 B2's launches include the recurrent, whisper and paligemma serve runs and
 int8 steps, the large dense configs' and the WaterSIC layer's serve runs,
 the lifecycle's served codes, the mesh phases' oracle and
@@ -483,6 +499,10 @@ from repro_torch.kernels.zsic import (zsic_block_cuda,  # noqa: E402
                                       zsic_block_ref, zsic_quantize)
 from repro_torch.kernels.zsic import \
     reset_launches as reset_zsic_launches  # noqa: E402
+# the tensor-core names (TC_LAUNCHES, TC_MIN_M, uses_tensor_cores) are
+# read from the package when used: kernel_bench.py imports this module
+# beside an older tree's package to time it
+from repro_torch.kernels import dequant as dq  # noqa: E402
 from repro_torch.kernels.dequant import (LAUNCHES, PLANE_GROUPS,  # noqa: E402
                                          dequant_matmul,
                                          dequant_matmul_int8_cuda,
@@ -561,6 +581,11 @@ GRAD_TOL = 1e-4
 ZSIC_ROWS = (230, 576, 2304, 5760)
 _HI = {4: 8, 3: 4, 2: 2}
 SOURCE = "src/repro_torch/kernels/dequant/csrc/dequant_packed.cu"
+#: the tensor-core path's main loop, shared by B1 and B2 (m >= TC_MIN_M)
+TC_SOURCE = "src/repro_torch/kernels/dequant/csrc/dequant_tc.cuh"
+#: ragged (k, n) of the tensor-core path at m = TC_RAGGED_M
+TC_RAGGED = ((2300, 5757), (301, 37))
+TC_RAGGED_M = 130
 REPLACES = "src/repro/kernels/dequant/dequant_matmul.py:179"
 ZSIC_SOURCE = "src/repro_torch/kernels/zsic/csrc/zsic_block.cu"
 ZSIC_REPLACES = "src/repro/kernels/zsic/zsic_block.py:111"
@@ -570,7 +595,7 @@ INT8_SOURCE = "src/repro_torch/kernels/dequant/csrc/dequant_int8.cu"
 INT8_REPLACES = "src/repro/kernels/dequant/dequant_matmul.py:79"
 #: the int8 kernel's rows: decode at 1 and 8 slots, a 16-token prefill
 #: chunk of 8 slots
-INT8_M = (1, 8, 128)
+INT8_M = (1, 8)
 #: the ragged int8 case (k, n): neither a multiple of the kernel's tiles
 INT8_RAGGED = (2300, 5757)
 #: the plan phase's global budget, bits per parameter: between the grid's
@@ -657,6 +682,44 @@ def check(got, want, what, *, atol, rtol):
     return err
 
 
+def tc_m() -> tuple:
+    """Rows at which the kernel phases hold the tensor-core path: the
+    switch, 8 × 16 and a prefill of 8 × 32 tokens."""
+    return (dq.TC_MIN_M, 128, 256)
+
+
+def tc_launches() -> dict:
+    """Tensor-core dequant launches by nbits since ``reset_launches``."""
+    return {nb: c for nb, c in dq.TC_LAUNCHES.items() if c}
+
+
+def check_tc(dev, what, rows, launches) -> dict:
+    """A counted run whose dequant products all had ``rows`` rows of x
+    (``launches``: LAUNCHES of the run): on the card all of them went
+    through the tensor-core kernel from TC_MIN_M rows on, none below.
+    Returns the run's tensor-core launches."""
+    got = tc_launches()
+    want = {nb: c for nb, c in launches.items() if c} \
+        if dq.uses_tensor_cores(rows) else {}
+    if dev.type == "cuda" and got != want:
+        raise AssertionError(f"{what}: tensor-core launches {got} at "
+                             f"m = {rows}, expected {want} (TC_MIN_M = "
+                             f"{dq.TC_MIN_M})")
+    return got
+
+
+def _one_path_call(fn, key, m, what):
+    """``fn()`` once, checking that it went through the kernel of its
+    rows: the tensor-core one from TC_MIN_M on (TC_LAUNCHES[key] + 1),
+    else the decode one."""
+    before = dq.TC_LAUNCHES[key]
+    out = fn()
+    if dq.TC_LAUNCHES[key] - before != int(dq.uses_tensor_cores(m)):
+        raise AssertionError(f"{what}: tensor-core launches "
+                             f"{dq.TC_LAUNCHES[key] - before} at m = {m}")
+    return out
+
+
 def kernel_case(nbits, m, k, n, dev, gen, flush):
     """Kernel vs twin at one shape, with times and bound."""
     x, payload, s, t, _ = operands(m, k, n, nbits, dev, gen)
@@ -664,7 +727,9 @@ def kernel_case(nbits, m, k, n, dev, gen, flush):
     xp = F.pad(x, (0, g * kg - k)).contiguous()
     sp = F.pad(s, (0, g * kg - k)).contiguous()
     xg, sg = xp.view(m, g, kg), sp.view(g, kg)
-    got = dequant_matmul_packed_cuda(xg, payload, sg, t, nbits=nbits)
+    got = _one_path_call(lambda: dequant_matmul_packed_cuda(
+        xg, payload, sg, t, nbits=nbits), nbits, m,
+        f"int{nbits} m={m} k={k} n={n}")
     want = dequant_matmul_packed_ref(xp, payload, sp, t, nbits=nbits)
     torch.cuda.synchronize(dev)
     err = check(got, want, f"int{nbits} m={m} k={k} n={n}",
@@ -684,6 +749,7 @@ def kernel_case(nbits, m, k, n, dev, gen, flush):
     t_ops = BF16_TERMS * 2 * m * n * k / BF16_FLOP_PER_S * 1e3
     return {
         "nbits": nbits, "m": m, "k": k, "n": n, "max_abs_err": err,
+        "path": "tc" if dq.uses_tensor_cores(m) else "decode",
         "ms": device_ms(lambda: dequant_matmul_packed_cuda(
             xg, payload, sg, t, nbits=nbits), dev, flush=flush),
         "plain_ms": device_ms(lambda: dequant_matmul_packed_ref(
@@ -704,15 +770,16 @@ def kernel_phase(dev, gen):
     device_ms(lambda: flush.max(), dev, flush=flush)
     cases = []
     for nbits in (4, 3, 2):
-        for m in (1, 8):
-            for k, n in PATH_SHAPES:
-                c = kernel_case(nbits, m, k, n, dev, gen, flush)
-                cases.append(c)
-                print(f"kernel int{nbits} m={m} k={k} n={n}: "
-                      f"ms={c['ms']:.5f} plain_ms={c['plain_ms']:.5f} "
-                      f"library_ms={c['library_ms']:.5f} "
-                      f"bound_ms={c['bound_ms']:.5f} ({c['bound_by']}) "
-                      f"max_abs_err={c['max_abs_err']:.3e}", flush=True)
+        shapes = [(m, k, n) for m in (1, 8) + tc_m() for k, n in PATH_SHAPES] \
+            + [(TC_RAGGED_M, k, n) for k, n in TC_RAGGED]
+        for m, k, n in shapes:
+            c = kernel_case(nbits, m, k, n, dev, gen, flush)
+            cases.append(c)
+            print(f"kernel int{nbits} m={m} k={k} n={n} ({c['path']}): "
+                  f"ms={c['ms']:.5f} plain_ms={c['plain_ms']:.5f} "
+                  f"library_ms={c['library_ms']:.5f} "
+                  f"bound_ms={c['bound_ms']:.5f} ({c['bound_by']}) "
+                  f"max_abs_err={c['max_abs_err']:.3e}", flush=True)
         # ragged in-features (unaligned rows) and escapes, through ops
         for m, k, n, esc in ((3, 301, 37, False), (8, 2304, 2304, True)):
             x, payload, s, t, escs = operands(m, k, n, nbits, dev, gen,
@@ -758,14 +825,16 @@ def int8_case(m, k, n, layout, dev, gen, flush, *, timed):
         / 30
     t = torch.rand(n, generator=gen, device=dev) + 0.5
     z = codes.T if layout == "kn" else codes.T.contiguous()
-    got = dequant_matmul_int8_cuda(x, z, s, t)
+    what = f"int8 {layout} m={m} k={k} n={n}"
+    got = _one_path_call(lambda: dequant_matmul_int8_cuda(x, z, s, t), 8, m,
+                         what)
     want = dequant_matmul_ref(x, z, s, t)
     torch.cuda.synchronize(dev)
-    what = f"int8 {layout} m={m} k={k} n={n}"
     err = check(got, want, what, atol=KERNEL_TOL, rtol=KERNEL_TOL)
     if not torch.equal(got, dequant_matmul_int8_cuda(x, z, s, t)):
         raise AssertionError(f"{what}: two runs differ")
-    rec = {"layout": layout, "m": m, "k": k, "n": n, "max_abs_err": err}
+    rec = {"layout": layout, "m": m, "k": k, "n": n, "max_abs_err": err,
+           "path": "tc" if dq.uses_tensor_cores(m) else "decode"}
     if not timed:
         return rec
     w_hat = dequantize_ref(z, s, t)                          # (n, k) f32
@@ -776,11 +845,12 @@ def int8_case(m, k, n, layout, dev, gen, flush, *, timed):
         return ((x * s) @ codes.to(torch.float32)) * t
     check(before(), want, f"plain product {what}", atol=KERNEL_TOL,
           rtol=KERNEL_TOL)
-    # bytes: the codes once, x, s, t in and out once; operations: 2·m·n·k
-    # f32 multiply-adds on the CUDA cores (the tensor-core time of a 3-term
-    # bf16 split is tensor_core_ms)
+    # bytes: the codes once, x, s, t in and out once; operations: the
+    # 2·m·n·k multiply-adds done exactly on the bf16 tensor cores (3
+    # products: codes exact in bf16, x·s in three terms), as kernel_case;
+    # the f32 CUDA-core time of the same count is f32_cuda_core_ms
     t_bytes = (n * k + 4 * (m * k + k + n + m * n)) / HBM_BYTES_PER_S * 1e3
-    t_ops = 2 * m * n * k / F32_FLOP_PER_S * 1e3
+    t_ops = BF16_TERMS * 2 * m * n * k / BF16_FLOP_PER_S * 1e3
     rec.update({
         "ms": device_ms(lambda: dequant_matmul_int8_cuda(x, z, s, t), dev,
                         flush=flush),
@@ -791,7 +861,7 @@ def int8_case(m, k, n, layout, dev, gen, flush, *, timed):
         "before_ms": device_ms(before, dev, flush=flush, reps=10),
         "bound_ms": max(t_bytes, t_ops), "bytes_ms": t_bytes,
         "operations_ms": t_ops,
-        "tensor_core_ms": BF16_TERMS * 2 * m * n * k / BF16_FLOP_PER_S * 1e3,
+        "f32_cuda_core_ms": 2 * m * n * k / F32_FLOP_PER_S * 1e3,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
     return rec
 
@@ -800,27 +870,28 @@ def int8_phase(dev, gen, flush):
     """The int8 kernel at the serving path's shapes in both layouts (the
     serving layout timed) and the ragged case."""
     cases = []
-    for m in INT8_M:
+    for m in INT8_M + tc_m():
         for k, n in PATH_SHAPES:
             for layout in ("kn", "nk"):
                 c = int8_case(m, k, n, layout, dev, gen, flush,
                               timed=layout == "kn")
                 cases.append(c)
                 if "ms" in c:
-                    print(f"kernel int8 kn m={m} k={k} n={n}: "
+                    print(f"kernel int8 kn m={m} k={k} n={n} ({c['path']}): "
                           f"ms={c['ms']:.5f} plain_ms={c['plain_ms']:.5f} "
                           f"library_ms={c['library_ms']:.5f} before_ms="
                           f"{c['before_ms']:.5f} bound_ms={c['bound_ms']:.5f}"
                           f" ({c['bound_by']}) max_abs_err="
                           f"{c['max_abs_err']:.3e}", flush=True)
-    for layout in ("kn", "nk"):
-        c = int8_case(8, *INT8_RAGGED, layout, dev, gen, flush,
-                      timed=layout == "kn")
-        cases.append(c)
-        print(f"kernel int8 {layout} m=8 k={INT8_RAGGED[0]} "
-              f"n={INT8_RAGGED[1]} (ragged): max_abs_err="
-              f"{c['max_abs_err']:.3e}"
-              + (f" ms={c['ms']:.5f}" if "ms" in c else ""), flush=True)
+    for m, (k, n) in [(8, INT8_RAGGED)] + [(TC_RAGGED_M, kn)
+                                          for kn in TC_RAGGED]:
+        for layout in ("kn", "nk"):
+            c = int8_case(m, k, n, layout, dev, gen, flush,
+                          timed=layout == "kn")
+            cases.append(c)
+            print(f"kernel int8 {layout} m={m} k={k} n={n} (ragged, "
+                  f"{c['path']}): max_abs_err={c['max_abs_err']:.3e}"
+                  + (f" ms={c['ms']:.5f}" if "ms" in c else ""), flush=True)
     print(f"int8 kernel vs twin: {len(cases)} cases in both layouts, max "
           f"|Δ| {max(c['max_abs_err'] for c in cases):.3e}", flush=True)
     return cases
@@ -1122,6 +1193,8 @@ def serve_tree(cfg, params, oracle_of, label, dev, *, n_req, prompt_len,
         raise AssertionError(f"dequant launches by nbits {launches}, "
                              f"expected {want_launches} = {per_step} per "
                              f"step x {steps['n']} decode steps")
+    # every product of the run is a decode step's, at most `slots` rows
+    tc = check_tc(dev, f"serve {cfg.name} {label}", slots, launches)
     streams = {r.rid: list(r.out_tokens) for r in done}
     if sorted(streams) != list(range(n_req)) or any(
             len(r.out_tokens) != new_tokens
@@ -1135,7 +1208,7 @@ def serve_tree(cfg, params, oracle_of, label, dev, *, n_req, prompt_len,
            "engine_decode_calls": eng.decode_calls,
            "decode_step_ms": 1e3 * eng.decode_s / max(eng.decode_calls, 1),
            "prefill_s": eng.prefill_s, "launches": launches,
-           "launches_per_step": per_step,
+           "tc_launches": tc, "launches_per_step": per_step,
            "weight_bytes": eng.weight_bytes,
            "weight_bytes_bf16": eng.weight_bytes_bf16,
            "first_step_logit_rel_err": logit_err, "streams": streams}
@@ -1962,6 +2035,7 @@ def prefill_phase(cfg, tree, label, dev, *, n_req=8, prompt_len=32,
         raise AssertionError(f"prefill {label}: dequant launches {launches} "
                              f"(expected {want_launches}), flash "
                              f"{flash_launches} (expected {want_flash})")
+    tc = check_tc(dev, f"prefill {label}", n_req * prompt_len, launches)
     t0 = time.perf_counter()
     want_logits, want = decode_chunk(cfg, split, init_cache(
         cfg, n_req, max_len, torch.float32, device=dev), toks)
@@ -1986,7 +2060,8 @@ def prefill_phase(cfg, tree, label, dev, *, n_req=8, prompt_len=32,
     rec = {"format": label, "batch": n_req, "prompt_len": prompt_len,
            "strict": strict,
            "prefill_ms": 1e3 * wall, "decode_chunk_ms": 1e3 * chunk_wall,
-           "launches": launches, "flash_launches": flash_launches,
+           "launches": launches, "tc_launches": tc,
+           "flash_launches": flash_launches,
            "rel_err": errs, "cache_bit_equal": bool(
                torch.equal(cache.kv.k, want.kv.k)
                and torch.equal(cache.kv.v, want.kv.v)),
@@ -2242,6 +2317,8 @@ def engine_run(cfg, tree, prompts, new_tokens, dev, *, slots, max_len,
     _sync(dev)
     wall = time.perf_counter() - t0
     after = obs.counters_snapshot("repro_kernel_")
+    # decode steps only: at most `slots` rows
+    tc = check_tc(dev, f"engine run {cfg.name}", slots, dict(LAUNCHES))
     _, fb = qweight_bytes(tree)
     tokens = sum(len(r.out_tokens) for r in done)
     steps = [st.step_s for st in eng.step_stats]
@@ -2259,7 +2336,7 @@ def engine_run(cfg, tree, prompts, new_tokens, dev, *, slots, max_len,
             "step_ms_median": 1e3 * statistics.median(steps),
             "kv_bytes": sum(t.numel() * t.element_size()
                             for t in tree_leaves(eng.cache.kv)),
-            "launches": dict(LAUNCHES), "engine": eng,
+            "launches": dict(LAUNCHES), "tc_launches": tc, "engine": eng,
             "streams": {r.rid: list(r.out_tokens) for r in done}}
 
 
@@ -3119,7 +3196,7 @@ MOE_ARCH = "phi3.5-moe-42b-a6.6b"
 #: depth of the MoE serve and prefill cells: the serving tree keeps the
 #: stacked (L, E, d, ff) experts f32, as the reference's does (3 × 16 ×
 #: 4096 × 6400 × 4 B = 5.03 GB a layer), so 8 of 32 layers fit one card
-MOE_LAYERS = 8
+MOE_LAYERS = 4
 #: packed leaves of a MoE layer at --wbits 4: wq, wk, wv, wo
 MOE_PER_LAYER = 4
 #: the MoE plan phase's budget, bits per parameter
@@ -3619,6 +3696,9 @@ def recurrent_prefill_phase(cfg, params, label, dev, *, n_req, prompt_len,
         (logits, cache), wall = _with_opts(opts, run)
         launches = {nb: c for nb, c in LAUNCHES.items() if c}
         times = prompt_len if mode == "stepped" else 1
+        # stepped: decode steps of n_req rows; parallel: n_req · S rows
+        tc = check_tc(dev, f"prefill {label} {mode}", n_req * (
+            1 if mode == "stepped" else prompt_len), launches)
         if dev.type == "cuda" and launches != {
                 nb: c * times for nb, c in per_step.items()}:
             raise AssertionError(f"prefill {label} {mode}: dequant launches "
@@ -3629,6 +3709,7 @@ def recurrent_prefill_phase(cfg, params, label, dev, *, n_req, prompt_len,
                                  f"{int(cache.pos)}, logits "
                                  f"{tuple(logits.shape)}")
         runs[mode] = (logits, cache, wall, launches)
+    parallel_tc = tc
     (lg_s, c_s, wall_s, _), (lg_p, c_p, wall_p, launches) = \
         runs["stepped"], runs["parallel"]
     layer_err = layerwise_prefill_check(cfg, params, toks, dev, max_len,
@@ -3650,6 +3731,7 @@ def recurrent_prefill_phase(cfg, params, label, dev, *, n_req, prompt_len,
                 float(ref.abs().max()), 1e-30)
     rec = {"format": label, "batch": n_req, "prompt_len": prompt_len,
            "stepped_ms": 1e3 * wall_s, "parallel_ms": 1e3 * wall_p,
+           "tc_launches": parallel_tc,
            "parallel_launches": launches, "layerwise_rel_err": layer_err,
            "end_to_end_held": end_to_end, "end_to_end_rel_err": errs,
            "max_end_to_end_rel_err": max(errs.values()),
@@ -3961,6 +4043,7 @@ def _counted(dev, fn):
     _sync(dev)
     return out, {"ms": 1e3 * (time.perf_counter() - t0),
                  "b1": {nb: c for nb, c in LAUNCHES.items() if c},
+                 "tc_launches": tc_launches(),
                  "flash": flash_attention_cuda.launches}
 
 
@@ -4040,12 +4123,20 @@ def encdec_serve_rest(cfg, params, kcases, dev, rec, traffic):
     torch.cuda.empty_cache()
 
 
-def _check_counts(dev, what, got, want):
+def _check_counts(dev, what, got, want, rows=None):
     """On the card, the (B1 launches by nbits, B3 launches) of a counted
-    call (``_counted``) must be ``want``; the CPU's twins count nothing."""
+    call (``_counted``) must be ``want``; the CPU's twins count nothing.
+    With ``rows`` (the fewest rows of x of any of the call's products)
+    its tensor-core launches are held as ``check_tc`` holds them."""
     if dev.type == "cuda" and (got["b1"], got["flash"]) != want:
         raise AssertionError(f"{what}: B1 {got['b1']}, B3 {got['flash']}; "
                              f"expected {want}")
+    if rows is not None and dev.type == "cuda":
+        tc = dict(got["b1"]) if dq.uses_tensor_cores(rows) else {}
+        if got["tc_launches"] != tc:
+            raise AssertionError(f"{what}: tensor-core launches "
+                                 f"{got['tc_launches']} at m >= {rows}, "
+                                 f"expected {tc}")
 
 
 def whisper_prefill_phase(cfg, params, dev, *, n_req, prompt_len,
@@ -4076,10 +4167,13 @@ def whisper_prefill_phase(cfg, params, dev, *, n_req, prompt_len,
     (logits, cache), c_pre = _counted(dev, lambda: prefill(
         cfg, split, batch, max_len, torch.float32))
     L, E = cfg.n_layers, cfg.enc_layers
-    _check_counts(dev, "whisper encode", c_enc, ({4: 6 * E}, E))
-    _check_counts(dev, "whisper cross K/V", c_cross, ({4: 2 * L}, 0))
+    frames_rows = n_req * cfg.enc_seq
+    _check_counts(dev, "whisper encode", c_enc, ({4: 6 * E}, E), frames_rows)
+    _check_counts(dev, "whisper cross K/V", c_cross, ({4: 2 * L}, 0),
+                  frames_rows)
     _check_counts(dev, "whisper prefill", c_pre,
-                  ({4: 6 * E + 2 * L + 8 * L}, E + L))
+                  ({4: 6 * E + 2 * L + 8 * L}, E + L),
+                  min(frames_rows, n_req * prompt_len))
     if int(cache.pos) != prompt_len:
         raise AssertionError(f"whisper prefill pos {int(cache.pos)}")
     rec = {"encode": c_enc, "cross_kv": c_cross, "prefill": c_pre}
@@ -4130,7 +4224,8 @@ def paligemma_prefill_phase(cfg, params, dev, *, n_req, prompt_len,
     (logits, cache), c_pre = _counted(dev, lambda: prefill(
         cfg, split, batch, max_len, torch.float32))
     _check_counts(dev, "paligemma prefill", c_pre,
-                  ({4: ENCDEC_PER_LAYER[PALIGEMMA_ARCH] * cfg.n_layers}, 0))
+                  ({4: ENCDEC_PER_LAYER[PALIGEMMA_ARCH] * cfg.n_layers}, 0),
+                  n_req * (cfg.prefix_tokens + prompt_len))
     if int(cache.pos) != cfg.prefix_tokens + prompt_len:
         raise AssertionError(f"paligemma prefill pos {int(cache.pos)}")
     fed, seen, step_ms = _greedy_steps(cfg, split, cache, logits,
@@ -5135,10 +5230,11 @@ SHARD_SHAPES = [(576, 2304), (576, 5760), (1440, 2304)]
 SHARD_PER_LAYER = {(576, 2304): 4, (576, 5760): 2, (1440, 2304): 1}
 MESH_M = (8, 256)
 #: depth of the mesh serve of the int4 tree (minicpm-2b has 40 layers;
-#: cut for the smoke's time, as its width and traffic are not)
-MESH_FULL_LAYERS = 10
+#: cut for the smoke's time, as its width and traffic are not: 20 in PR
+#: 24, 10 in PR 26, 4 from PR 27)
+MESH_FULL_LAYERS = 4
 #: depth of the mixed tree's and the gate's mesh runs, and of the chaos run
-MESH_SHORT_LAYERS = 4
+MESH_SHORT_LAYERS = 2
 MESH_CHAOS_LAYERS = 2
 #: seconds before the ranks of one launch are killed
 MESH_TIMEOUT_S = 600.0
@@ -6086,6 +6182,9 @@ def training_mesh_phases(dev) -> dict:
 #: grad accumulator is 2.7 GB more per rank, which 4 ranks beside this
 #: process's own leftovers do not leave room for on one card)
 FSDP_MESH = {"data": 2, "model": 2}
+#: depth of the minicpm-2b FSDP × TP cell (of its 40 layers; cut for the
+#: smoke's time, as its width, mesh and batch are not)
+FSDP_LAYERS = 20
 FSDP_BATCH, FSDP_SEQ, FSDP_MICRO, FSDP_STEPS = 8, 64, 2, 4
 FSDP_RANK_MICRO = 1
 FSDP_LR = 3e-3
@@ -6277,14 +6376,19 @@ def fsdp_tp_oracle(cfg, dev, path) -> dict:
     return rec
 
 
+def _fsdp_cfg():
+    """minicpm-2b cut to FSDP_LAYERS: the FSDP × TP cell's model."""
+    return dataclasses.replace(get_config(TRAIN_ARCH), n_layers=FSDP_LAYERS)
+
+
 def fsdp_tp_rank(rank, kind, oracle_path) -> dict:
     """A rank of the FSDP × TP phase's minicpm-2b cell
     (:func:`_fsdp_rank_cell`)."""
     from repro_torch.launch.mesh import make_host_mesh
     dev = _rank_device(kind)
     mesh = make_host_mesh(model_parallel=FSDP_MESH["model"], device=dev)
-    out = _fsdp_rank_cell(rank, dev, mesh, get_config(TRAIN_ARCH),
-                          FSDP_STEPS, oracle_path)
+    out = _fsdp_rank_cell(rank, dev, mesh, _fsdp_cfg(), FSDP_STEPS,
+                          oracle_path)
     mesh.close()
     return out
 
@@ -6449,7 +6553,7 @@ def fsdp_tp_phase(dev) -> dict:
           f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB "
           f"({torch.cuda.memory_reserved(dev) / 1e9:.2f} GB reserved) "
           f"[{CARD}]", flush=True)
-    cfg = get_config(TRAIN_ARCH)
+    cfg = _fsdp_cfg()
     (ROOT / "scratch").mkdir(exist_ok=True)
     root = tempfile.mkdtemp(dir=ROOT / "scratch", prefix="fsdp_")
     try:
@@ -6904,6 +7008,44 @@ def cost_dryrun_phase(proc, out) -> dict:
     return rec
 
 
+def tc_sass_check() -> dict:
+    """HGMMA instructions (Hopper's warpgroup products) in the SASS of the
+    tensor-core kernels of B1 and B2 (``kernel_bench.sass_counts``):
+    fails on a source whose tensor-core kernels hold none."""
+    import kernel_bench
+    counts = {}
+    for stem in ("dequant_int8", "dequant_packed"):
+        lib = _build._target(_build.sources()[stem])
+        per_fn = {fn: c for fn, c in kernel_bench.sass_counts(
+            lib, opcode="HGMMA").items() if "tc_kernel" in fn}
+        if not per_fn or min(per_fn.values()) == 0:
+            raise AssertionError(f"{stem}: tensor-core kernels without "
+                                 f"HGMMA in their SASS: {per_fn}")
+        counts[stem] = per_fn
+        print(f"sass {stem}: HGMMA per tensor-core kernel "
+              f"{sorted(per_fn.values())}", flush=True)
+    return counts
+
+
+def sum_tc(node) -> dict:
+    """Tensor-core launches by nbits summed over every ``tc_launches``
+    record under ``node`` (the prefill, encode and serve runs')."""
+    out = {}
+    if isinstance(node, dict):
+        for key, val in node.items():
+            if key == "tc_launches" and isinstance(val, dict):
+                for nb, c in val.items():
+                    out[nb] = out.get(nb, 0) + c
+            else:
+                for nb, c in sum_tc(val).items():
+                    out[nb] = out.get(nb, 0) + c
+    elif isinstance(node, (list, tuple)):
+        for val in node:
+            for nb, c in sum_tc(val).items():
+                out[nb] = out.get(nb, 0) + c
+    return out
+
+
 T_START = time.perf_counter()
 #: each top-level phase's wall time, in the order run (``timed``)
 PHASE_S: dict = {}
@@ -6945,6 +7087,7 @@ def main() -> int:
         for line in _build.build_log(stem).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"ptxas {stem}:", line.strip())
+    hgmma = tc_sass_check()
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     # half a second of matmuls so the first timed case finds the clocks up
@@ -7020,6 +7163,10 @@ def main() -> int:
         ladder[wbits], p = timed(f"ladder int{wbits}", serve_path, short,
                                  wbits, dev, n_req=4, prompt_len=16,
                                  new_tokens=8, max_len=32, slots=4, chunk=16)
+        # the format's prefill: B·S = 256 rows through the tensor cores
+        ladder[wbits]["prefill"] = timed(f"ladder int{wbits} prefill",
+                                         prefill_phase, short, p,
+                                         f"int{wbits}", dev)
         del p
         torch.cuda.empty_cache()
 
@@ -7131,7 +7278,8 @@ def main() -> int:
             + large["b1_launches"] if nbits == 4
             else ladder[nbits]["launches"][nbits],
             "max_abs_err": max(c["max_abs_err"] for c in cases + rec_cases
-                               if c["nbits"] == nbits),
+                               if c["nbits"] == nbits
+                               and not dq.uses_tensor_cores(c["m"])),
             "ms": per_launch["ms"], "plain_ms": per_launch["plain_ms"],
             "bound_ms": per_launch["bound_ms"],
             "bound_by": "bytes" if per_launch["bytes_ms"]
@@ -7151,12 +7299,54 @@ def main() -> int:
         "source": INT8_SOURCE, "replaces": INT8_REPLACES,
         "launches": planned["serve"]["launches"][8] + rec_b2
         + life["serve_int8"]["b2_launches"] + mesh["b2_launches"],
-        "max_abs_err": max(c["max_abs_err"] for c in int8_cases + rec_int8),
+        "max_abs_err": max(c["max_abs_err"] for c in int8_cases + rec_int8
+                           if not dq.uses_tensor_cores(c["m"])),
         "ms": int8_mix["ms"], "plain_ms": int8_mix["plain_ms"],
         "bound_ms": int8_mix["bound_ms"],
         "bound_by": "bytes" if int8_mix["bytes_ms"]
         >= int8_mix["operations_ms"] else "operations",
         "library_ms": int8_mix["library_ms"]})
+    # the tensor-core kernels (m >= TC_MIN_M): launches on the main path's
+    # full-sequence runs (every tc_launches record: prefills, encodes; the
+    # serve runs hold none), times at one prefill layer's mix of the
+    # serving shapes at m = 256 (B2: the mixed serve's int8 types)
+    tc_runs = sum_tc({"serve": serve, "ladder": ladder, "plan": planned,
+                      "moe": moe_rec, "recurrent": recurrent,
+                      "encdec": encdec, "large": large})
+    tc_cases = [c for c in cases + rec_cases + prefill_kernels["int4"]
+                if dq.uses_tensor_cores(c["m"])]
+    tc_int8 = [c for c in int8_cases + prefill_kernels["int8"]
+               if dq.uses_tensor_cores(c["m"])]
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bytes_ms",
+            "operations_ms")
+    for nbits in (4, 3, 2):
+        at = {(c["k"], c["n"]): c for c in cases if c["nbits"] == nbits
+              and c["m"] == PREFILL_M and "ms" in c}
+        tmix = {key: sum(PER_LAYER[sh] * at[sh][key] for sh in at) / 7
+                for key in keys}
+        kernels.append({
+            "name": f"dequant_matmul_packed_int{nbits}_tc", "route": "cuda",
+            "source": TC_SOURCE, "replaces": REPLACES,
+            "launches": tc_runs.get(nbits, 0),
+            "max_abs_err": max(c["max_abs_err"] for c in tc_cases
+                               if c["nbits"] == nbits),
+            "ms": tmix["ms"], "plain_ms": tmix["plain_ms"],
+            "bound_ms": tmix["bound_ms"],
+            "bound_by": "bytes" if tmix["bytes_ms"] >= tmix["operations_ms"]
+            else "operations", "library_ms": tmix["library_ms"]})
+        detail_mix[f"int{nbits}_tc_m{PREFILL_M}"] = tmix
+    at8 = {(c["k"], c["n"]): c for c in int8_cases
+           if c["m"] == PREFILL_M and "ms" in c}
+    t8 = {key: sum(at8[sh][key] for sh in shapes) / len(shapes)
+          for key in keys}
+    kernels.append({
+        "name": "dequant_matmul_int8_tc", "route": "cuda",
+        "source": TC_SOURCE, "replaces": INT8_REPLACES,
+        "launches": tc_runs.get(8, 0),
+        "max_abs_err": max(c["max_abs_err"] for c in tc_int8),
+        "ms": t8["ms"], "plain_ms": t8["plain_ms"], "bound_ms": t8["bound_ms"],
+        "bound_by": "bytes" if t8["bytes_ms"] >= t8["operations_ms"]
+        else "operations", "library_ms": t8["library_ms"]})
     zsic_cases = list(zsic["cases"].values()) \
         + list(large["watersic"]["zsic_cases"].values())
     mix = ptq["hptq"]["zsic_launch_rows"]
@@ -7191,6 +7381,7 @@ def main() -> int:
         "bound_ms": path["bound_ms"], "bound_by": path["bound_by"],
         "library_ms": path["library_ms"]})
     detail = {"device": smi.stdout.strip(), "cases": cases, "serve": serve,
+              "hgmma": hgmma, "tc_launches": tc_runs,
               "ladder": ladder, "kernels": kernels,
               "m8_decode_mix_per_launch": detail_mix, "zsic": zsic,
               "zsic_ptq_mix_per_launch": zmix, "flash": flash_cases,

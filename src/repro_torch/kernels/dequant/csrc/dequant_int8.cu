@@ -17,6 +17,14 @@
 // z[k * ldz + n]; models/layers.dense hands the wrapper that leaf's
 // transposed (n, k) view, so no code matrix is copied on the serving path.
 //
+// Two kernels, chosen by the wrapper by m (kernels/dequant/dequant_matmul.py,
+// TC_MIN_M): from TC_MIN_M rows of x on (prefill, encode, cross K/V) the
+// tensor-core kernel of dequant_tc.cuh, whose header note says what bounds
+// it and how it is designed (codes decoded in registers into wgmma's A
+// fragments, x * s split into three exact bf16 terms, split-K over a
+// cluster); this file gives it its code decoder (the end of the file).
+// Below TC_MIN_M the decode kernel, described from here on.
+//
 // What bounds it: at decode m (the slot count) is 1..16 and every code is
 // used by m rows of x only, so the n * k code bytes (1 per weight) are the
 // bound up to m of about 20; above that the 2*m*n*k f32 multiply-adds on
@@ -57,6 +65,8 @@
 #include <stdint.h>
 
 #include <algorithm>
+
+#include "dequant_tc.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -426,4 +436,87 @@ extern "C" int dequant_matmul_int8_f32(const void* x, const void* z, const void*
   if (m <= 4) return (int)launch<4>(xf, zb, sf, tf, of, m, n, k, ldz, st);
   if (m <= 8) return (int)launch<8>(xf, zb, sf, tf, of, m, n, k, ldz, st);
   return (int)launch<16>(xf, zb, sf, tf, of, m, n, k, ldz, st);
+}
+
+// ---------------------------------------------------------------------------
+// Tensor-core path (m >= TC_MIN_M): dequant_tc.cuh's main loop with the
+// int8 codes read in place, (k, n) as the serving leaf stores them.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+// A thread owns out-features col .. col + 3 (col = n0 + 32 warp + 4 g) and,
+// per 64-row chunk, the 16 k rows kb .. kb + 15 (kb = j0 + 16 c): one
+// 32-bit word of codes per k row, w[rho] for k = kb + rho = kb + 4 q + e.
+struct Int8Codes {
+  static constexpr int LW = 16, SPC = 1;
+  struct Regs {
+    uint32_t w[16];
+  };
+
+  __device__ static void load(Regs& r, const dequant_tc::Args& a, int j0, int n0, int warp,
+                              int g, int c) {
+    const int col = n0 + 32 * warp + 4 * g;
+    const int kb = j0 + 16 * c;
+    const bool wide = a.vec && col + 4 <= a.n;
+#pragma unroll
+    for (int rho = 0; rho < 16; ++rho) {
+      const int kk = kb + rho;
+      const uint8_t* p = a.codes + (size_t)(kk < a.kg ? kk : 0) * a.ldz + col;
+      uint32_t w = 0u;
+      if (kk < a.kg) {
+        if (wide) {
+          w = __ldg(reinterpret_cast<const uint32_t*>(p));
+        } else {
+          for (int b = 0; b < 4; ++b) {
+            if (col + b < a.n) w |= (uint32_t)__ldg(p + b) << (8 * b);
+          }
+        }
+      }
+      r.w[rho] = w;
+    }
+  }
+
+  // Byte b of each word is out-feature col + b = tile b / 2, row half b % 2.
+  template <int I>
+  __device__ static void frags(const Regs& r, uint32_t (&af)[4][2][4]) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const uint32_t w0 = r.w[4 * q] ^ 0x80808080u, w1 = r.w[4 * q + 1] ^ 0x80808080u;
+      const uint32_t w2 = r.w[4 * q + 2] ^ 0x80808080u, w3 = r.w[4 * q + 3] ^ 0x80808080u;
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        af[q][t][0] = dequant_tc::pack_bf16(code_float(w0, 2 * t), code_float(w1, 2 * t));
+        af[q][t][1] = dequant_tc::pack_bf16(code_float(w0, 2 * t + 1), code_float(w1, 2 * t + 1));
+        af[q][t][2] = dequant_tc::pack_bf16(code_float(w2, 2 * t), code_float(w3, 2 * t));
+        af[q][t][3] = dequant_tc::pack_bf16(code_float(w2, 2 * t + 1), code_float(w3, 2 * t + 1));
+      }
+    }
+  }
+};
+
+}  // namespace
+
+// The tensor-core path of dequant_matmul_int8_f32, with the same operands
+// and contract: one kernel launch on `stream`, no scratch memory.
+extern "C" int dequant_matmul_int8_tc_f32(const void* x, const void* z, const void* s,
+                                          const void* t, void* out, int m, int n, int k,
+                                          long long ldz, void* stream) {
+  if (m <= 0 || n <= 0) return 0;
+  if (k <= 0 || ldz < n) return (int)cudaErrorInvalidValue;
+  dequant_tc::Args a = {};
+  a.x = static_cast<const float*>(x);
+  a.codes = static_cast<const uint8_t*>(z);
+  a.s = static_cast<const float*>(s);
+  a.t = static_cast<const float*>(t);
+  a.out = static_cast<float*>(out);
+  a.m = m;
+  a.n = n;
+  a.kg = k;
+  a.kx = k;
+  a.ldz = ldz;
+  a.vec = ldz % 4 == 0 && reinterpret_cast<uintptr_t>(z) % 4 == 0;
+  a.xvec = k % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+           reinterpret_cast<uintptr_t>(s) % 16 == 0;
+  return (int)dequant_tc::launch_any<Int8Codes>(a, static_cast<cudaStream_t>(stream));
 }

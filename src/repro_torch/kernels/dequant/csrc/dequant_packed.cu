@@ -13,6 +13,14 @@
 // carrying eight biased codes u - 4 (G = 8).  Escapes are applied outside
 // the kernel (ops.py), as on the TPU.
 //
+// Two kernels, chosen by the wrapper by m (kernels/dequant/dequant_matmul.py,
+// TC_MIN_M): from TC_MIN_M rows of x on (prefill, encode, cross K/V) the
+// tensor-core kernel of dequant_tc.cuh, whose header note says what bounds
+// it and how it is designed (codes decoded in registers into wgmma's A
+// fragments, x * s split into three exact bf16 terms, split-K over a
+// cluster); this file gives it its code decoder (the end of the file).
+// Below TC_MIN_M the decode kernel, described from here on.
+//
 // What bounds it: at decode m (the slot count) is 1..16, so each payload
 // byte is used by at most 16 rows of x.  The kernel must stream
 // n * kg * planes payload bytes from device memory once (0.4 to 2 us at
@@ -57,6 +65,8 @@
 #include <stdint.h>
 
 #include <algorithm>
+
+#include "dequant_tc.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -382,5 +392,142 @@ extern "C" int dequant_matmul_packed_f32(const void* x, const void* payload, con
     case 3: return (int)launch_nbits<3>(xf, pb, sf, tf, of, m, n, kg, st);
     case 2: return (int)launch_nbits<2>(xf, pb, sf, tf, of, m, n, kg, st);
     default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Tensor-core path (m >= TC_MIN_M): dequant_tc.cuh's main loop with the
+// codes unpacked from the planar payload by the decoders above.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+// A thread owns payload rows row .. row + 3 (row = n0 + 32 warp + 4 g) and,
+// per chunk of 4 LW byte-columns, the LW bytes j0 + LW c .. + LW - 1 of each
+// plane: 16 bytes for int4 and int2 (2 and 4 slabs of 64 codes per chunk, one
+// per column group), 4 for int3 (its 3 planes' registers; 2 slabs per
+// chunk, each 4 column groups of 16).  Step sigma of the chunk reads word
+// q = sigma % (LW / 4) of column group sigma / (LW / 4).
+template <int NBITS>
+struct PackedCodes {
+  static constexpr int G = Layout<NBITS>::G, P = Layout<NBITS>::P;
+  static constexpr int LW = NBITS == 3 ? 4 : 16, W = LW / 4;
+  static constexpr int SPC = G * LW / 16;
+  struct Regs {
+    uint32_t w[4][P][W];
+  };
+
+  __device__ static void load(Regs& r, const dequant_tc::Args& a, int j0, int n0, int warp,
+                              int g, int c) {
+    const int j = j0 + LW * c;
+    const bool wide = a.vec && j + LW <= a.kg;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const int row = n0 + 32 * warp + 4 * g + b;
+      const bool row_ok = row < a.n;
+      const uint8_t* prow = a.codes + (size_t)(row_ok ? row : 0) * a.ldz;
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        const uint8_t* src = prow + (size_t)p * a.kg + j;
+        if (row_ok && wide) {
+          if constexpr (W == 4) {
+            const uint4 v = __ldg(reinterpret_cast<const uint4*>(src));
+            r.w[b][p][0] = v.x;
+            r.w[b][p][W > 1 ? 1 : 0] = v.y;
+            r.w[b][p][W > 2 ? 2 : 0] = v.z;
+            r.w[b][p][W > 3 ? 3 : 0] = v.w;
+          } else {
+            r.w[b][p][0] = __ldg(reinterpret_cast<const uint32_t*>(src));
+          }
+        } else {
+#pragma unroll
+          for (int q = 0; q < W; ++q) {
+            uint32_t w = 0u;
+            if (row_ok) {
+              for (int e = 0; e < 4; ++e) {
+                if (j + 4 * q + e < a.kg) w |= (uint32_t)__ldg(src + 4 * q + e) << (8 * e);
+              }
+            }
+            r.w[b][p][q] = w;
+          }
+        }
+      }
+    }
+  }
+
+  // Row b of the thread's four is tile b / 2, row half b % 2.  A biased
+  // code u < 16 is the bf16 128 + u with u in the low byte of its mantissa
+  // (bits 0x4300 | u), so one byte permute packs two of them and one bf16
+  // subtraction of 128 + bias leaves the codes, exactly.
+  template <int I>
+  __device__ static void frags(const Regs& r, uint32_t (&af)[4][2][4]) {
+    constexpr uint32_t kOff = (0x4300u + (NBITS == 4 ? 8 : NBITS == 3 ? 4 : 2)) * 0x10001u;
+    const __nv_bfloat162 off = *reinterpret_cast<const __nv_bfloat162*>(&kOff);
+    auto pair = [&](uint32_t u, uint32_t sel) {
+      const uint32_t v = __byte_perm(u, 0x43u, sel);
+      const __nv_bfloat162 d = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&v), off);
+      return *reinterpret_cast<const uint32_t*>(&d);
+    };
+#pragma unroll
+    for (int st = 0; st < 4; ++st) {
+      const int sigma = 4 * I + st, grp = sigma / W, q = sigma % W;
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        uint32_t p0[P], p1[P];
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+          p0[p] = r.w[2 * t][p][q];
+          p1[p] = r.w[2 * t + 1][p][q];
+        }
+        const uint32_t u0 = group_bytes<NBITS>(p0, grp), u1 = group_bytes<NBITS>(p1, grp);
+        af[st][t][0] = pair(u0, 0x4140);           // bytes 0, 1: columns 2c, 2c + 1
+        af[st][t][1] = pair(u1, 0x4140);
+        af[st][t][2] = pair(u0, 0x4342);           // bytes 2, 3: columns 2c + 8, 2c + 9
+        af[st][t][3] = pair(u1, 0x4342);
+      }
+    }
+  }
+};
+
+}  // namespace
+
+// The tensor-core path of dequant_matmul_packed_f32, with the same operands
+// and contract: one kernel launch on `stream`, no scratch memory.
+extern "C" int dequant_matmul_packed_tc_f32(const void* x, const void* payload, const void* s,
+                                            const void* t, void* out, int m, int n, int kg,
+                                            int nbits, void* stream) {
+  if (m <= 0 || n <= 0) return 0;
+  if (kg <= 0) return (int)cudaErrorInvalidValue;
+  dequant_tc::Args a = {};
+  a.x = static_cast<const float*>(x);
+  a.codes = static_cast<const uint8_t*>(payload);
+  a.s = static_cast<const float*>(s);
+  a.t = static_cast<const float*>(t);
+  a.out = static_cast<float*>(out);
+  a.m = m;
+  a.n = n;
+  a.kg = kg;
+  a.xvec = kg % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+           reinterpret_cast<uintptr_t>(s) % 16 == 0;
+  const uintptr_t base = reinterpret_cast<uintptr_t>(payload);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (nbits) {
+    case 4:
+      a.kx = 2LL * kg;
+      a.ldz = kg;
+      a.vec = kg % 16 == 0 && base % 16 == 0;
+      return (int)dequant_tc::launch_any<PackedCodes<4>>(a, st);
+    case 3:
+      a.kx = 8LL * kg;
+      a.ldz = 3LL * kg;
+      a.vec = kg % 4 == 0 && base % 4 == 0;
+      return (int)dequant_tc::launch_any<PackedCodes<3>>(a, st);
+    case 2:
+      a.kx = 4LL * kg;
+      a.ldz = kg;
+      a.vec = kg % 16 == 0 && base % 16 == 0;
+      return (int)dequant_tc::launch_any<PackedCodes<2>>(a, st);
+    default:
+      return (int)cudaErrorInvalidValue;
   }
 }

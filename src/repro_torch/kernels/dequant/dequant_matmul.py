@@ -3,14 +3,19 @@
 Ports of ``repro/kernels/dequant/dequant_matmul.py``:
 ``dequant_matmul_packed_pallas`` is ``csrc/dequant_packed.cu`` and
 ``dequant_matmul_pallas`` (int8 codes) is ``csrc/dequant_int8.cu`` (their
-header notes say what bounds them and how they are designed).  This module
-checks the operands, allocates the output, launches on the current
-stream, raises on a launch error, and counts the launches
-(``LAUNCHES[nbits]``, 8 for the int8 kernel; one per call that launches,
-bumped nowhere else) so a run can show that its main path went through
-the kernels.  Each call is one kernel launch and allocates only its
-output: both kernels add their split-K partial sums inside a thread-block
-cluster.
+header notes say what bounds them and how they are designed).  Each
+source holds two kernels, chosen here by the row count m
+(:func:`uses_tensor_cores`): below ``TC_MIN_M`` the decode kernel, whose
+f32 multiply-adds run on the CUDA cores, from ``TC_MIN_M`` on the
+tensor-core kernel (``csrc/dequant_tc.cuh``: codes exact in bf16, x·s
+split into three bf16 terms, ``wgmma``).  This module checks the
+operands, allocates the output, launches on the current stream, raises
+on a launch error, and counts the launches (``LAUNCHES[nbits]``, 8 for
+the int8 kernel; one per call that launches, bumped nowhere else; of
+those, ``TC_LAUNCHES[nbits]`` went through the tensor-core kernel) so a
+run can show that its main path went through the kernels.  Each call is
+one kernel launch and allocates only its output: every kernel adds its
+split-K partial sums inside a thread-block cluster.
 """
 from __future__ import annotations
 
@@ -18,7 +23,8 @@ import ctypes
 
 import torch
 
-__all__ = ["PLANE_GROUPS", "LAUNCHES", "reset_launches",
+__all__ = ["PLANE_GROUPS", "LAUNCHES", "TC_LAUNCHES", "TC_MIN_M",
+           "uses_tensor_cores", "reset_launches",
            "dequant_matmul_packed_cuda", "dequant_matmul_int8_cuda"]
 
 #: column groups per payload byte-column, by payload nbits
@@ -29,27 +35,47 @@ _PLANES = {2: 1, 3: 3, 4: 1}
 #: kernel launches per payload nbits (8: the int8 kernel) since the last
 #: :func:`reset_launches`
 LAUNCHES = {2: 0, 3: 0, 4: 0, 8: 0}
+#: of those, the launches of the tensor-core kernel (m >= TC_MIN_M)
+TC_LAUNCHES = {2: 0, 3: 0, 4: 0, 8: 0}
 
-_lib = None
-_lib8 = None
+#: rows of x from which a call takes the tensor-core kernel.  The decode
+#: kernels' row tiles end at 16, and kernel_bench.py's crossover sweep
+#: (PERF.md §6, NVIDIA H100 80GB HBM3, 700 W) put the tensor-core kernel
+#: ahead at every format and serving shape from m = 24 on (1.4-6.6×); at
+#: m = 16 it led the packed formats (1.2-3.1×) but not int8 (0.94-0.95× on
+#: two of three shapes), and from 17 rows the decode kernels take a second
+#: row tile (18.3 -> 31.2 µs at int4 (2304, 2304))
+TC_MIN_M = 17
+
+_libs = {}
+
+
+def uses_tensor_cores(m: int) -> bool:
+    """Whether a call with m rows of x takes the tensor-core kernel."""
+    return m >= TC_MIN_M
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, TC_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
-def _kernel():
-    """The launch C function of the built packed library."""
-    global _lib
-    if _lib is None:
+def _launcher(stem: str, fn: str, argtypes):
+    """The C function ``fn`` of the built library ``stem``."""
+    key = (stem, fn)
+    if key not in _libs:
         from repro_torch.kernels._build import load
-        launch = load("dequant_packed").dequant_matmul_packed_f32
-        launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 \
-            + [ctypes.c_void_p]
+        launch = getattr(load(stem), fn)
+        launch.argtypes = argtypes
         launch.restype = ctypes.c_int
-        _lib = launch
-    return _lib
+        _libs[key] = launch
+    return _libs[key]
+
+
+_PACKED_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_INT8_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 \
+    + [ctypes.c_longlong, ctypes.c_void_p]
 
 
 def dequant_matmul_packed_cuda(x_groups: torch.Tensor, payload: torch.Tensor,
@@ -92,28 +118,19 @@ def dequant_matmul_packed_cuda(x_groups: torch.Tensor, payload: torch.Tensor,
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
     if m == 0 or n == 0:
         return out
+    tc = uses_tensor_cores(m)
+    launch = _launcher("dequant_packed", "dequant_matmul_packed_tc_f32"
+                       if tc else "dequant_matmul_packed_f32", _PACKED_ARGS)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _kernel()(x_groups.data_ptr(), payload.data_ptr(),
-                    s_groups.data_ptr(), row_scale.data_ptr(), out.data_ptr(),
-                    m, n, kg, nbits, stream)
+    err = launch(x_groups.data_ptr(), payload.data_ptr(),
+                 s_groups.data_ptr(), row_scale.data_ptr(), out.data_ptr(),
+                 m, n, kg, nbits, stream)
     if err != 0:
-        raise RuntimeError(f"dequant_packed kernel launch failed: "
-                           f"cudaError_t {err}")
+        raise RuntimeError(f"dequant_packed {'tensor-core ' if tc else ''}"
+                           f"kernel launch failed: cudaError_t {err}")
     LAUNCHES[nbits] += 1
+    TC_LAUNCHES[nbits] += tc
     return out
-
-
-def _kernel8():
-    """The launch C function of the built int8 library."""
-    global _lib8
-    if _lib8 is None:
-        from repro_torch.kernels._build import load
-        launch = load("dequant_int8").dequant_matmul_int8_f32
-        launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 \
-            + [ctypes.c_longlong, ctypes.c_void_p]
-        launch.restype = ctypes.c_int
-        _lib8 = launch
-    return _lib8
 
 
 def dequant_matmul_int8_cuda(x: torch.Tensor, z: torch.Tensor,
@@ -156,12 +173,16 @@ def dequant_matmul_int8_cuda(x: torch.Tensor, z: torch.Tensor,
         return out
     if k == 0:
         return out.zero_()
+    tc = uses_tensor_cores(m)
+    launch = _launcher("dequant_int8", "dequant_matmul_int8_tc_f32"
+                       if tc else "dequant_matmul_int8_f32", _INT8_ARGS)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _kernel8()(x.data_ptr(), z.data_ptr(), col_scale.data_ptr(),
-                     row_scale.data_ptr(), out.data_ptr(), m, n, k,
-                     z.stride(1) if k > 1 else n, stream)
+    err = launch(x.data_ptr(), z.data_ptr(), col_scale.data_ptr(),
+                 row_scale.data_ptr(), out.data_ptr(), m, n, k,
+                 z.stride(1) if k > 1 else n, stream)
     if err != 0:
-        raise RuntimeError(f"dequant_int8 kernel launch failed: "
-                           f"cudaError_t {err}")
+        raise RuntimeError(f"dequant_int8 {'tensor-core ' if tc else ''}"
+                           f"kernel launch failed: cudaError_t {err}")
     LAUNCHES[8] += 1
+    TC_LAUNCHES[8] += tc
     return out

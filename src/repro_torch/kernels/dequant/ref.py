@@ -7,7 +7,10 @@ oracle and the twin of the hand-written int8 kernel
 twins of the hand-written packed kernel (``csrc/dequant_packed.cu``): they
 unpack a planar int4/int3/int2 payload and run the scale-the-activations
 formulation.  The CPU path of ``ops`` runs them; ``chip_smoke.py`` holds
-the CUDA kernel against them on the card.
+the CUDA kernels against them on the card.  ``split_bf16_terms`` and
+``dequant_matmul_split_ref`` spell out the arithmetic of the kernels'
+tensor-core path (``csrc/dequant_tc.cuh``): codes exact in bf16, x·s
+split into three bf16 terms, f32 sums per K-tile.
 """
 from __future__ import annotations
 
@@ -18,7 +21,7 @@ from repro_torch.core.packing import (unpack_int2_planar, unpack_int3_planar,
 
 __all__ = ["dequant_matmul_ref", "dequantize_ref", "unpack_payload_ref",
            "dequant_matmul_packed_ref", "dequantize_leaf_ref",
-           "payload_nbits"]
+           "payload_nbits", "split_bf16_terms", "dequant_matmul_split_ref"]
 
 
 def payload_nbits(payload: torch.Tensor) -> int:
@@ -96,3 +99,37 @@ def dequantize_leaf_ref(leaf, index=None) -> torch.Tensor:
                             esc[2].to(torch.float32), accumulate=True)
         return (t[:, None] * z * s[None, :]).T         # → (in, out)
     return s[:, None] * codes.to(torch.float32) * t[None, :]
+
+
+def split_bf16_terms(v: torch.Tensor, terms: int = 3):
+    """f32 ``v`` as ``terms`` bf16 tensors, each the round-to-nearest bf16
+    of what the earlier ones leave: hi + mid + lo == v exactly for finite
+    v of normal magnitude (3 × 8 significand bits = f32's 24, and every
+    remainder is exact in f32)."""
+    rest = v.to(torch.float32)
+    out = []
+    for _ in range(terms):
+        term = rest.to(torch.bfloat16)
+        out.append(term)
+        rest = rest - term.to(torch.float32)
+    return tuple(out)
+
+
+def dequant_matmul_split_ref(x, z, col_scale, row_scale, *, terms: int = 3,
+                             k_tile: int = 64):
+    """The tensor-core path's arithmetic on the CPU: ``out = t ⊙ Σ_tiles
+    Σ_terms term[:, tile] @ bf16(z)[:, tile]ᵀ`` with x·s split by
+    :func:`split_bf16_terms`, each product of bf16 values taken in f32 and
+    the tiles of ``k_tile`` in-features summed in f32.  ``z`` is an (n, k)
+    integer code matrix (a planar payload unpacked by
+    :func:`unpack_payload_ref`, ``x`` and ``col_scale`` spanning its
+    width)."""
+    xs = x.to(torch.float32) * col_scale.to(torch.float32)[None, :]
+    zb = z.to(torch.bfloat16).to(torch.float32)
+    parts = [p.to(torch.float32) for p in split_bf16_terms(xs, terms)]
+    acc = torch.zeros((x.shape[0], z.shape[0]), dtype=torch.float32)
+    for k0 in range(0, x.shape[1], k_tile):
+        tile = zb[:, k0:k0 + k_tile].T
+        for p in parts:
+            acc = acc + p[:, k0:k0 + k_tile] @ tile
+    return acc * row_scale.to(torch.float32)[None, :]

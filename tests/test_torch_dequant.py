@@ -10,6 +10,9 @@ outputs are O(1); one f32 matmul is held to rtol = atol = 1e-5.
 Card tests (marked ``cuda``, skipped without CUDA): the hand-written
 kernel against its twin on the same CUDA tensors.  Sums over k ≤ 5760 in
 another order: f32 eps·√k·|partial sum| ≈ 5e-6, so rtol = atol = 1e-4.
+From ``TC_MIN_M`` rows on a call takes the tensor-core kernel (``TC_M``:
+both sides of the switch, the prefill chunk's 128 and 256 rows), counted
+in ``TC_LAUNCHES`` as well as ``LAUNCHES``.
 """
 import numpy as np
 import pytest
@@ -18,7 +21,8 @@ import torch
 from _torch_parity import (assert_close, assert_same_ints, graph_kernel_nodes,
                            require_cuda, to_numpy)
 from repro_torch.core.packing import pack_codes_torch
-from repro_torch.kernels.dequant import (LAUNCHES, dequant_matmul,
+from repro_torch.kernels.dequant import (LAUNCHES, TC_LAUNCHES, TC_MIN_M,
+                                         dequant_matmul,
                                          dequant_matmul_int8_cuda,
                                          dequant_matmul_packed_cuda,
                                          dequant_matmul_packed_ref,
@@ -28,6 +32,13 @@ from repro_torch.kernels.dequant import (LAUNCHES, dequant_matmul,
 CPU_TOL = 1e-5
 CUDA_TOL = 1e-4
 _HI = {4: 8, 3: 4, 2: 2}      # codes in [-hi, hi) stay in range
+#: rows on both sides of the tensor-core switch and the prefill's rows
+TC_M = [TC_MIN_M - 1, TC_MIN_M, 128, 256]
+
+
+def _rows(*ms):
+    """Row counts ``ms`` and TC_M, each once, in order."""
+    return sorted(set(ms) | set(TC_M))
 
 
 def _case(m, k, n, nbits, esc, seed):
@@ -231,7 +242,7 @@ def _cuda_operands(m, k, n, nbits, esc, seed, dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [1, 3, 8, 16, 21])
+@pytest.mark.parametrize("m", _rows(1, 3, 8, 16, 21))
 @pytest.mark.parametrize("k,n", [(2304, 2304), (2304, 5760), (5760, 2304),
                                  (301, 37), (64, 1)])
 @pytest.mark.parametrize("nbits", [2, 3, 4])
@@ -242,11 +253,12 @@ def test_kernel_matches_twin(nbits, k, n, m):
     g, kg = PLANE_GROUPS[nbits], payload.shape[-1]
     xp = torch.nn.functional.pad(x, (0, g * kg - k))
     sp = torch.nn.functional.pad(s, (0, g * kg - k))
-    before = LAUNCHES[nbits]
+    before, before_tc = LAUNCHES[nbits], TC_LAUNCHES[nbits]
     got = dequant_matmul_packed_cuda(xp.view(m, g, kg), payload,
                                      sp.view(g, kg), t, nbits=nbits)
     torch.cuda.synchronize()
     assert LAUNCHES[nbits] == before + 1
+    assert TC_LAUNCHES[nbits] == before_tc + (m >= TC_MIN_M)
     want = dequant_matmul_packed_ref(xp, payload, sp, t, nbits=nbits)
     assert_close(got, want, tol=CUDA_TOL)
 
@@ -285,7 +297,7 @@ SERVING_SHAPES = [(2304, 2304), (2304, 5760), (5760, 2304)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [1, 8, 16, 21])
+@pytest.mark.parametrize("m", _rows(1, 8, 16, 21))
 @pytest.mark.parametrize("k,n", SERVING_SHAPES)
 @pytest.mark.parametrize("nbits", [2, 3, 4])
 def test_kernel_reruns_give_equal_bits(nbits, k, n, m):
@@ -304,12 +316,14 @@ def test_kernel_reruns_give_equal_bits(nbits, k, n, m):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m", _rows(8))
 @pytest.mark.parametrize("nbits", [2, 3, 4])
-def test_kernel_is_one_device_kernel_per_call_without_workspace(nbits):
+def test_kernel_is_one_device_kernel_per_call_without_workspace(nbits, m):
     """One call: one kernel node in a CUDA graph of the call, one count,
-    and no device memory beyond the output (no split-K workspace)."""
+    and no device memory beyond the output (no split-K workspace), on
+    either side of the tensor-core switch."""
     dev = require_cuda()
-    m, k, n = 8, 5760, 2304
+    k, n = 5760, 2304
     x, payload, s, t, _ = _cuda_operands(m, k, n, nbits, False, 1, dev)
     g, kg = PLANE_GROUPS[nbits], payload.shape[-1]
     xg = torch.nn.functional.pad(x, (0, g * kg - k)).view(m, g, kg)
@@ -319,20 +333,23 @@ def test_kernel_is_one_device_kernel_per_call_without_workspace(nbits):
         xg, payload, sg, t, nbits=nbits)) == [0]
     assert LAUNCHES[nbits] == before + 2
     torch.cuda.synchronize()
-    held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_stats()["requested_bytes.all.current"]
     out = dequant_matmul_packed_cuda(xg, payload, sg, t, nbits=nbits)
     torch.cuda.synchronize()
-    # the caching allocator rounds a block up to 512 bytes
-    assert torch.cuda.max_memory_allocated() - held \
-        <= -(-out.numel() * 4 // 512) * 512
+    # the bytes the call asked the caching allocator for: the output's (a
+    # cached block it only part-fills can be handed out whole, so the
+    # allocated bytes may exceed them)
+    assert torch.cuda.memory_stats()["requested_bytes.all.peak"] - held \
+        == out.numel() * 4
 
 
 #: the int8 phase's shapes of chip_smoke.py: (m, k, n) at minicpm-2b's
-#: widths for m ∈ {1, 8, 128}, and the ragged case
-INT8_SHAPES = [(m, k, n) for m in (1, 8, 128)
+#: widths for m ∈ {1, 8} and TC_M, and the ragged cases (the last two on
+#: the tensor-core kernel)
+INT8_SHAPES = [(m, k, n) for m in _rows(1, 8)
                for k, n in ((2304, 2304), (2304, 5760), (5760, 2304))] \
-    + [(8, 2300, 5757), (3, 301, 37)]
+    + [(8, 2300, 5757), (3, 301, 37), (130, 2300, 5757), (130, 301, 37)]
 
 
 @pytest.mark.cuda
@@ -353,10 +370,11 @@ def test_int8_kernel_matches_twin(m, k, n, layout):
     x, codes, s, t = (a.to(dev) for a in (x, codes, s, t))
     z = codes.transpose(0, 1) if layout == "kn" \
         else codes.transpose(0, 1).contiguous()
-    before = LAUNCHES[8]
+    before, before_tc = LAUNCHES[8], TC_LAUNCHES[8]
     got = dequant_matmul_int8_cuda(x, z, s, t)
     torch.cuda.synchronize()
     assert LAUNCHES[8] == before + 1
+    assert TC_LAUNCHES[8] == before_tc + (m >= TC_MIN_M)
     assert_close(got, dequant_matmul_ref(x, z, s, t), tol=CUDA_TOL)
     # the same inputs give the same bits on every run (fixed-order sums)
     assert torch.equal(got, dequant_matmul_int8_cuda(x, z, s, t))
@@ -381,9 +399,9 @@ def test_int8_kernel_wrapper_rejects_bad_operands():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,k,n", [(m, k, n) for m in (1, 8, 128)
+@pytest.mark.parametrize("m,k,n", [(m, k, n) for m in _rows(1, 8)
                                    for k, n in SERVING_SHAPES]
-                         + [(8, 2300, 5757)])
+                         + [(8, 2300, 5757), (130, 2300, 5757)])
 def test_int8_kernel_is_one_device_kernel_per_call_without_workspace(m, k, n):
     """One int8 call: one kernel node in a CUDA graph of the call, one
     count, and no device memory beyond the output (the split-K partial
@@ -401,13 +419,14 @@ def test_int8_kernel_is_one_device_kernel_per_call_without_workspace(m, k, n):
         lambda: dequant_matmul_int8_cuda(x, z, s, t)) == [0]
     assert LAUNCHES[8] == before + 2
     torch.cuda.synchronize()
-    held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_stats()["requested_bytes.all.current"]
     out = dequant_matmul_int8_cuda(x, z, s, t)
     torch.cuda.synchronize()
-    # the caching allocator rounds a block up to 512 bytes
-    assert torch.cuda.max_memory_allocated() - held \
-        <= -(-out.numel() * 4 // 512) * 512
+    # the bytes the call asked the caching allocator for: the output's (a
+    # cached block it only part-fills can be handed out whole)
+    assert torch.cuda.memory_stats()["requested_bytes.all.peak"] - held \
+        == out.numel() * 4
 
 
 @pytest.mark.cuda
