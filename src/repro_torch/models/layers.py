@@ -17,6 +17,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.dist import sharding as _sh
 from repro_torch.dist.sharding import (all_gather, axis_index,
                                        manual_axis_info)
@@ -306,16 +307,31 @@ def attention_decode(p, x_t, cache: KVCache, pos, *, n_q, n_kv, head_dim,
     before the scores: shard s holds global slots [s·buf_loc,
     (s+1)·buf_loc), so the gathered buffer is the oracle's.
     """
-    ctx = manual_axis_info()
-    kv_sharded = bool(ctx and ctx.get("cache_sharded"))
-    b = x_t.shape[0]
-    buf_loc = cache.k.shape[1]
-    buf = buf_loc * ctx["shards"] if kv_sharded else buf_loc
-    pos = torch.as_tensor(pos, device=x_t.device)
-    per_slot = pos.ndim == 1
     q = _split_heads(dense(p["wq"], x_t), n_q, head_dim)
     k_t = _split_heads(dense(p["wk"], x_t), n_kv, head_dim)
     v_t = _split_heads(dense(p["wv"], x_t), n_kv, head_dim)
+    with obs.span("decode.attention"):
+        out = _attend_cache(q, k_t, v_t, cache, pos, x_t.dtype,
+                            head_dim=head_dim, rope_theta=rope_theta,
+                            window=window, use_rope=use_rope)
+    return dense(p["wo"], out), cache
+
+
+def _attend_cache(q, k_t, v_t, cache: KVCache, pos, dtype, *, head_dim,
+                  rope_theta, window, use_rope):
+    """The step's attention between its projections (span
+    ``decode.attention``): rope on q and the new K/V row, the row's write
+    into ``cache``, the int8 dequant, scores, mask, softmax and the
+    product with V in ``dtype`` (the layer input's).  Returns the heads'
+    output (B, 1, n_q · head_dim)."""
+    ctx = manual_axis_info()
+    kv_sharded = bool(ctx and ctx.get("cache_sharded"))
+    b = q.shape[0]
+    dev = q.device
+    buf_loc = cache.k.shape[1]
+    buf = buf_loc * ctx["shards"] if kv_sharded else buf_loc
+    pos = torch.as_tensor(pos, device=dev)
+    per_slot = pos.ndim == 1
     posv = pos[:, None] if per_slot else pos.expand(b, 1)
     if use_rope:
         q = rope(q, posv, rope_theta)
@@ -330,7 +346,7 @@ def attention_decode(p, x_t, cache: KVCache, pos, *, n_q, n_kv, head_dim,
     else:
         writes = ((cache.k, k_t), (cache.v, v_t))
     if per_slot or kv_sharded:
-        rows = torch.arange(b, device=x_t.device)
+        rows = torch.arange(b, device=dev)
         loc = slot if per_slot else slot.expand(b)
         if kv_sharded:
             loc = loc - axis_index(ctx["axis"]) * buf_loc
@@ -356,7 +372,7 @@ def attention_decode(p, x_t, cache: KVCache, pos, *, n_q, n_kv, head_dim,
     else:
         k_eff, v_eff = kv.k, kv.v
     scores = _attn_scores(q, k_eff, 1.0 / math.sqrt(head_dim))
-    idx = torch.arange(buf, device=x_t.device)
+    idx = torch.arange(buf, device=dev)
     if per_slot:
         if window is not None:
             age = (slot[:, None] - idx[None, :]) % buf
@@ -373,8 +389,7 @@ def attention_decode(p, x_t, cache: KVCache, pos, *, n_q, n_kv, head_dim,
         mask = valid[None, None, None, None, :]
     scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
     probs = torch.softmax(scores.to(torch.float32), dim=-1)
-    out = _attn_out(probs.to(x_t.dtype), v_eff)
-    return dense(p["wo"], out), cache
+    return _attn_out(probs.to(dtype), v_eff)
 
 
 def cross_attention_decode(p, x_t, k, v, *, n_q, n_kv, head_dim):

@@ -43,7 +43,7 @@ from typing import Any, NamedTuple, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import obs, resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.dist.sharding import (NamedSharding, current_layout,
                                        default_rules, fsdp_gather,
@@ -1148,13 +1148,15 @@ def decode_layers(cfg: ArchConfig, params, cache: DecodeCache):
 def decode_step(cfg: ArchConfig, params, cache: DecodeCache, token):
     """One decode step: token (B, 1) int → (logits (B, vocab), cache).
     The encoder–decoder adds the position table's row at each slot's
-    ``pos`` mod 4096 to the token's embedding."""
+    ``pos`` mod 4096 to the token's embedding.  The final norm and the
+    unembedding run in the span ``decode.unembed``."""
     x = _embed_tokens(cfg, params, token)
     if cfg.family == "encdec":
         x = x + _dec_pos_rows(params, cache.pos).to(x.dtype)
     for layer in decode_layers(cfg, params, cache):
         x = layer(x)
-    logits = _logits(cfg, params, x)[:, 0, :]
+    with obs.span("decode.unembed"):
+        logits = _logits(cfg, params, x)[:, 0, :]
     return logits, DecodeCache(cache.kv, cache.pos + 1, cache.extras)
 
 

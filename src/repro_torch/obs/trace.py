@@ -10,6 +10,14 @@ timeline for free (DESIGN.md §11).
 
 Timestamps are ``time.perf_counter()`` microseconds relative to the
 tracer's epoch, so spans from every thread share one monotonic clock.
+The tracer also reads ``perf_counter_ns`` and ``time.time_ns`` together
+when it is created and again at each export, and maps every stamp
+linearly between the two pairs onto the Unix epoch: the clock
+``torch.profiler`` stamps its host and device events with.
+:meth:`Tracer.intervals` gives the spans on that clock, and the Chrome
+export carries the Unix time of its ``ts`` 0 (``otherData``), so the
+timeline lays over a profiler trace.  Spans recorded on one thread nest
+by containment; that containment is their parent relation.
 Two ways to record a span:
 
 * ``with tracer.span("serve.prefill", slot=3): …`` — context manager,
@@ -31,7 +39,7 @@ import json
 import os
 import threading
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 __all__ = ["Tracer", "NULL_SPAN"]
 
@@ -73,11 +81,39 @@ class _Span:
         return False
 
 
+def _clock_pair() -> Tuple[int, int]:
+    """(perf_counter ns, Unix ns) read together: the Unix reading against
+    the midpoint of two perf_counter readings around it."""
+    a = time.perf_counter_ns()
+    u = time.time_ns()
+    return (a + time.perf_counter_ns()) // 2, u
+
+
 class Tracer:
     def __init__(self):
         self.events: List[Dict[str, Any]] = []
         self.epoch = time.perf_counter()
         self.pid = os.getpid()
+        self._anchor = _clock_pair()
+
+    def unix_ns(self):
+        """The map of a perf_counter stamp (s) to Unix ns: linear between
+        the creation's clock pair and one read now."""
+        (p0, u0), (p1, u1) = self._anchor, _clock_pair()
+        rate = (u1 - u0) / (p1 - p0) if p1 - p0 > 10**6 else 1.0
+        return lambda t_s: int(u0 + (t_s * 1e9 - p0) * rate)
+
+    def intervals(self) -> List[Tuple[str, int, int, Dict[str, Any]]]:
+        """(name, start Unix ns, end Unix ns, args) of every complete
+        event, in the order they were recorded (a span when it closed)."""
+        to_ns = self.unix_ns()
+        out = []
+        for e in self.events:
+            if e["ph"] == "X":
+                t0 = self.epoch + e["ts"] / 1e6
+                out.append((e["name"], to_ns(t0),
+                            to_ns(t0 + e["dur"] / 1e6), e["args"]))
+        return out
 
     def _us(self, t_s: float) -> float:
         return (t_s - self.epoch) * 1e6
@@ -110,7 +146,8 @@ class Tracer:
         """The loadable trace object (stable event order: by ts)."""
         return {"traceEvents": sorted(self.events,
                                       key=lambda e: (e["ts"], e["ph"])),
-                "displayTimeUnit": "ms"}
+                "displayTimeUnit": "ms",
+                "otherData": {"ts0_unix_ns": self.unix_ns()(self.epoch)}}
 
     def write(self, path: str) -> None:
         with open(path, "w") as f:

@@ -22,8 +22,13 @@ engines record the reference's spans (``serve.prefill``, ``serve.decode``,
 (``serve.request.arrival`` / ``first_token`` / ``finish``), counters,
 gauges and TTFT/TPOT histograms under the same names and labels, made
 from the same perf_counter stamps as the stats, and charge every forward
-dispatch its modeled weight traffic (``record_weight_traffic``).  Off, it
-is one boolean test per site and the streams are unchanged.
+dispatch its modeled weight traffic (``record_weight_traffic``).  The
+continuous engine splits each ``serve.decode`` into the port's own
+``serve.dispatch`` (the host enqueuing the step) and ``serve.sample``
+(the argmax, its copy to the host and the wait on the card); the step's
+``decode.attention`` and ``decode.unembed`` spans (``models``) nest in
+the dispatch.  Off, it is one boolean test per site and the streams are
+unchanged.
 
 Resilience (DESIGN.md §12): ``EngineConfig(resilience=ResilienceConfig(
 ...))`` enables per-request deadlines on the monotonic clock, a bounded
@@ -835,12 +840,15 @@ class ContinuousEngine(_EngineBase):
             td = self._now()
             logits, self.cache = self._retry("serve.decode",
                                              self._decode_dispatch)
+            t_disp = self._now()
             last = _greedy(logits)
             t_tok = self._now()
             self.decode_calls += 1
             self.decode_s += t_tok - td
             obs.complete("serve.decode", td, t_tok, engine="continuous",
                          slots=active)
+            obs.complete("serve.dispatch", td, t_disp, engine="continuous")
+            obs.complete("serve.sample", t_disp, t_tok, engine="continuous")
             for i in active:
                 r = self.slots[i]
                 r.out_tokens.append(int(last[i]))
